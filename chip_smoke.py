@@ -4,16 +4,25 @@
 Phases, each printing JSON lines:
   0. the card (nvidia-smi name and power limit) and the kernel build, with
      what ``-Xptxas -v`` reports per kernel;
-  1. each kernel against its plain PyTorch version at the shapes of the 8B
-     Q4_K_M main path, with its time, its bound and a PyTorch yardstick;
+  1. each kernel against its plain PyTorch version at the shapes of the main
+     paths, with its time, its bound and a PyTorch yardstick: K1-K4 at the
+     8B Q4_K_M shapes, K6 on two full-width 8B layers (B 1 and 8), K7 on the
+     18 layers of the 270M Q8_0 shape;
   2. the 8B Q4_K_M model end to end (synthetic weights from a seed, full
-     width): ``Engine.from_gguf`` then a greedy ``generate``, with every
-     kernel's launch count read around it;
-  3. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
+     width and depth): ``Engine.from_gguf``, a greedy ``generate`` (decode
+     through K6), the per-layer loop called as a function (K1-K4), and a
+     profile of both decode routes;
+  3. ``8b_fused``: the same model through ``decode_fused`` (one captured
+     step replayed per token), launches per token, and 8 steps of the K6
+     path held against the per-layer loop from the same state;
+  4. ``270m_q8_0``: the 270M-shape Q8_0 model through K7, the same way;
+  5. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
      and held-out perplexity.
-The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits non-zero.  Without a CUDA device, or without the package beside this
-file, it exits non-zero and prints no result.
+Kernel launch counts are set to 0 before each path and read after it; the
+fused loop adds its captured step's launches once per replay.  The last
+line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+non-zero.  Without a CUDA device, or without the package beside this file,
+it exits non-zero and prints no result.
 
 Usage: python3 chip_smoke.py
 """
@@ -25,12 +34,15 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_S = 67e12         # H100 SXM float32 outside the tensor cores
 TOL = 2e-2                 # max |kernel - plain| / max |plain|, as the JAX tests
+TOL_Q4KM = 8e-2            # decode logits of the Q4_K_M mix (JAX tests' bound)
 FIX = ROOT / "tests" / "fixtures"
 
 KERNEL_INFO = {
@@ -42,11 +54,38 @@ KERNEL_INFO = {
                      "llama_cpp_gfx906_tpu/ops/flash_decode.py:62"),
     "flash_attention": ("llama_cpp_gfx906_tpu_torch/csrc/flash_attention.cu",
                         "llama_cpp_gfx906_tpu/ops/flash_attention.py:29"),
+    "decode_stream": ("llama_cpp_gfx906_tpu_torch/csrc/decode_stream.cu",
+                      "llama_cpp_gfx906_tpu/ops/decode_stream.py:97"),
+    "decode_step": ("llama_cpp_gfx906_tpu_torch/csrc/decode_stream.cu",
+                    "llama_cpp_gfx906_tpu/ops/decode_step.py:69"),
 }
+# the path whose launch count each kernel reports in the summary line
+KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
+               "flash_decode": "8b_layer_loop", "flash_attention": "8b_layer_loop",
+               "decode_stream": "8b", "decode_step": "270m_q8_0"}
+
+
+FAILURES: list[str] = []
 
 
 def emit(**kw) -> None:
     print(json.dumps(kw), flush=True)
+
+
+def fail(message: str) -> None:
+    """Record a failed check; the script goes on with the other phases and
+    exits non-zero at the end."""
+    FAILURES.append(message)
+    emit(phase="failure", message=message)
+
+
+def run_phase(name: str, fn, *args):
+    try:
+        return fn(*args)
+    except Exception as e:  # noqa: BLE001 (every phase runs; the exit code tells)
+        traceback.print_exc()
+        fail(f"{name}: {e!r}")
+        return None
 
 
 def device_ms(fn, torch, flush, n: int = 10) -> float:
@@ -83,20 +122,30 @@ def device_ms(fn, torch, flush, n: int = 10) -> float:
     return (times[0] - times[1]) / n
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / BF16_FLOP_S * 1e3
+def bound(nbytes: float, flops: float, flop_s: float = BF16_FLOP_S) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / flop_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def check(name: str, got, ref, torch) -> tuple[float, float]:
+def check(name: str, got, ref, torch, tol: float = TOL) -> tuple[float, float]:
     got, ref = got.float(), ref.float()
     if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{name}: non-finite kernel output")
+        fail(f"{name}: non-finite kernel output")
     abs_err = float((got - ref).abs().max())
     rel = abs_err / max(float(ref.abs().max()), 1e-30)
-    if rel > TOL:
-        raise AssertionError(f"{name}: max error / max|plain| = {rel} > {TOL}")
+    if not rel <= tol:
+        fail(f"{name}: max error / max|plain| = {rel} > {tol}")
     return abs_err, rel
+
+
+def kernel_counts(reset: bool = False) -> dict:
+    """Every kernel wrapper's launch count (set to 0 first with ``reset``)."""
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.models import llama  # noqa: F401 (registers all)
+
+    if reset:
+        kernels.set_counts({})
+    return kernels.counts()
 
 
 def phase_build(torch):
@@ -113,7 +162,7 @@ def phase_build(torch):
     emit(phase="build", seconds=time.perf_counter() - t0, ptxas=report)
 
 
-def phase_kernels(torch, results: dict) -> None:
+def phase_kernels(torch, results: dict, tmp: Path) -> None:
     import torch.nn.functional as F
 
     from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
@@ -129,11 +178,12 @@ def phase_kernels(torch, results: dict) -> None:
     g = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
 
-    def record(name, case, err, ms, plain_ms, nbytes, flops, lib_ms):
-        b_ms, b_by = bound(nbytes, flops)
+    def record(name, case, err, ms, plain_ms, nbytes, flops, lib_ms,
+               flop_s=BF16_FLOP_S, **extra):
+        b_ms, b_by = bound(nbytes, flops, flop_s)
         emit(phase="kernel", kernel=name, case=case, max_abs_err=err[0],
              rel_err=err[1], tol=TOL, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-             bound_by=b_by, library_ms=lib_ms)
+             bound_by=b_by, library_ms=lib_ms, **extra)
         results.setdefault(name, []).append(dict(
             case=case, max_abs_err=err[0], ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
@@ -216,82 +266,118 @@ def phase_kernels(torch, results: dict) -> None:
                device_ms(lambda: F.scaled_dot_product_attention(
                    qs, kl, vl, attn_mask=mask, scale=scale, enable_gqa=True),
                    torch, flush))
-    del kc, vc, flush
+    del kc, vc
     torch.cuda.empty_cache()
 
-
-def counters():
-    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
-    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention
-    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode
-
-    return {"gemv_int8": qmm.gemv_int8, "gemv_nib4c": qmm.gemv_nib4c,
-            "flash_decode": flash_decode, "flash_attention": flash_attention}
-
-
-def reset_counts() -> None:
-    for fn in counters().values():
-        fn.launches = 0
-
-
-def read_counts() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
-
-
-def phase_8b(torch, launches: dict) -> None:
+    # K6 on two full-width 8B Q4_K_M layers, K7 on the 18 layers of the
+    # 270M Q8_0 shape: the whole decode step against its plain version, the
+    # per-layer loop's device time for the same step beside it
+    from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
     from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
     from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "synth-8b-q4km.gguf")
-        t0 = time.perf_counter()
-        write_synth(path, "8b", seed=0)
-        t_write = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
-        eng = Engine.from_gguf(path, max_seq=8192)
-    mem_weights = torch.cuda.memory_allocated()
-    words = " ".join(f"w{i % 97}" for i in range(110))
-    prompt = f"The synthetic eight billion model reads: {words}"
-    n_prompt = len(eng.tokenizer.tokenize(prompt))
-    reset_counts()
-    _, toks = eng.generate(prompt, n_predict=32, stop_on_eog=False)
-    torch.cuda.synchronize()
-    launches.update(read_counts())
-    logits = eng.decode_one(toks[-1])
-    perf = eng.perf.summary()
-    profile = profile_decode(torch, eng, toks[-1])
-    emit(phase="8b", synth_write_s=t_write, prompt_tokens=n_prompt,
-         new_tokens=len(toks), **perf,
-         prefill_s=eng.perf.t_prefill_s, decode_s=eng.perf.t_decode_s,
-         weights_and_cache_bytes=mem_weights,
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches)
-    emit(phase="8b_decode_profile", **profile)
-    if len(toks) != 32 or not all(0 <= t < eng.cfg.n_vocab for t in toks):
-        raise AssertionError(f"8b: bad generated tokens {toks}")
-    if logits.shape != (eng.cfg.n_vocab,) or not bool(
-            torch.isfinite(torch.from_numpy(logits)).all()):
-        raise AssertionError("8b: logits of the wrong shape or not finite")
-    idle = [k for k, n in launches.items() if n == 0]
-    if idle:
-        raise AssertionError(f"8b: kernels never launched on the main path: {idle}")
-    del eng
-    torch.cuda.empty_cache()
+    for name, preset, L, batches in (("decode_stream", "8b", 2, (1, 8)),
+                                     ("decode_step", "270m-q8_0", None, (1,))):
+        path = write_synth(str(tmp / f"{preset}-kernel.gguf"), preset, seed=0,
+                           n_layers=L, n_vocab=512)
+        eng = Engine.from_gguf(path, max_seq=4096)
+        kern, plain = ((k6.fused_decode_step_streamed, k6.fused_decode_step_streamed_plain)
+                       if name == "decode_stream"
+                       else (k7.fused_decode_step, k7.fused_decode_step_plain))
+        for B in batches:
+            for n_past in (700, 3000):
+                decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record)
+        del eng
+        torch.cuda.empty_cache()
+    del flush
 
 
-def profile_decode(torch, eng, tok: int, steps: int = 4) -> dict:
-    """Device time of a few decode steps by kernel name (torch.profiler),
-    against the wall time of the same steps run without the profiler."""
+def decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record) -> None:
+    from llama_cpp_gfx906_tpu_torch.models.llama import KVCache, layers_forward
+    from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
+    from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import QuantTensor
+
+    params, cfg, dev = eng.params, eng.cfg, eng.device
+    S = eng.max_seq
+    caches = []
+    for _ in range(3):
+        kv = KVCache.create(cfg, B, S, torch.bfloat16, dev)
+        gg = torch.Generator(device=dev).manual_seed(11)
+        kv.k.copy_(torch.randn(kv.k.shape, generator=gg, device=dev))
+        kv.v.copy_(torch.randn(kv.v.shape, generator=gg, device=dev))
+        kv.n_past.fill_(n_past)
+        caches.append(kv)
+    gate = k6._stream_ok if name == "decode_stream" else k7._fused_ok
+    if not gate(params, cfg, caches[0], B, 1):
+        raise AssertionError(f"{name}: the gate refuses B={B}")
+    toks = torch.randint(0, cfg.n_vocab, (B, 1), generator=g, device=dev)
+    x = params["tok_emb"][toks]
+    case = f"L={cfg.n_layers} B={B} n_past={n_past}"
+    with torch.inference_mode():
+        got = kern(params, cfg, x, caches[0])
+        ref = plain(params, cfg, x, caches[1])
+        torch.cuda.synchronize()
+        err = check(f"{name} {case}", got, ref, torch)
+        for a, b in ((caches[0].k, caches[1].k), (caches[0].v, caches[1].v)):
+            rows = (a[:, :, n_past], b[:, :, n_past])
+            check(f"{name} {case} new KV rows", *rows, torch)
+        ms = device_ms(lambda: kern(params, cfg, x, caches[0]), torch, flush)
+        plain_ms = device_ms(lambda: plain(params, cfg, x, caches[1]), torch, flush)
+        loop_ms = device_ms(lambda: layers_forward(params, cfg, x, caches[2]), torch, flush)
+    planes = [t for p in params["layers"] for q in p.children()
+              if isinstance(q, QuantTensor)
+              for t in (q.q, q.s, q.m, q.sd, q.md) if t is not None]
+    planes += [p[n] for p in params["layers"] for n in ("attn_norm", "ffn_norm")]
+    HD = cfg.n_kv_heads * cfg.head_dim
+    L, D = cfg.n_layers, cfg.n_embd
+    macs = sum(q.K * q.N for p in params["layers"] for q in p.children()
+               if isinstance(q, QuantTensor))
+    nbytes = (sum(t.numel() * t.element_size() for t in planes)
+              + 2 * L * B * (n_past + 1) * HD * 2  # live KV read, new rows written
+              + B * D * 4)                         # x in and out (bf16)
+    flops = 2 * B * macs + 4 * L * B * cfg.n_heads * (n_past + 1) * cfg.head_dim
+    record(name, case, err, ms, plain_ms, nbytes, flops, None, flop_s=F32_FLOP_S,
+           per_layer_loop_ms=loop_ms)
+    del caches
+
+
+def loop_logits(torch, eng, tok: int, layers_fn=None):
+    """One decode step through ``layers_fn``, by default the per-layer loop
+    (``layers_forward``, the route the JAX package takes off its
+    accelerator: K1/K2 GEMVs and K3 attention per layer), called as a
+    function, then the head."""
+    from llama_cpp_gfx906_tpu_torch.models.llama import layers_forward
+    from llama_cpp_gfx906_tpu_torch.ops.norms import rms_norm
+    from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import linear
+
+    p, cfg = eng.params, eng.cfg
+    with torch.inference_mode():
+        x = p["tok_emb"][torch.tensor([[tok]], device=eng.device)]
+        x = (layers_fn or layers_forward)(p, cfg, x, eng.kv)
+        logits = linear(rms_norm(x, p["out_norm"], cfg.rms_eps), p["lm_head"]).float()
+        eng.set_n_past(eng.n_past + 1)
+        return logits[0, -1].cpu().numpy()
+
+
+def profile_steps(torch, step, steps: int, tokens_per_step: int = 1) -> dict:
+    """Device time of ``steps`` calls of ``step`` by kernel name
+    (torch.profiler), against the wall time of the same calls run without
+    the profiler; per generated token."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        eng.decode_one(tok)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        step()
+    torch.cuda.synchronize()
+    n_tok = steps * tokens_per_step
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n_tok
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            eng.decode_one(tok)
+            step()
+        torch.cuda.synchronize()
     by_name = {}
     for ev in prof.key_averages():
         # device-side events only (kernels, memsets, copies): the CPU-side
@@ -302,16 +388,210 @@ def profile_decode(torch, eng, tok: int, steps: int = 4) -> dict:
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
         if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / steps
-    device_ms = sum(by_name.values())
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / n_tok
+    dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return dict(steps=steps, wall_ms_per_token=wall_ms,
-                device_ms_per_token=device_ms if by_name else "not measured",
-                device_idle_share=(1 - device_ms / wall_ms) if by_name else "not measured",
+    return dict(tokens=n_tok, wall_ms_per_token=wall_ms,
+                device_ms_per_token=dev_ms if by_name else "not measured",
+                device_idle_share=(1 - dev_ms / wall_ms) if by_name else "not measured",
                 top_kernels_ms_per_token=[[k[:90], v] for k, v in top])
 
 
-def phase_tinydoc(torch) -> None:
+def prompt_ids(eng) -> list[int]:
+    words = " ".join(f"w{i % 97}" for i in range(110))
+    return eng.tokenizer.tokenize(f"The synthetic model reads: {words}",
+                                  add_special=True, parse_special=True)
+
+
+def compare_routes(torch, eng, ids, tol: float, enforce_loop: bool,
+                   steps: int = 8) -> dict:
+    """``steps`` decode steps from the same state three ways, each fed the
+    fused route's greedy tokens and read through the same head: the fused
+    route (``forward``: one K6/K7 launch), the decode kernel's plain version
+    (``decode_layers_plain``, the same rounding points) and the per-layer
+    loop.  The kernel is held to its plain version (max |diff| / max |plain|
+    <= TOL); the fused route to the loop by the JAX kernel tests' check,
+    assert_allclose(rtol=tol, atol=tol), where ``enforce_loop`` (for Q8_0
+    the kernel rounds each weight to bf16 as the JAX kernel does and the
+    loop does not, a gap that grows with depth: reported, not enforced)."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.ops.decode_stream import decode_layers_plain
+
+    eng.reset()
+    tok = int(np.argmax(eng.prefill(ids)))
+    n0 = eng.n_past
+    k0, v0 = eng.kv.k.clone(), eng.kv.v.clone()
+
+    def rewind():
+        eng.kv.k.copy_(k0)
+        eng.kv.v.copy_(v0)
+        eng.set_n_past(n0)
+
+    fused, fed = [], []
+    for _ in range(steps):
+        fed.append(tok)
+        fused.append(eng.decode_one(tok))
+        tok = int(np.argmax(fused[-1]))
+    rewind()
+    plain = [loop_logits(torch, eng, t, decode_layers_plain) for t in fed]
+    rewind()
+    loop = [loop_logits(torch, eng, t) for t in fed]
+    del k0, v0
+
+    def stats(xs, ys):
+        return dict(
+            max_rel=max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(xs, ys)),
+            allclose_ratio=max(float((np.abs(a - b) / (tol + tol * np.abs(b))).max())
+                               for a, b in zip(xs, ys)),
+            greedy_agree=sum(int(np.argmax(a) == np.argmax(b)) for a, b in zip(xs, ys)))
+
+    out = dict(steps=steps, tol=tol, kernel_vs_plain=stats(fused, plain),
+               fused_vs_loop=stats(fused, loop), plain_vs_loop=stats(plain, loop))
+    if not all(np.isfinite(a).all() for a in fused):
+        fail("fused route: non-finite logits")
+    if not out["kernel_vs_plain"]["max_rel"] <= TOL:
+        fail(f"fused route vs its plain version: {out['kernel_vs_plain']}, tol {TOL}")
+    if enforce_loop and not out["fused_vs_loop"]["allclose_ratio"] <= 1:
+        fail(f"fused route vs per-layer loop: {out['fused_vs_loop']}, tol {tol}")
+    return out
+
+
+def fused_run(torch, eng, ids, kernel: str, chunk: int = 32, chunks: int = 2) -> dict:
+    """decode_fused after a prefill: tok/s (the first chunk, which captures
+    the step, apart), launches per token, and a profile of one chunk."""
+    import numpy as np
+
+    eng.reset()
+    tok = int(np.argmax(eng.prefill(ids)))
+    t0 = time.perf_counter()
+    toks = eng.decode_fused(tok, n_steps=chunk)
+    capture_s = time.perf_counter() - t0
+    kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    for _ in range(chunks):
+        toks = eng.decode_fused(toks[-1], n_steps=chunk)
+    dt = time.perf_counter() - t0
+    counts = kernel_counts()
+    per_tok = {k: n / (chunk * chunks) for k, n in counts.items()}
+    want = {kernel: 1.0, "gemv_int8": 1.0, "gemv_nib4c": 0.0, "flash_decode": 0.0}
+    if any(per_tok[k] != v for k, v in want.items()):
+        fail(f"fused decode launches per token {per_tok}, want {want}")
+    prof = profile_steps(torch, lambda: eng.decode_fused(tok, n_steps=chunk), 2,
+                         tokens_per_step=chunk)
+    return dict(first_chunk_with_capture_s=capture_s,
+                decode_fused_tok_s=chunk * chunks / dt, launches=counts,
+                launches_per_token=per_tok, profile=prof)
+
+
+def phase_8b(torch, paths: dict, tmp: Path):
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = str(tmp / "synth-8b-q4km.gguf")
+    t0 = time.perf_counter()
+    write_synth(path, "8b", seed=0)
+    t_write = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine.from_gguf(path, max_seq=8192)
+    mem_weights = torch.cuda.memory_allocated()
+    route = decode_route(eng.params, eng.cfg, eng.kv)
+    if route != "k6":
+        raise AssertionError(f"8b: decode route {route}, want k6")
+    ids = prompt_ids(eng)
+    prompt = eng.tokenizer.detokenize(ids)
+    kernel_counts(reset=True)
+    _, toks = eng.generate(prompt, n_predict=32, stop_on_eog=False)
+    torch.cuda.synchronize()
+    paths["8b"] = launches = kernel_counts()
+    logits = eng.decode_one(toks[-1])
+    perf = eng.perf.summary()
+    emit(phase="8b", synth_write_s=t_write, prompt_tokens=len(ids),
+         new_tokens=len(toks), route=route, **perf,
+         prefill_s=eng.perf.t_prefill_s, decode_s=eng.perf.t_decode_s,
+         weights_and_cache_bytes=mem_weights,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches)
+    if len(toks) != 32 or not all(0 <= t < eng.cfg.n_vocab for t in toks):
+        raise AssertionError(f"8b: bad generated tokens {toks}")
+    if logits.shape != (eng.cfg.n_vocab,) or not bool(
+            torch.isfinite(torch.from_numpy(logits)).all()):
+        raise AssertionError("8b: logits of the wrong shape or not finite")
+    if launches["decode_stream"] != 32 or launches["gemv_nib4c"] or launches["flash_decode"]:
+        raise AssertionError(f"8b: decode went elsewhere than K6: {launches}")
+
+    # the per-layer loop (PR 1's decode route), called as a function
+    eng.reset()
+    kernel_counts(reset=True)
+    tok = int(eng.prefill(ids).argmax())
+    t0 = time.perf_counter()
+    for _ in range(16):
+        tok = int(loop_logits(torch, eng, tok).argmax())
+    loop_tok_s = 16 / (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    paths["8b_layer_loop"] = kernel_counts()
+    emit(phase="8b_layer_loop", decode_tok_s=loop_tok_s, launches=paths["8b_layer_loop"])
+    profile = {
+        "k6_decode_one": profile_steps(torch, lambda: eng.decode_one(tok), 4),
+        "per_layer_loop": profile_steps(torch, lambda: loop_logits(torch, eng, tok), 4)}
+    emit(phase="8b_decode_profile", **profile)
+    return eng, ids
+
+
+def phase_8b_fused(torch, eng, ids, paths: dict) -> None:
+    out = fused_run(torch, eng, ids, "decode_stream")
+    paths["8b_fused"] = out["launches"]
+    cmp = compare_routes(torch, eng, ids, TOL_Q4KM, enforce_loop=True)
+    eng.reset()
+    eng.prefill(ids)
+    t0 = time.perf_counter()
+    for i in range(16):
+        eng.decode_one(5 + i)
+    one_tok_s = 16 / (time.perf_counter() - t0)
+    prompt = eng.tokenizer.detokenize(ids)
+    t_dec, n_dec = eng.perf.t_decode_s, eng.perf.n_decode
+    t0 = time.perf_counter()
+    _, toks = eng.generate_fused(prompt, n_predict=65, stop_on_eog=False, chunk=32)
+    gen_s = time.perf_counter() - t0
+    emit(phase="8b_fused", decode_one_tok_s=one_tok_s,
+         generate_fused_s=gen_s, generate_fused_new_tokens=len(toks),
+         generate_fused_decode_tok_s=(eng.perf.n_decode - n_dec)
+         / (eng.perf.t_decode_s - t_dec),
+         **out, layer_loop_comparison=cmp)
+
+
+def phase_270m(torch, paths: dict, tmp: Path) -> None:
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = str(tmp / "synth-270m-q8_0.gguf")
+    t0 = time.perf_counter()
+    write_synth(path, "270m-q8_0", seed=0)
+    t_write = time.perf_counter() - t0
+    eng = Engine.from_gguf(path, max_seq=4096)
+    route = decode_route(eng.params, eng.cfg, eng.kv)
+    if route != "k7":
+        raise AssertionError(f"270m_q8_0: decode route {route}, want k7")
+    ids = prompt_ids(eng)
+    kernel_counts(reset=True)
+    _, toks = eng.generate(eng.tokenizer.detokenize(ids), n_predict=32, stop_on_eog=False)
+    torch.cuda.synchronize()
+    paths["270m_q8_0"] = launches = kernel_counts()
+    if launches["decode_step"] != 32 or launches["gemv_nib4c"] or launches["flash_decode"]:
+        raise AssertionError(f"270m_q8_0: decode went elsewhere than K7: {launches}")
+    perf = eng.perf.summary()
+    out = fused_run(torch, eng, ids, "decode_step")
+    cmp = compare_routes(torch, eng, ids, TOL, enforce_loop=False)
+    emit(phase="270m_q8_0", synth_write_s=t_write, prompt_tokens=len(ids),
+         route=route, generate_launches=launches, **perf, **out,
+         layer_loop_comparison=cmp)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_tinydoc(torch, paths: dict) -> None:
     import numpy as np
 
     from llama_cpp_gfx906_tpu_torch.models.llama import KVCache, forward
@@ -320,11 +600,14 @@ def phase_tinydoc(torch) -> None:
     expected = json.loads((FIX / "tinydoc_expected.json").read_text())
     eng = Engine.from_gguf(str(FIX / "tinydoc-byte.f16.gguf"), max_seq=192,
                            dtype=torch.float32)
-    reset_counts()
+    kernel_counts(reset=True)
     for prompt, want in expected["greedy"].items():
         _, toks = eng.generate(prompt, n_predict=len(want), stop_on_eog=False)
         if toks != want:
             raise AssertionError(f"tinydoc: greedy drift for {prompt!r}: {toks}")
+        if eng.generate_fused(prompt, n_predict=len(want), stop_on_eog=False,
+                              chunk=8)[1] != want:
+            raise AssertionError(f"tinydoc: generate_fused drift for {prompt!r}")
     held = expected["held_ids"]
     kv = KVCache.create(eng.cfg, 1, len(held) - 1, torch.float32, eng.device)
     with torch.inference_mode():
@@ -334,7 +617,7 @@ def phase_tinydoc(torch) -> None:
             torch.arange(len(held) - 1, device=eng.device),
             torch.tensor(held[1:], device=eng.device)]
     ppl = float(np.exp(-float(logp.mean())))
-    counts = read_counts()
+    paths["tinydoc"] = counts = kernel_counts()
     emit(phase="tinydoc", greedy_prompts=len(expected["greedy"]), ppl=ppl,
          ppl_pinned=expected["ppl"], launches=counts)
     if abs(ppl - expected["ppl"]) / expected["ppl"] >= 0.01:
@@ -363,20 +646,34 @@ def main() -> None:
          cuda=torch.version.cuda, device_count=torch.cuda.device_count())
     phase_build(torch)
     results: dict = {}
-    launches: dict = {}
-    phase_kernels(torch, results)
-    phase_8b(torch, launches)
-    phase_tinydoc(torch)
+    paths: dict = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        run_phase("kernel", phase_kernels, torch, results, tmp)
+        got = run_phase("8b", phase_8b, torch, paths, tmp)
+        if got is not None:
+            run_phase("8b_fused", phase_8b_fused, torch, *got, paths)
+        del got
+        torch.cuda.empty_cache()
+        run_phase("270m_q8_0", phase_270m, torch, paths, tmp)
+    run_phase("tinydoc", phase_tinydoc, torch, paths)
 
+    idle = [k for k, p in KERNEL_PATH.items() if not paths.get(p, {}).get(k)]
+    if idle:
+        fail(f"kernels never launched on their path: {idle}")
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} failed check(s)", file=sys.stderr)
+        sys.exit(1)
     # one main-path shape per kernel in the summary line
     pick = {"gemv_int8": "lm_head", "gemv_nib4c": "ffn_gate_up",
-            "flash_decode": "n_past=8000 window=0", "flash_attention": "n_past=256"}
+            "flash_decode": "n_past=8000 window=0", "flash_attention": "n_past=256",
+            "decode_stream": "B=1 n_past=3000", "decode_step": "B=1 n_past=3000"}
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = next(r for r in results[name] if pick[name] in r["case"])
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name],
+            launches=paths[KERNEL_PATH[name]][name],
             max_abs_err=max(x["max_abs_err"] for x in results[name]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

@@ -240,6 +240,9 @@ cudaError_t launch(int D, const void* q, const void* k, const void* v,
     case 128:
       return launch_d<E, 128>(q, k, v, n_past, sinks, out, B, T, S, Hq, Hkv,
                               scale, window, softcap, st);
+    case 256:  // 222 KB of shared tiles
+      return launch_d<E, 256>(q, k, v, n_past, sinks, out, B, T, S, Hq, Hkv,
+                              scale, window, softcap, st);
     default:
       return cudaErrorInvalidValue;
   }

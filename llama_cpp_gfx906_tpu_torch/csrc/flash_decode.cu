@@ -65,10 +65,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// n consecutive elements (n = 2 or 4, 4n-byte aligned) as f32
+// n consecutive elements (n = 2, 4 or 8, 4n-byte aligned) as f32
 template <int N>
 __device__ __forceinline__ void load_dims(const __nv_bfloat16* p, float* out) {
-  if (N == 4) {
+  if constexpr (N == 8) {
+    load_dims<4>(p, out);
+    load_dims<4>(p + 4, out + 4);
+  } else if constexpr (N == 4) {
     const uint2 w = *reinterpret_cast<const uint2*>(p);
     out[0] = __uint_as_float(w.x << 16); out[1] = __uint_as_float(w.x & 0xFFFF0000u);
     out[2] = __uint_as_float(w.y << 16); out[3] = __uint_as_float(w.y & 0xFFFF0000u);
@@ -79,7 +82,10 @@ __device__ __forceinline__ void load_dims(const __nv_bfloat16* p, float* out) {
 }
 template <int N>
 __device__ __forceinline__ void load_dims(const float* p, float* out) {
-  if (N == 4) {
+  if constexpr (N == 8) {
+    load_dims<4>(p, out);
+    load_dims<4>(p + 4, out + 4);
+  } else if constexpr (N == 4) {
     const float4 w = *reinterpret_cast<const float4*>(p);
     out[0] = w.x; out[1] = w.y; out[2] = w.z; out[3] = w.w;
   } else {
@@ -294,6 +300,11 @@ cudaError_t launch(int D, const float* qh, const void* k, const void* v,
     case 128:
       return launch_d<KV, 128>(qh, k, v, n_past, sinks, out, B, S, Hkv, NQ, T,
                                scale, window, softcap, st);
+    case 256:  // bf16 only: two f32 stages of 256-wide rows exceed 227 KB
+      if constexpr (sizeof(KV) == 2)
+        return launch_d<KV, 256>(qh, k, v, n_past, sinks, out, B, S, Hkv, NQ,
+                                 T, scale, window, softcap, st);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

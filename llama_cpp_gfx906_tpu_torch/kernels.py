@@ -6,6 +6,12 @@ build runs at first use, into ``build/kernels/`` at the repository root;
 library names carry a hash of their sources, so an edited kernel is rebuilt
 and a stale library is never loaded.  All sources build in parallel, one
 ``nvcc`` each.  Nothing is built or loaded at import time.
+
+Launch counts: every kernel wrapper is registered here with a plain
+integer ``launches`` that it bumps where it launches.  A captured CUDA
+graph launches again on every replay without running the wrappers, so the
+code that replays one adds what the capture counted (:func:`counts`,
+:func:`set_counts`, :func:`add_counts`).
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("gemv", "flash_decode", "flash_attention")
+SOURCES = ("gemv", "flash_decode", "flash_attention", "decode_stream")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +47,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -98,3 +104,32 @@ def stream(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# name -> the wrapper function whose ``launches`` attribute counts its kernel
+COUNTERS: dict = {}
+
+
+def counted(name: str):
+    """Register a kernel wrapper under ``name``, with ``launches = 0``."""
+
+    def deco(fn):
+        fn.launches = 0
+        COUNTERS[name] = fn
+        return fn
+
+    return deco
+
+
+def counts() -> dict:
+    return {k: fn.launches for k, fn in COUNTERS.items()}
+
+
+def set_counts(values: dict) -> None:
+    for k, fn in COUNTERS.items():
+        fn.launches = values.get(k, 0)
+
+
+def add_counts(delta: dict, times: int = 1) -> None:
+    for k, n in delta.items():
+        COUNTERS[k].launches += n * times

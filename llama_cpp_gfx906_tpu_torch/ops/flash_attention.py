@@ -27,6 +27,7 @@ def flash_attention_plain(q, k_cache, v_cache, n_past, scale: float,
                   logit_softcap, sinks)
 
 
+@kernels.counted("flash_attention")
 def flash_attention(q, k_cache, v_cache, n_past, scale: float,
                     sliding_window: int = 0, logit_softcap: float = 0.0,
                     sinks=None) -> torch.Tensor:
@@ -39,8 +40,8 @@ def flash_attention(q, k_cache, v_cache, n_past, scale: float,
     B, T, Hq, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     dt = k_cache.dtype
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention: head dim {D} (64 or 128)")
+    if D not in (64, 128, 256):
+        raise ValueError(f"flash_attention: head dim {D} (64, 128 or 256)")
     if dt not in (torch.bfloat16, torch.float32) or v_cache.dtype != dt:
         raise ValueError(f"flash_attention: unsupported cache dtype {dt}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
@@ -63,6 +64,3 @@ def flash_attention(q, k_cache, v_cache, n_past, scale: float,
     kernels.check(so, err, "flash_attention")
     flash_attention.launches += 1
     return out.to(q.dtype)
-
-
-flash_attention.launches = 0

@@ -28,6 +28,7 @@ def flash_decode_plain(q, k_cache, v_cache, n_past, scale: float,
                   logit_softcap, sinks)
 
 
+@kernels.counted("flash_decode")
 def flash_decode(q, k_cache, v_cache, n_past, scale: float,
                  sliding_window: int = 0, logit_softcap: float = 0.0,
                  sinks=None) -> torch.Tensor:
@@ -41,9 +42,10 @@ def flash_decode(q, k_cache, v_cache, n_past, scale: float,
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
     NQ = G * T
-    if NQ > MAX_QUERIES or D not in (64, 128):
+    if NQ > MAX_QUERIES or D not in (64, 128, 256) or (
+            D == 256 and k_cache.dtype != torch.bfloat16):
         raise ValueError(f"flash_decode: G*T = {NQ} (at most {MAX_QUERIES}), "
-                         f"head dim {D} (64 or 128)")
+                         f"head dim {D} (64, 128, or 256 with a bf16 cache)")
     if k_cache.dtype not in (torch.bfloat16, torch.float32) or \
             v_cache.dtype != k_cache.dtype:
         raise ValueError(f"flash_decode: unsupported cache dtype {k_cache.dtype}")
@@ -73,6 +75,3 @@ def flash_decode(q, k_cache, v_cache, n_past, scale: float,
     flash_decode.launches += 1
     out = out.reshape(B, Hkv, G, T, D).permute(0, 3, 1, 2, 4)
     return out.reshape(B, T, Hq, D).to(q.dtype)
-
-
-flash_decode.launches = 0

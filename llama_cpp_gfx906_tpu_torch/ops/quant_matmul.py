@@ -308,6 +308,7 @@ def _gemv_launch(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return out[:M, : qt.N]
 
 
+@kernels.counted("gemv_int8")
 def gemv_int8(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """K1: x (M <= 8, K) @ int8 QuantTensor -> f32 (M, N)."""
     if x2.device.type == "cpu":
@@ -319,6 +320,7 @@ def gemv_int8(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return out
 
 
+@kernels.counted("gemv_nib4c")
 def gemv_nib4c(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """K2: x (M <= 8, K) @ nib4c QuantTensor -> f32 (M, N)."""
     if x2.device.type == "cpu":
@@ -328,10 +330,6 @@ def gemv_nib4c(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     out = _gemv_launch(x2, qt)
     gemv_nib4c.launches += 1
     return out
-
-
-gemv_int8.launches = 0
-gemv_nib4c.launches = 0
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:

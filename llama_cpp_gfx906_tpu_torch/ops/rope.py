@@ -38,6 +38,20 @@ def rope_frequencies(cfg: ModelConfig) -> np.ndarray:
     return inv_freq.astype(np.float32)
 
 
+_INV_FREQ: dict = {}
+
+
+def inv_freq_for(cfg: ModelConfig, device) -> torch.Tensor:
+    """:func:`rope_frequencies` as a tensor on ``device``, copied there once
+    per (cfg, device) and reused by every forward (a step then has no
+    host-to-device copy and can be captured in a CUDA graph)."""
+    key = (cfg, torch.device(device))
+    t = _INV_FREQ.get(key)
+    if t is None:
+        t = _INV_FREQ[key] = torch.from_numpy(rope_frequencies(cfg)).to(device)
+    return t
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
                interleaved: bool = True) -> torch.Tensor:
     """Rotate ``x`` (B, T, H, Dh) by ``positions`` (B, T).

@@ -208,6 +208,51 @@ def fuse_projections(p: dict) -> dict:
     return out
 
 
+def layer_table(params: ParamDict, cfg: ModelConfig) -> torch.Tensor:
+    """The decode kernels' (K6, K7) view of the layer stack: an int64 device
+    table (L, 28) of, per layer, the addresses of the q, s, m, sd, md planes
+    of the projections q|k|v (or q|k), v (split-v only), o, gate|up and down
+    (0 where a plane is absent), then the attn_norm and ffn_norm vectors and
+    the layer's sliding window.  The JAX package stacks the layers instead;
+    the port builds this once, holds it with the params (whose tensors it
+    points into) and reuses it every step.  Planes must be contiguous,
+    16-byte aligned and on one device; otherwise this raises."""
+    cached = params.__dict__.get("_layer_table")
+    if cached is not None:
+        return cached
+    from ..ops.decode_stream import proj_keys
+
+    layers = params["layers"]
+    keys = proj_keys(layers[0])
+    slots = (keys if len(keys) == 5 else (keys[0], None) + keys[1:])
+    dev = layers[0]["attn_norm"].device
+
+    def addr(t, align: int) -> int:
+        if t is None:
+            return 0
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError("decode table: planes must be contiguous, "
+                             f"{align}-byte aligned and on {dev}")
+        return t.data_ptr()
+
+    rows = []
+    for p in layers:
+        row = []
+        for k in slots:
+            qt = p[k] if k else None
+            row += [addr(getattr(qt, n) if qt else None, 16)
+                    for n in ("q", "s", "m", "sd", "md")]
+        for n in ("attn_norm", "ffn_norm"):
+            if p[n].dtype != torch.float32:
+                raise ValueError(f"decode table: {n} must be float32")
+            row.append(addr(p[n], 4))
+        row.append(cfg.sliding_window)
+        rows.append(row)
+    table = torch.tensor(rows, dtype=torch.int64).to(dev)
+    params.__dict__["_layer_table"] = table
+    return table
+
+
 def _to_torch(a, device) -> torch.Tensor:
     a = np.array(a, copy=True)  # writable and contiguous
     if a.dtype.name == "bfloat16":  # ml_dtypes bf16: move the bits

@@ -17,9 +17,14 @@ import numpy as np
 @dataclass
 class SamplerParams:
     """The fields of the JAX package's ``SamplerParams`` that the greedy
-    path reads, with its defaults."""
+    path and the on-device sampler (``ops/sampling_ops.py``) read, with its
+    defaults."""
 
+    seed: int = 0xFFFFFFFF
     temp: float = 0.8
+    top_k: int = 40
+    top_p: float = 0.95
+    min_p: float = 0.05
     penalty_last_n: int = 64
     penalty_repeat: float = 1.0
     penalty_freq: float = 0.0
