@@ -6,8 +6,9 @@ Phases, each printing JSON lines:
      what ``-Xptxas -v`` reports per kernel;
   1. each kernel against its plain PyTorch version at the shapes of the main
      paths, with its time, its bound and a PyTorch yardstick: K1-K4 at the
-     8B Q4_K_M shapes, K6 on two full-width 8B layers (B 1 and 8), K7 on the
-     18 layers of the 270M Q8_0 shape;
+     8B Q4_K_M shapes, K5 at the 270M Q8_0 prefill shapes, K6 on two
+     full-width 8B layers (B 1 and 8), K7 on the 18 layers of the 270M Q8_0
+     shape;
   2. the 8B Q4_K_M model end to end (synthetic weights from a seed, full
      width and depth): ``Engine.from_gguf``, a greedy ``generate`` (decode
      through K6), the per-layer loop called as a function (K1-K4), and a
@@ -15,21 +16,31 @@ Phases, each printing JSON lines:
   3. ``8b_fused``: the same model through ``decode_fused`` (one captured
      step replayed per token), launches per token, and 8 steps of the K6
      path held against the per-layer loop from the same state;
-  4. ``270m_q8_0``: the 270M-shape Q8_0 model through K7, the same way;
+  4. ``270m_q8_0``: the 270M-shape Q8_0 model (prefill through K5, decode
+     through K7), the same way;
   5. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
      and held-out perplexity.
-Kernel launch counts are set to 0 before each path and read after it; the
-fused loop adds its captured step's launches once per replay.  The last
-line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+Kernel launch counts are set to 0 before each path and read after it.  A
+replayed CUDA graph bypasses the wrappers' counts, so the fused loop's
+launches per token are read from a profiler trace of its replays.  The
+last line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero.  Without a CUDA device, or without the package beside this file,
 it exits non-zero and prints no result.
 
 Usage: python3 chip_smoke.py
+
+``python3 chip_smoke.py --plant-faults`` shows instead whether the K6/K7
+check can fail: it copies the package and this script into temporary
+directories, plants one known fault (``FAULTS``) in each copy's
+``csrc/decode_stream.cu``, builds the copies, and prints the errors that
+``decode_errors`` reads for each (K6 on two 8B layers, K7 on the 18 layers
+of the 270M shape; B = 1, n_past 700), the unmodified source first.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -44,6 +55,22 @@ F32_FLOP_S = 67e12         # H100 SXM float32 outside the tensor cores
 TOL = 2e-2                 # max |kernel - plain| / max |plain|, as the JAX tests
 TOL_Q4KM = 8e-2            # decode logits of the Q4_K_M mix (JAX tests' bound)
 FIX = ROOT / "tests" / "fixtures"
+PKG = "llama_cpp_gfx906_tpu_torch"
+
+# --plant-faults: name -> (text of csrc/decode_stream.cu, what replaces it)
+FAULTS = {
+    "none": None,
+    # the current token's value left out of its own attention output
+    "no_self_value": ("o += ws * bf16r(ldcg(vrow + d));", ""),
+    # every layer but the last loses its MLP residual
+    "no_mlp_residual": (
+        "return bf16r(ldcg(a.xmid + (size_t)m * D + k) +\n"
+        "                   bf16r(ldcg(a.dn_acc + (size_t)m * D + k)));",
+        "return bf16r(ldcg(a.xmid + (size_t)m * D + k));"),
+    # attention reads one live row too few
+    "one_row_short": ("const int live = min(np, a.S);",
+                      "const int live = min(np - 1, a.S);"),
+}
 
 KERNEL_INFO = {
     "gemv_int8": ("llama_cpp_gfx906_tpu_torch/csrc/gemv.cu",
@@ -58,11 +85,14 @@ KERNEL_INFO = {
                       "llama_cpp_gfx906_tpu/ops/decode_stream.py:97"),
     "decode_step": ("llama_cpp_gfx906_tpu_torch/csrc/decode_stream.cu",
                     "llama_cpp_gfx906_tpu/ops/decode_step.py:69"),
+    "qmm_int8": ("llama_cpp_gfx906_tpu_torch/csrc/qmm.cu",
+                 "llama_cpp_gfx906_tpu/ops/quant_matmul.py:706"),
 }
 # the path whose launch count each kernel reports in the summary line
 KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
                "flash_decode": "8b_layer_loop", "flash_attention": "8b_layer_loop",
-               "decode_stream": "8b", "decode_step": "270m_q8_0"}
+               "decode_stream": "8b", "decode_step": "270m_q8_0",
+               "qmm_int8": "270m_q8_0"}
 
 
 FAILURES: list[str] = []
@@ -170,7 +200,7 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
     from llama_cpp_gfx906_tpu_torch.ops.attention import attend
     from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode
-    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4k_rows, q6k_rows
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4k_rows, q6k_rows, q8_0_rows
     import numpy as np
 
     dev = torch.device("cuda")
@@ -269,6 +299,24 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
     del kc, vc
     torch.cuda.empty_cache()
 
+    # K5: the 270M Q8_0 prefill projections at the smoke prompt's 676 rows
+    M = 676
+    for case, K, N in (("attn_qkv 640x1536", 640, 1536),
+                       ("attn_output 1024x640", 1024, 640),
+                       ("ffn_gate_up 640x4096", 640, 4096),
+                       ("ffn_down 2048x640", 2048, 640)):
+        qt = qmm.pack_gguf_tensor(q8_0_rows(rng, N, K).reshape(-1), GGMLType.Q8_0,
+                                  (N, K), device=dev)
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        err = check(f"qmm_int8 {case}", qmm.qmm_int8(x, qt), qmm.qmm_plain(x, qt), torch)
+        w = qmm.dequantize_qt(qt, torch.bfloat16)
+        record("qmm_int8", f"M={M} {case}", err,
+               device_ms(lambda: qmm.qmm_int8(x, qt), torch, flush),
+               device_ms(lambda: qmm.qmm_plain(x, qt), torch, flush),
+               M * K * 2 + K * N + (K // qt.group) * N * 4 + M * N * 4,
+               2 * M * K * N, device_ms(lambda: torch.matmul(x, w), torch, flush))
+        del w, qt
+
     # K6 on two full-width 8B Q4_K_M layers, K7 on the 18 layers of the
     # 270M Q8_0 shape: the whole decode step against its plain version, the
     # per-layer loop's device time for the same step beside it
@@ -277,8 +325,12 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
     from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
     from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
 
-    for name, preset, L, batches in (("decode_stream", "8b", 2, (1, 8)),
-                                     ("decode_step", "270m-q8_0", None, (1,))):
+    # K7's whole 18-layer stack is reported, not held to TOL: at that depth
+    # these random weights carry one bf16 rounding that the kernel and the
+    # plain version take differently to a few percent of the output (each
+    # case reports ``one_ulp_spread``, the plain version's own such move)
+    for name, preset, L, batches, whole in (("decode_stream", "8b", 2, (1, 8), True),
+                                            ("decode_step", "270m-q8_0", None, (1,), False)):
         path = write_synth(str(tmp / f"{preset}-kernel.gguf"), preset, seed=0,
                            n_layers=L, n_vocab=512)
         eng = Engine.from_gguf(path, max_seq=4096)
@@ -287,42 +339,107 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
                        else (k7.fused_decode_step, k7.fused_decode_step_plain))
         for B in batches:
             for n_past in (700, 3000):
-                decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record)
+                decode_case(torch, eng, name, kern, plain, B, n_past, g, flush,
+                            record, whole)
         del eng
         torch.cuda.empty_cache()
     del flush
 
 
-def decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record) -> None:
-    from llama_cpp_gfx906_tpu_torch.models.llama import KVCache, layers_forward
-    from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
-    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
-    from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import QuantTensor
+def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
+    """A decode kernel against its plain version from one state: x for the
+    tokens ``toks`` (B, 1) and caches of random rows (seed 11) filled to
+    n_past.  Errors are max |kernel - plain| / max |plain|: of the whole
+    stack's output x and its new K/V rows (``x``, ``k_rows``, ``v_rows``),
+    of the first two layers as a stack of their own (``first_two_layers``,
+    the hand-off between layers), and the worst of each layer run alone, as
+    a one-layer stack on the same planes, fed the kernel's own output of
+    the layer before (``per_layer``); depth amplifies neither of the two
+    last.  ``one_ulp_spread`` is
+    the plain version's own output moved by one bf16 ulp on one element of
+    x: how far depth carries a single rounding.  Returns the errors, x and
+    the three caches."""
+    import dataclasses
+
+    from llama_cpp_gfx906_tpu_torch.models.llama import KVCache
+    from llama_cpp_gfx906_tpu_torch.runtime.weights import ParamDict
 
     params, cfg, dev = eng.params, eng.cfg, eng.device
-    S = eng.max_seq
     caches = []
     for _ in range(3):
-        kv = KVCache.create(cfg, B, S, torch.bfloat16, dev)
+        kv = KVCache.create(cfg, B, eng.max_seq, torch.bfloat16, dev)
         gg = torch.Generator(device=dev).manual_seed(11)
         kv.k.copy_(torch.randn(kv.k.shape, generator=gg, device=dev))
         kv.v.copy_(torch.randn(kv.v.shape, generator=gg, device=dev))
         kv.n_past.fill_(n_past)
         caches.append(kv)
-    gate = k6._stream_ok if name == "decode_stream" else k7._fused_ok
-    if not gate(params, cfg, caches[0], B, 1):
-        raise AssertionError(f"{name}: the gate refuses B={B}")
-    toks = torch.randint(0, cfg.n_vocab, (B, 1), generator=g, device=dev)
+
+    def rel(a, b) -> float:
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+    def rows(kv):
+        return kv.k[:, :, n_past], kv.v[:, :, n_past]
+
+    def sub_stack(first: int, n: int):
+        """Layers [first, first + n) as a stack of their own, with their KV."""
+        sub = ParamDict({"layers": torch.nn.ModuleList(list(params["layers"])[first:first + n])})
+        kvs = [KVCache(k=c.k[first:first + n], v=c.v[first:first + n], n_past=c.n_past)
+               for c in caches[:2]]
+        return sub, dataclasses.replace(cfg, n_layers=n), kvs
+
+    def stack_err(sub, sub_cfg, kvs, xin):
+        a, b = kern(sub, sub_cfg, xin, kvs[0]), plain(sub, sub_cfg, xin, kvs[1])
+        (ka, va), (kb, vb) = rows(kvs[0]), rows(kvs[1])
+        return max(rel(a, b), rel(ka, kb), rel(va, vb)), a
+
     x = params["tok_emb"][toks]
-    case = f"L={cfg.n_layers} B={B} n_past={n_past}"
     with torch.inference_mode():
         got = kern(params, cfg, x, caches[0])
         ref = plain(params, cfg, x, caches[1])
-        torch.cuda.synchronize()
-        err = check(f"{name} {case}", got, ref, torch)
-        for a, b in ((caches[0].k, caches[1].k), (caches[0].v, caches[1].v)):
-            rows = (a[:, :, n_past], b[:, :, n_past])
-            check(f"{name} {case} new KV rows", *rows, torch)
+        (ka, va), (kb, vb) = rows(caches[0]), rows(caches[1])
+        errs = dict(x=rel(got, ref), x_abs=float((got.float() - ref.float()).abs().max()),
+                    k_rows=rel(ka, kb), v_rows=rel(va, vb), finite=bool(
+                        torch.isfinite(got).all()))
+        errs["first_two_layers"] = stack_err(*sub_stack(0, min(2, cfg.n_layers)), x)[0]
+        worst, xl = 0.0, x
+        for li in range(cfg.n_layers):
+            err, xl = stack_err(*sub_stack(li, 1), xl)
+            worst = max(worst, err)
+        errs["per_layer"] = worst
+        x1 = x.clone()
+        x1[0, 0, 0] = (x1[0, 0, 0].float() * (1 + 2 ** -7)).to(x.dtype)
+        errs["one_ulp_spread"] = rel(plain(params, cfg, x1, caches[2]), ref)
+    torch.cuda.synchronize()
+    return errs, x, caches
+
+
+def decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record,
+                whole_stack: bool) -> None:
+    """One decode kernel case: its errors against the plain version (the
+    first two layers and each layer alone always held to TOL; the whole
+    stack too where ``whole_stack``), its time, the plain version's and
+    the per-layer loop's, and the bound."""
+    from llama_cpp_gfx906_tpu_torch.models.llama import KVCache, layers_forward
+    from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
+    from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import QuantTensor
+
+    params, cfg = eng.params, eng.cfg
+    gate = k6._stream_ok if name == "decode_stream" else k7._fused_ok
+    if not gate(params, cfg, KVCache.create(cfg, B, eng.max_seq, torch.bfloat16, "meta"),
+                B, 1):
+        raise AssertionError(f"{name}: the gate refuses B={B}")
+    toks = torch.randint(0, cfg.n_vocab, (B, 1), generator=g, device=eng.device)
+    errs, x, caches = decode_errors(torch, eng, kern, plain, B, n_past, toks)
+    case = f"L={cfg.n_layers} B={B} n_past={n_past}"
+    if not errs["finite"]:
+        fail(f"{name} {case}: non-finite kernel output")
+    for what in ("first_two_layers", "per_layer") + (
+            ("x", "k_rows", "v_rows") if whole_stack else ()):
+        if not errs[what] <= TOL:
+            fail(f"{name} {case} {what}: max error / max|plain| = {errs[what]} > {TOL}")
+    with torch.inference_mode():
         ms = device_ms(lambda: kern(params, cfg, x, caches[0]), torch, flush)
         plain_ms = device_ms(lambda: plain(params, cfg, x, caches[1]), torch, flush)
         loop_ms = device_ms(lambda: layers_forward(params, cfg, x, caches[2]), torch, flush)
@@ -338,8 +455,10 @@ def decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record) -> N
               + 2 * L * B * (n_past + 1) * HD * 2  # live KV read, new rows written
               + B * D * 4)                         # x in and out (bf16)
     flops = 2 * B * macs + 4 * L * B * cfg.n_heads * (n_past + 1) * cfg.head_dim
-    record(name, case, err, ms, plain_ms, nbytes, flops, None, flop_s=F32_FLOP_S,
-           per_layer_loop_ms=loop_ms)
+    record(name, case, (errs["x_abs"], errs["x"]), ms, plain_ms, nbytes, flops, None,
+           flop_s=F32_FLOP_S, per_layer_loop_ms=loop_ms,
+           errors={k: v for k, v in errs.items() if k not in ("x_abs", "finite")},
+           whole_stack_checked=whole_stack)
     del caches
 
 
@@ -364,8 +483,11 @@ def loop_logits(torch, eng, tok: int, layers_fn=None):
 def profile_steps(torch, step, steps: int, tokens_per_step: int = 1) -> dict:
     """Device time of ``steps`` calls of ``step`` by kernel name
     (torch.profiler), against the wall time of the same calls run without
-    the profiler; per generated token."""
+    the profiler, and the launches of the port's kernels that the trace
+    recorded (graph replays included); per generated token."""
     from torch.profiler import ProfilerActivity, profile
+
+    from llama_cpp_gfx906_tpu_torch import kernels
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -391,7 +513,10 @@ def profile_steps(torch, step, steps: int, tokens_per_step: int = 1) -> dict:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / n_tok
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    traced = kernels.traced_launches(prof)
     return dict(tokens=n_tok, wall_ms_per_token=wall_ms,
+                traced_launches=traced,
+                launches_per_token={k: n / n_tok for k, n in traced.items()},
                 device_ms_per_token=dev_ms if by_name else "not measured",
                 device_idle_share=(1 - dev_ms / wall_ms) if by_name else "not measured",
                 top_kernels_ms_per_token=[[k[:90], v] for k, v in top])
@@ -411,9 +536,12 @@ def compare_routes(torch, eng, ids, tol: float, enforce_loop: bool,
     (``decode_layers_plain``, the same rounding points) and the per-layer
     loop.  The kernel is held to its plain version (max |diff| / max |plain|
     <= TOL); the fused route to the loop by the JAX kernel tests' check,
-    assert_allclose(rtol=tol, atol=tol), where ``enforce_loop`` (for Q8_0
-    the kernel rounds each weight to bf16 as the JAX kernel does and the
-    loop does not, a gap that grows with depth: reported, not enforced)."""
+    assert_allclose(rtol=tol, atol=tol), where ``enforce_loop``.  For the
+    18-layer 270M Q8_0 it is reported, not enforced: the JAX package's own
+    K7 sits beyond 2e-2 of its loop there (the fused route's f32 carry and
+    bf16-rounded int8 weights against the loop's roundings, amplified by
+    depth; tests/test_torch_decode_step.py::
+    test_k7_loop_gap_matches_jax_reference holds the port to that gap)."""
     import numpy as np
 
     from llama_cpp_gfx906_tpu_torch.ops.decode_stream import decode_layers_plain
@@ -459,7 +587,8 @@ def compare_routes(torch, eng, ids, tol: float, enforce_loop: bool,
 
 def fused_run(torch, eng, ids, kernel: str, chunk: int = 32, chunks: int = 2) -> dict:
     """decode_fused after a prefill: tok/s (the first chunk, which captures
-    the step, apart), launches per token, and a profile of one chunk."""
+    the step, apart), and a profile of two chunks with the launches per
+    token that its trace recorded."""
     import numpy as np
 
     eng.reset()
@@ -467,21 +596,20 @@ def fused_run(torch, eng, ids, kernel: str, chunk: int = 32, chunks: int = 2) ->
     t0 = time.perf_counter()
     toks = eng.decode_fused(tok, n_steps=chunk)
     capture_s = time.perf_counter() - t0
-    kernel_counts(reset=True)
     t0 = time.perf_counter()
     for _ in range(chunks):
         toks = eng.decode_fused(toks[-1], n_steps=chunk)
     dt = time.perf_counter() - t0
-    counts = kernel_counts()
-    per_tok = {k: n / (chunk * chunks) for k, n in counts.items()}
+    prof = profile_steps(torch, lambda: eng.decode_fused(tok, n_steps=chunk), 2,
+                         tokens_per_step=chunk)
+    per_tok = prof["launches_per_token"]
     want = {kernel: 1.0, "gemv_int8": 1.0, "gemv_nib4c": 0.0, "flash_decode": 0.0}
     if any(per_tok[k] != v for k, v in want.items()):
         fail(f"fused decode launches per token {per_tok}, want {want}")
-    prof = profile_steps(torch, lambda: eng.decode_fused(tok, n_steps=chunk), 2,
-                         tokens_per_step=chunk)
     return dict(first_chunk_with_capture_s=capture_s,
-                decode_fused_tok_s=chunk * chunks / dt, launches=counts,
-                launches_per_token=per_tok, profile=prof)
+                decode_fused_tok_s=chunk * chunks / dt,
+                launches=prof["traced_launches"], launches_per_token=per_tok,
+                profile=prof)
 
 
 def phase_8b(torch, paths: dict, tmp: Path):
@@ -520,6 +648,8 @@ def phase_8b(torch, paths: dict, tmp: Path):
         raise AssertionError("8b: logits of the wrong shape or not finite")
     if launches["decode_stream"] != 32 or launches["gemv_nib4c"] or launches["flash_decode"]:
         raise AssertionError(f"8b: decode went elsewhere than K6: {launches}")
+    if launches["qmm_int8"]:  # nib4c and folded int8: the dequant matmul, as in JAX
+        raise AssertionError(f"8b: prefill went through K5: {launches}")
 
     # the per-layer loop (PR 1's decode route), called as a function
     eng.reset()
@@ -581,6 +711,8 @@ def phase_270m(torch, paths: dict, tmp: Path) -> None:
     paths["270m_q8_0"] = launches = kernel_counts()
     if launches["decode_step"] != 32 or launches["gemv_nib4c"] or launches["flash_decode"]:
         raise AssertionError(f"270m_q8_0: decode went elsewhere than K7: {launches}")
+    if launches["qmm_int8"] != 4 * eng.cfg.n_layers:  # one prefill, 4 projections
+        raise AssertionError(f"270m_q8_0: prefill went elsewhere than K5: {launches}")
     perf = eng.perf.summary()
     out = fused_run(torch, eng, ids, "decode_step")
     cmp = compare_routes(torch, eng, ids, TOL, enforce_loop=False)
@@ -626,6 +758,55 @@ def phase_tinydoc(torch, paths: dict) -> None:
         raise AssertionError(f"tinydoc: attention kernels not launched: {counts}")
 
 
+def plant_faults() -> None:
+    """``--plant-faults`` (see the module docstring)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {}
+        for fault, edit in FAULTS.items():
+            root = Path(tmp) / fault
+            shutil.copytree(ROOT / PKG, root / PKG,
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy(ROOT / "chip_smoke.py", root)
+            if edit is not None:
+                src = root / PKG / "csrc" / "decode_stream.cu"
+                text = src.read_text()
+                if text.count(edit[0]) != 1:
+                    raise RuntimeError(f"{fault}: the text to replace is not in "
+                                       "decode_stream.cu once")
+                src.write_text(text.replace(edit[0], edit[1]))
+            roots[fault] = root
+        build = f"from {PKG} import kernels; kernels.build_all(('decode_stream',))"
+        procs = [subprocess.Popen([sys.executable, "-c", build], cwd=root)
+                 for root in roots.values()]
+        if any(p.wait() != 0 for p in procs):
+            raise RuntimeError("a copy failed to build")
+        for fault, root in roots.items():
+            subprocess.run([sys.executable, "chip_smoke.py", "--decode-errors", fault],
+                           cwd=root, check=True)
+
+
+def decode_errors_of_copy(torch, fault: str) -> None:
+    """The K6 and K7 errors of this copy's kernels, one JSON line each."""
+    from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, preset, L, kern in (
+                ("decode_stream", "8b", 2, k6.fused_decode_step_streamed),
+                ("decode_step", "270m-q8_0", None, k7.fused_decode_step)):
+            eng = Engine.from_gguf(write_synth(f"{tmp}/{preset}.gguf", preset, seed=0,
+                                               n_layers=L, n_vocab=512), max_seq=4096)
+            toks = torch.tensor([[7]], device=eng.device)
+            errs, _, _ = decode_errors(torch, eng, kern, k6.decode_layers_plain, 1,
+                                       700, toks)
+            emit(phase="planted_fault", fault=fault, kernel=name,
+                 layers=eng.cfg.n_layers, rel_err=errs, tol=TOL)
+            del eng
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
@@ -638,6 +819,12 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--plant-faults"]:
+        plant_faults()
+        return
+    if sys.argv[1:2] == ["--decode-errors"]:
+        decode_errors_of_copy(torch, sys.argv[2])
+        return
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -667,7 +854,8 @@ def main() -> None:
     # one main-path shape per kernel in the summary line
     pick = {"gemv_int8": "lm_head", "gemv_nib4c": "ffn_gate_up",
             "flash_decode": "n_past=8000 window=0", "flash_attention": "n_past=256",
-            "decode_stream": "B=1 n_past=3000", "decode_step": "B=1 n_past=3000"}
+            "decode_stream": "B=1 n_past=3000", "decode_step": "B=1 n_past=3000",
+            "qmm_int8": "ffn_gate_up"}
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = next(r for r in results[name] if pick[name] in r["case"])

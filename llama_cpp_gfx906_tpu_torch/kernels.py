@@ -8,10 +8,10 @@ and a stale library is never loaded.  All sources build in parallel, one
 ``nvcc`` each.  Nothing is built or loaded at import time.
 
 Launch counts: every kernel wrapper is registered here with a plain
-integer ``launches`` that it bumps where it launches.  A captured CUDA
-graph launches again on every replay without running the wrappers, so the
-code that replays one adds what the capture counted (:func:`counts`,
-:func:`set_counts`, :func:`add_counts`).
+integer ``launches`` that it bumps where it launches (:func:`counts`,
+:func:`set_counts`).  A captured CUDA graph launches again on every replay
+without running the wrappers; :func:`traced_launches` counts the launches
+that a ``torch.profiler`` trace recorded on the device, replays included.
 """
 
 from __future__ import annotations
@@ -19,13 +19,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("gemv", "flash_decode", "flash_attention", "decode_stream")
+SOURCES = ("gemv", "flash_decode", "flash_attention", "decode_stream", "qmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -81,7 +82,7 @@ def build_all(names=SOURCES) -> None:
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     if name not in _libs:
-        build_all()
+        build_all((name,))
         so = ctypes.CDLL(str(_lib_path(name)))
         so.lcg_error_string.restype = ctypes.c_char_p
         so.lcg_error_string.argtypes = [ctypes.c_int]
@@ -130,6 +131,30 @@ def set_counts(values: dict) -> None:
         fn.launches = values.get(k, 0)
 
 
-def add_counts(delta: dict, times: int = 1) -> None:
-    for k, n in delta.items():
-        COUNTERS[k].launches += n * times
+# device function -> (index of the template argument that tells two kernels
+# apart or None, the count's name for each of its values)
+_TRACE_NAMES = {
+    "gemv_kernel": (1, {"false": "gemv_int8", "true": "gemv_nib4c"}),
+    "flash_decode_kernel": (None, "flash_decode"),
+    "flash_attention_kernel": (None, "flash_attention"),
+    "decode_kernel": (2, {"true": "decode_stream", "false": "decode_step"}),
+    "qmm_int8_kernel": (None, "qmm_int8"),
+}
+
+
+def traced_launches(prof) -> dict:
+    """Launches of each counted kernel in a ``torch.profiler`` trace, read
+    from the device events by the kernels' (demangled) names."""
+    from torch.autograd import DeviceType
+
+    out = {name: 0 for name in COUNTERS}
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        m = re.search(r"::(\w+)<([^()]*)>\(", ev.name)
+        if m is None or m.group(1) not in _TRACE_NAMES:
+            continue
+        arg, names = _TRACE_NAMES[m.group(1)]
+        name = names if arg is None else names[m.group(2).split(",")[arg].strip()]
+        out[name] = out.get(name, 0) + 1
+    return out

@@ -15,10 +15,13 @@ likewise for the optional mins.
 Compute: a matmul with M <= 8 rows of x goes to the hand-written GEMV
 kernels (K1 ``gemv_int8``, K2 ``gemv_nib4c``, ``csrc/gemv.cu``) for every
 weight size; the JAX package's ``K*N >= 2**23`` gate is a TPU launch-overhead
-heuristic and is not carried over.  M > 8 (prefill) dequantizes to bf16 and
-calls ``torch.matmul``, as the JAX package leaves it to XLA's dequant-dot.
-Grid decoding runs in torch, so it runs on the card when the planes are
-built there.
+heuristic and is not carried over.  M > 8 (prefill) on the card goes to the
+tiled dequant matmul K5 (``qmm_int8``, ``csrc/qmm.cu``) for the weights the
+JAX package gives its K5 (int8 with plain scales, on its tile grid:
+:func:`qmm_tileable`); every other weight, and every M > 8 matmul on the
+CPU, dequantizes to bf16 and calls ``torch.matmul``, as the JAX package
+leaves those to XLA's dequant-dot.  Grid decoding runs in torch, so it runs
+on the card when the planes are built there.
 """
 
 from __future__ import annotations
@@ -332,12 +335,74 @@ def gemv_nib4c(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K5: the prefill-shape dequant matmul (int8 weights, plain scales)
+# ---------------------------------------------------------------------------
+
+
+def qmm_tileable(qt: QuantTensor) -> bool:
+    """The JAX package's K5 gate for the int8 format (``_pallas_tileable``
+    and no folded scales): the stored N a multiple of 128, and K split into
+    512- or 256-row tiles of at least 8 groups, or at most 8192 rows whole."""
+    if qt.fmt != "int8" or qt.sd is not None or qt.q.shape[-1] % 128:
+        return False
+    K = qt.K
+    tk = next((t for t in (512, 256) if K % t == 0 and t >= 8 * qt.group), K)
+    return tk != K or K <= 8192
+
+
+def _sub_mins(y: torch.Tensor, xb: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """y - (per-group sums of x) @ m, as the JAX K5 wrapper takes the mins."""
+    if qt.m is None:
+        return y
+    return y - xb.reshape(xb.shape[0], -1, qt.group).sum(-1) @ qt.m.float()
+
+
+def qmm_plain(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """Plain version of K5: x (M, K) -> f32 (M, N) with the kernel's
+    rounding points (x in bf16, each weight the f32 product rounded to
+    bf16, f32 sums)."""
+    xb = x2.to(torch.bfloat16).float()
+    w = (qt.q.float() * qt.s.repeat_interleave(qt.group, 0)).to(torch.bfloat16)
+    return _sub_mins(xb @ w.float(), xb, qt)[:, : qt.N]
+
+
+@kernels.counted("qmm_int8")
+def qmm_int8(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """K5: x (M, K) @ int8 plain-scale QuantTensor -> f32 (M, N)."""
+    if x2.device.type == "cpu":
+        return qmm_plain(x2, qt)
+    M, K = x2.shape
+    if not qmm_tileable(qt) or K != qt.K or K % 32:
+        raise ValueError(f"qmm_int8 kernel: M={M}, K={K}, {qt.fmt} {qt.shape}")
+    if any(t.device != x2.device or not t.is_contiguous() or t.data_ptr() % 16
+           for t in (qt.q, qt.s)):
+        raise ValueError("qmm_int8 kernel: planes must be contiguous, 16-byte "
+                         "aligned and on x's device")
+    Np = qt.q.shape[-1]
+    xb = x2.to(torch.bfloat16).contiguous()
+    out = torch.empty((-(-M // 64) * 64, Np), dtype=torch.float32, device=x2.device)
+    so = kernels.lib("qmm")
+    if so.lcg_qmm_int8.argtypes is None:
+        so.lcg_qmm_int8.restype = ctypes.c_int
+        so.lcg_qmm_int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+    err = so.lcg_qmm_int8(*map(kernels.ptr, (xb, qt.q, qt.s, out)), M, K, Np,
+                          qt.group, kernels.stream(x2.device))
+    kernels.check(so, err, "qmm_int8")
+    qmm_int8.launches += 1
+    return _sub_mins(out[:M], xb.float(), qt)[:, : qt.N]
+
+
 def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """x (..., K) @ quantized (K, N): the GEMV kernels for M <= 8, else the
-    dequant matmul.  Returns x.dtype."""
+    """x (..., K) @ quantized (K, N): the GEMV kernels for M <= 8; for
+    M > 8, K5 on the card where its gate holds, else the dequant matmul.
+    Returns x.dtype."""
     lead = x.shape[:-1]
     M = int(np.prod(lead)) if lead else 1
     if M > 8:
+        if x.is_cuda and qmm_tileable(qt):
+            return qmm_int8(x.reshape(M, qt.K), qt).reshape(*lead, qt.N).to(x.dtype)
         return dequant_matmul(x, qt)
     gemv = gemv_nib4c if qt.fmt == "nib4c" else gemv_int8
     return gemv(x.reshape(M, qt.K), qt).reshape(*lead, qt.N).to(x.dtype)

@@ -75,7 +75,6 @@ class _FusedLoop:
         self.out = torch.zeros((steps,), **i32)
         self.i = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.graph = None
-        self.step_counts: dict = {}  # kernel launches of one replayed step
 
 
 @dataclass
@@ -178,8 +177,9 @@ class Engine:
 
     def _capture(self, st: _FusedLoop) -> None:
         """Warm one step up eagerly (builds and loads the kernels), rewind
-        it, then capture the step; the launch counts it records are what
-        each replay adds."""
+        it, then capture the step.  A capture launches nothing, so the
+        launch counts are restored after it; replays do not pass through
+        the wrappers and are not counted (a profiler trace sees them)."""
         n0 = self._n_past
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -191,10 +191,7 @@ class Engine:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self._fused_step(st)
-        after = kernels.counts()
         kernels.set_counts(before)
-        st.step_counts = {k: n - before[k] for k, n in after.items()
-                          if n != before[k]}
         st.graph = graph
 
     def decode_fused(self, token_id: int, n_steps: int = 32,
@@ -238,7 +235,6 @@ class Engine:
             if self.device.type == "cuda":
                 for _ in range(n_steps):
                     st.graph.replay()
-                kernels.add_counts(st.step_counts, n_steps)
             else:
                 for _ in range(n_steps):
                     self._fused_step(st)
@@ -250,9 +246,8 @@ class Engine:
 
     def generate_fused(self, prompt: str, n_predict: int = 64,
                        sampler: SamplerParams | None = None,
-                       stop_on_eog: bool = True, stream_cb=None,
-                       chunk: int = 32,
-                       abort_callback=None) -> tuple[str, list[int]]:
+                       stop_on_eog: bool = True,
+                       chunk: int = 32) -> tuple[str, list[int]]:
         """``generate`` on the fused decode path: one chunk of ``chunk``
         tokens per host round trip.  EOG is checked on the host between
         chunks; the KV rows decoded past the stop point are rewound.  The
@@ -277,11 +272,7 @@ class Engine:
         out_ids: list[int] = [first]
         if stop_on_eog and first in eog:
             return "", []
-        if stream_cb is not None:
-            stream_cb(first)
         while len(out_ids) < n_predict:
-            if abort_callback is not None and abort_callback():
-                break
             n_before = self._n_past
             toks = self.decode_fused(out_ids[-1], n_steps=chunk, sampler=sp,
                                      recent_ids=ids + out_ids, generator=gen)
@@ -296,15 +287,9 @@ class Engine:
                 self.set_n_past(n_before + 1 + len(kept))
                 if stop_on_eog and toks[stop_j] in eog:
                     out_ids.extend(kept)
-                    if stream_cb is not None:
-                        for t in kept:
-                            stream_cb(t)
                     break
                 toks = kept
             out_ids.extend(toks)
-            if stream_cb is not None:
-                for t in toks:
-                    stream_cb(t)
         out_ids = out_ids[:n_predict]
         return self.tokenizer.detokenize(out_ids), out_ids
 

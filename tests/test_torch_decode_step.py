@@ -190,3 +190,67 @@ def test_k7_layer_bytes_split():
                for k in ("wqkv_fused", "wo", "wgateup_fused", "w_down"))
     assert layer_bytes(params) == want <= FUSED_LAYER_BYTES
     assert isinstance(p["wqkv_fused"], QuantTensor)
+
+
+def test_k7_loop_gap_matches_jax_reference(tmp_path):
+    """The 270M Q8_0 preset at its full width and 18 layers: 8 decode
+    steps from one state through K7 and through the per-layer loop, in both
+    packages (JAX: K7 in interpret mode against its layer scan; the port:
+    K7's plain version against ``layers_forward``).  The fused route does
+    not round where the loop does (f32 carry, each int8 weight rounded to
+    bf16 before its product), and with these random weights the difference
+    grows with depth: the JAX package's own K7 sits ~3.6e-2 (max |diff| /
+    max |loop|) from its loop here, beyond the 2e-2 its shallow tests use.
+    The port's gap must be no larger than 1.5x the reference's."""
+    from llama_cpp_gfx906_tpu.runtime.engine import Engine as JEngine
+    from llama_cpp_gfx906_tpu_torch.models.llama import layers_forward
+    from llama_cpp_gfx906_tpu_torch.ops.decode_stream import decode_layers_plain
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = write_synth(str(tmp_path / "270m.gguf"), "270m-q8_0", seed=0, n_vocab=512)
+    je = JEngine.from_gguf(path, max_seq=256, dtype=jnp.bfloat16)
+    te = Engine.from_gguf(path, max_seq=256, device="cpu")
+    words = " ".join(f"w{i % 97}" for i in range(40))
+    ids = te.tokenizer.tokenize(f"The synthetic model reads: {words}",
+                                add_special=True, parse_special=True)[:64]
+    jp, jcfg = je.params, je.cfg
+    tok = int(np.argmax(je.prefill(ids)))
+    kv0 = je.kv
+    assert j_fused_ok(jp, jcfg, kv0, 1, 1)
+
+    def j_head(x):
+        return _f32(jqmm.linear(j_rms_norm(x, jp["out_norm"], jcfg.rms_eps),
+                                jp["lm_head"]))[0, -1]
+
+    fed, j_fused, kv = [], [], kv0
+    for _ in range(8):
+        fed.append(tok)
+        x2, k, v = _j_step(jcfg)(jp, jp["tok_emb"][jnp.asarray([[tok]])], kv)
+        kv = JKV(k=k, v=v, n_past=kv.n_past + 1)
+        j_fused.append(j_head(x2))
+        tok = int(np.argmax(j_fused[-1]))
+    j_loop, kv = [], kv0
+    for t in fed:
+        logits, kv = j_forward(jp, jcfg, jnp.asarray([[t]], jnp.int32), kv)
+        j_loop.append(_f32(logits)[0, -1])
+
+    def t_run(layers_fn):
+        te.reset()
+        te.prefill(ids)
+        p, out = te.params, []
+        with torch.inference_mode():
+            for t in fed:
+                x = layers_fn(p, te.cfg, p["tok_emb"][torch.tensor([[t]])], te.kv)
+                out.append(_f32(linear(rms_norm(x, p["out_norm"], te.cfg.rms_eps),
+                                       p["lm_head"]))[0, -1])
+                te.set_n_past(te.n_past + 1)
+        return out
+
+    def gap(xs, ys):
+        return max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(xs, ys))
+
+    jax_gap = gap(j_fused, j_loop)
+    port_gap = gap(t_run(decode_layers_plain), t_run(layers_forward))
+    print(f"K7 vs the per-layer loop, L=18: JAX {jax_gap:.5f}, port {port_gap:.5f}")
+    assert port_gap <= 1.5 * jax_gap

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from llama_cpp_gfx906_tpu_torch import kernels
 from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
 from llama_cpp_gfx906_tpu_torch.gguf.quants import quantize
 from llama_cpp_gfx906_tpu_torch.ops import attention as tatt
@@ -84,6 +85,23 @@ def test_gemv_kernel_padded_head(cuda_device):
     got = tq.linear(x, qt)
     assert got.shape == (1, 9000) and got.dtype == torch.bfloat16
     assert _rel(got, tq.gemv_plain(x, qt)) < TOL
+
+
+@pytest.mark.parametrize("qtype,K,N,M", [
+    (GGMLType.Q8_0, 640, 1536, 676), (GGMLType.Q8_0, 2048, 640, 9),
+    (GGMLType.Q6_K, 1024, 512, 100), (GGMLType.Q4_0, 800, 256, 65)])
+def test_qmm_kernel_matches_plain(cuda_device, qtype, K, N, M):
+    """K5 through ``linear`` (M > 8 on the card), plain scales with and
+    without mins (a Q4_0 weight whose K has no nib4c chunk stays int8)."""
+    qt = tq.pack_gguf_tensor(_raw(qtype, N, K, 9), qtype, (N, K), device=cuda_device)
+    assert tq.qmm_tileable(qt) and (qt.m is not None) == (qtype == GGMLType.Q4_0)
+    x = torch.randn((1, M, K), device=cuda_device).to(torch.bfloat16)
+    before = tq.qmm_int8.launches
+    got = tq.linear(x, qt)
+    ref = tq.qmm_plain(x[0], qt)
+    torch.cuda.synchronize()
+    assert tq.qmm_int8.launches == before + 1
+    assert got.shape == (1, M, N) and _rel(got[0], ref) < TOL
 
 
 def _attn_case(seed, B, T, Hq, Hkv, D, S, n_past, dev, dtype):
@@ -296,7 +314,8 @@ def test_engine_fused_route_matches_cpu(cuda_device, tmp_path, monkeypatch, pres
     loop does not; the gap grows with depth, so chip_smoke.py reports it.)
     decode_fused
     gives the card's own greedy tokens, one launch of the decode kernel per
-    token."""
+    token (read from a profiler trace: graph replays bypass the wrappers'
+    counts)."""
     from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
 
     if route == "k6":
@@ -310,6 +329,7 @@ def test_engine_fused_route_matches_cpu(cuda_device, tmp_path, monkeypatch, pres
     n0 = cpu.n_past
     k0, v0 = cpu.kv.k.clone(), cpu.kv.v.clone()
     kern = k7.fused_decode_step if route == "k7" else k6.fused_decode_step_streamed
+    route_kernel = "decode_step" if route == "k7" else "decode_stream"
     before = kern.launches
     feed = (5, 77, 300, 12)
     a = [card.decode_one(tok) for tok in feed]
@@ -324,8 +344,13 @@ def test_engine_fused_route_matches_cpu(cuda_device, tmp_path, monkeypatch, pres
         for x, tok in zip(a, feed):
             np.testing.assert_allclose(x, cpu.decode_one(tok), rtol=tol, atol=tol)
     toks = card.generate("card", n_predict=12, stop_on_eog=False)[1]
-    card.generate_fused("card", n_predict=6, stop_on_eog=False, chunk=5)  # captures
-    before = kern.launches
     fused = card.generate_fused("card", n_predict=11, stop_on_eog=False, chunk=5)[1]
-    assert kern.launches - before == 10  # two chunks of replays
     assert _greedy_consistent(card, "card", fused, toks[:11], tol)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):  # two chunks of replays
+            card.decode_fused(fused[-1], n_steps=5)
+        torch.cuda.synchronize()
+    traced = kernels.traced_launches(prof)
+    assert (traced[route_kernel], traced["gemv_int8"], traced["gemv_nib4c"],
+            traced["flash_decode"]) == (10, 10, 0, 0)

@@ -134,3 +134,54 @@ def test_quant_matmul_dispatch(M):
                                tq.gemv_plain(torch.from_numpy(x[0]), tqt).numpy()[None],
                                rtol=1e-5, atol=1e-5)
 
+
+
+def _jax_int8_qt(tqt):
+    """The JAX QuantTensor of the same int8 planes (the JAX packer keeps a
+    Q4_0 weight whose K has no nib4c chunk in its nib4 split format, so the
+    int8-with-mins case is carried over plane by plane)."""
+    m = None if tqt.m is None else jnp.asarray(tqt.m.numpy())
+    return jq.QuantTensor(q=jnp.asarray(tqt.q.numpy()), s=jnp.asarray(tqt.s.numpy()),
+                          m=m, fmt="int8", group=tqt.group, shape=tqt.shape)
+
+
+@pytest.mark.parametrize("M", [9, 100])
+@pytest.mark.parametrize("qtype,K", [(GGMLType.Q8_0, 512), (GGMLType.Q6_K, 512),
+                                     (GGMLType.Q4_0, 800)])
+def test_qmm_plain_matches_jax_k5(qtype, K, M):
+    """K5's plain version (what the wrapper runs for a CPU tensor) against
+    the JAX K5 kernel in interpret mode: the same rounding points (x and
+    each weight in bf16, f32 sums, mins outside), so only the order of the
+    f32 sums differs."""
+    N = 256
+    tqt = tq.pack_gguf_tensor(_raw(qtype, N, K, seed=7), qtype, (N, K))
+    assert tqt.fmt == "int8" and (tqt.m is not None) == (qtype == GGMLType.Q4_0)
+    jqt = _jax_int8_qt(tqt)
+    assert tq.qmm_tileable(tqt)
+    assert jq._pallas_tileable(jqt.fmt, jqt.group, jqt.shape, jqt.q.shape[-1])
+    x = (np.random.default_rng(8).standard_normal((M, K)) * 0.5).astype(np.float32)
+    got = tq.qmm_int8(torch.from_numpy(x), tqt).numpy()
+    ref = np.asarray(jq._quant_matmul_pallas(
+        jnp.asarray(x), jqt.q, jqt.s, jqt.m, fmt=jqt.fmt, group=jqt.group,
+        shape=jqt.shape, interpret=True))
+    assert got.shape == ref.shape == (M, N)
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-5
+
+
+@pytest.mark.parametrize("qtype,K,N,fold,pad", [
+    (GGMLType.Q8_0, 640, 1536, False, 0), (GGMLType.Q8_0, 640, 200, False, 0),
+    (GGMLType.Q8_0, 512, 200, False, 128), (GGMLType.Q8_0, 8448, 128, False, 0),
+    (GGMLType.Q8_0, 8224, 128, False, 0), (GGMLType.Q6_K, 1024, 256, False, 0),
+    (GGMLType.Q6_K, 1024, 256, True, 0), (GGMLType.Q4_K, 1024, 256, False, 0)])
+def test_qmm_gate_matches_jax(qtype, K, N, fold, pad):
+    """K5's gate against the JAX dispatch for M > 8: its Pallas kernel runs
+    for int8 weights without folded scales that ``_pallas_tileable`` admits
+    (nib4c and folded weights take XLA's dequant-dot there)."""
+    raw = _raw(qtype, N, K, seed=9)
+    jqt = jq.pack_gguf_tensor(raw, qtype, (N, K), fold_scales=fold)
+    tqt = tq.pack_gguf_tensor(raw, qtype, (N, K), fold_scales=fold)
+    if pad:
+        jqt, tqt = jq.pad_qt_n(jqt, pad), tq.pad_qt_n(tqt, pad)
+    jax_k5 = (jqt.fmt == "int8" and jqt.sd is None
+              and jq._pallas_tileable(jqt.fmt, jqt.group, jqt.shape, jqt.q.shape[-1]))
+    assert tq.qmm_tileable(tqt) == jax_k5
