@@ -18,12 +18,24 @@ Phases, each printing JSON lines:
      path held against the per-layer loop from the same state;
   4. ``270m_q8_0``: the 270M-shape Q8_0 model (prefill through K5, decode
      through K7), the same way;
-  5. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
-     and held-out perplexity.
+  5. ``8b_serve``: the continuous-batching server on the 8B model
+     (``python -m llama_cpp_gfx906_tpu_torch.server -np 4 -c 4096``), once
+     with ``-ctk q8`` and once with ``-ctk bf16``: 8 concurrent token-id
+     requests over HTTP (tok/s, TTFT, the decode step's idle share, and the
+     server's own kernel launches per decode step and prefill chunk, all
+     from /metrics); then the same engine in this process for what the
+     server cannot show (launches with a 512-token shared system prompt, a
+     profile of a 4-slot decode stretch) and two holds: the batched T = 1
+     forward against single-slot forwards, and the shared segment against
+     the same prompts unshared;
+  6. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
+     and held-out perplexity, through ``Engine`` and, all prompts at once,
+     through ``BatchedEngine`` with an f32 and a q8 cache.
 Kernel launch counts are set to 0 before each path and read after it.  A
-replayed CUDA graph bypasses the wrappers' counts, so the fused loop's
-launches per token are read from a profiler trace of its replays.  The
-last line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+replayed CUDA graph bypasses the wrappers' counts, so the fused loop's and
+the batched step's launches are read from the counts the kernels keep on
+the device (``kernels.device_counts``; the server reports them in its
+/metrics).  The last line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero.  Without a CUDA device, or without the package beside this file,
 it exits non-zero and prints no result.
 
@@ -40,12 +52,15 @@ of the 270M shape; B = 1, n_past 700), the unmodified source first.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
+import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -88,11 +103,32 @@ KERNEL_INFO = {
     "qmm_int8": ("llama_cpp_gfx906_tpu_torch/csrc/qmm.cu",
                  "llama_cpp_gfx906_tpu/ops/quant_matmul.py:706"),
 }
-# the path whose launch count each kernel reports in the summary line
+# the K3 / K4 modes of the serve path: the same kernels, counted apart
+for _mode in ("int8", "shared", "int8_shared"):
+    KERNEL_INFO[f"flash_decode_{_mode}"] = KERNEL_INFO["flash_decode"]
+KERNEL_INFO["flash_attention_int8"] = KERNEL_INFO["flash_attention"]
+# the path whose launch count each kernel reports in the summary line (the
+# serve paths' counts are the kernels' device-side counts: the batched
+# decode step is a replayed CUDA graph)
 KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
                "flash_decode": "8b_layer_loop", "flash_attention": "8b_layer_loop",
                "decode_stream": "8b", "decode_step": "270m_q8_0",
-               "qmm_int8": "270m_q8_0"}
+               "qmm_int8": "270m_q8_0",
+               "flash_decode_int8": "8b_serve_http_q8",
+               "flash_attention_int8": "8b_serve_http_q8",
+               "flash_decode_int8_shared": "8b_serve_q8_shared",
+               "flash_decode_shared": "8b_serve_bf16_shared"}
+SERVE_PROMPT_LENS = (256, 384, 512, 640, 768, 896, 1024, 320)
+# the serve path's launches per 4-slot decode step and per prefill chunk (of
+# 64 or more tokens: K4 and the dequant matmul, the head's GEMV on its last row)
+SERVE_PER_STEP = {"q8": {"flash_decode_int8": 32, "flash_decode": 32, "gemv_nib4c": 128,
+                         "gemv_int8": 33, "decode_stream": 0},
+                  "bf16": {"decode_stream": 1, "gemv_int8": 1, "gemv_nib4c": 0,
+                           "flash_decode": 0}}
+SERVE_PER_CHUNK = {"q8": {"flash_attention": 32, "flash_attention_int8": 32, "gemv_int8": 1},
+                   "bf16": {"flash_attention": 32, "flash_attention_int8": 0,
+                            "gemv_int8": 1}}
+SYSTEM_LEN = 512  # the shared system prompt of the serve path's shared runs
 
 
 FAILURES: list[str] = []
@@ -110,12 +146,15 @@ def fail(message: str) -> None:
 
 
 def run_phase(name: str, fn, *args):
+    t0 = time.perf_counter()
     try:
         return fn(*args)
     except Exception as e:  # noqa: BLE001 (every phase runs; the exit code tells)
         traceback.print_exc()
         fail(f"{name}: {e!r}")
         return None
+    finally:
+        emit(phase="phase_time", name=name, seconds=time.perf_counter() - t0)
 
 
 def device_ms(fn, torch, flush, n: int = 10) -> float:
@@ -298,6 +337,7 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
                    torch, flush))
     del kc, vc
     torch.cuda.empty_cache()
+    kv_mode_cases(torch, dev, g, flush, record)
 
     # K5: the 270M Q8_0 prefill projections at the smoke prompt's 676 rows
     M = 676
@@ -344,6 +384,121 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
         del eng
         torch.cuda.empty_cache()
     del flush
+
+
+def kv_mode_cases(torch, dev, g, flush, record) -> None:
+    """K3's int8, shared and int8 + shared modes and K4's int8 mode at the
+    serve path's shapes: the 8B (Hq 32, Hkv 8, D 128) and tinydoc (Hq 4,
+    Hkv 2, D 64), 4096 rows per slot.  K3: 4 slots at n_past 17 / 700 /
+    1500 / 3000 (int8), or 700 each after 512 shared bf16 rows; K4: one
+    slot, a 256-token chunk at n_past 0 / 256 / 700.  Bounds count each
+    live int8 row once with its two 4-byte scales, and the shared rows once
+    (what device memory must deliver if L2 serves the other slots' reads).
+    The library yardstick is SDPA on rows dequantized to bf16 beforehand
+    (and the shared rows put before each slot's own)."""
+    import torch.nn.functional as F
+
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import (flash_attention,
+                                                              flash_attention_plain)
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import QuantKV, dequantize_rows, quantize_rows
+
+    S, S0, bf = 4096, SYSTEM_LEN, torch.bfloat16
+    for shape, Hq, Hkv, D in (("8b", 32, 8, 128), ("tinydoc", 4, 2, 64)):
+        scale = D ** -0.5
+
+        def rnd(*size):
+            return torch.randn(size, generator=g, device=dev)
+
+        kq, vq = quantize_rows(rnd(4, S, Hkv, D)), quantize_rows(rnd(4, S, Hkv, D))
+        kb, vb = rnd(4, S, Hkv, D).to(bf), rnd(4, S, Hkv, D).to(bf)
+        shk, shv = rnd(1, S0, Hkv, D).to(bf), rnd(1, S0, Hkv, D).to(bf)
+        row_i8 = Hkv * (2 * D + 2 * 4)  # K and V int8 rows and their scales
+        row_bf = Hkv * 2 * D * 2
+
+        def sdpa_case(q, k, v, n_past, shared: bool):
+            """SDPA over pre-dequantized bf16 rows [0, n_past] of each slot,
+            after the shared rows: (callable, nothing to prepare per call)."""
+            live = int(max(n_past)) + 1
+            ks, vs = k[:, :live], v[:, :live]
+            if shared:
+                ks = torch.cat([shk.expand(q.shape[0], -1, -1, -1), ks], 1)
+                vs = torch.cat([shv.expand(q.shape[0], -1, -1, -1), vs], 1)
+            ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+            pos = torch.arange(ks.shape[2], device=dev) - (S0 if shared else 0)
+            mask = pos[None, :] <= torch.tensor(n_past, device=dev)[:, None]
+            qs = q.transpose(1, 2)
+            return lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask[:, None, None, :], scale=scale, enable_gqa=True)
+
+        def k3(name, case, k, v, n_past, shared, row_bytes, **extra):
+            q = rnd(4, 1, Hq, D).to(bf)
+            npast = torch.tensor(n_past, dtype=torch.int32, device=dev)
+            kw = dict(shared_k=shk, shared_v=shv) if shared else {}
+            args = (q, k, v, npast, scale)
+            err = check(f"{name} {case}", flash_decode(*args, **kw),
+                        flash_decode_plain(*args, **kw), torch)
+            live = sum(n + 1 for n in n_past)
+            if isinstance(k, QuantKV):
+                k, v = dequantize_rows(k, bf), dequantize_rows(v, bf)
+            lib = sdpa_case(q, k, v, n_past, shared)
+            record(name, case, err, device_ms(lambda: flash_decode(*args, **kw), torch, flush),
+                   device_ms(lambda: flash_decode_plain(*args, **kw), torch, flush),
+                   live * row_bytes + (S0 * row_bf if shared else 0) + 2 * q.numel() * 2,
+                   4 * Hq * D * (live + (4 * S0 if shared else 0)),
+                   device_ms(lib, torch, flush), library="SDPA on pre-dequantized bf16",
+                   **extra)
+            return q, npast
+
+        mixed = [17, 700, 1500, 3000]
+        k3("flash_decode_int8", f"{shape} B=4 n_past=17/700/1500/3000", kq, vq, mixed,
+           False, row_i8)
+        k3("flash_decode_int8_shared", f"{shape} B=4 S0={S0} n_past=700", kq, vq, [700] * 4,
+           True, row_i8, bound_ms_if_shared_read_per_slot=bound(
+               4 * 701 * row_i8 + 4 * S0 * row_bf, 0)[0])
+        q, npast = k3("flash_decode_shared", f"{shape} B=4 S0={S0} n_past=700", kb, vb,
+                      [700] * 4, True, row_bf, bound_ms_if_shared_read_per_slot=bound(
+                          4 * (S0 + 701) * row_bf, 0)[0])
+        # L2 and the shared rows: the same step with the 512 rows copied into
+        # each slot's own cache (n_past 1212, the same logical positions)
+        kd, vd = kb.clone(), vb.clone()
+        kd[:, S0:S0 + 701], vd[:, S0:S0 + 701] = kb[:, :701], vb[:, :701]
+        kd[:, :S0], vd[:, :S0] = shk, shv
+        nd = torch.full((4,), S0 + 700, dtype=torch.int32, device=dev)
+        same = check(f"flash_decode_shared {shape}: shared rows vs the same rows in each slot",
+                     flash_decode(q, kd, vd, nd, scale),
+                     flash_decode(q, kb, vb, npast, scale, shared_k=shk, shared_v=shv), torch)
+        emit(phase="kernel", kernel="flash_decode_shared", case=f"{shape} rows in each slot",
+             max_abs_err_vs_shared=same[0],
+             ms_rows_in_each_slot=device_ms(lambda: flash_decode(q, kd, vd, nd, scale),
+                                            torch, flush))
+        del kd, vd
+
+        T = 256
+        for n_past in (0, 256, 700):
+            q = rnd(1, T, Hq, D).to(bf)
+            npast = torch.tensor([n_past], dtype=torch.int32, device=dev)
+            args = (q, kq.q[:1], vq.q[:1], npast, scale, 0, 0.0, None)
+            kw = dict(k_scales=kq.s[:1, ..., 0], v_scales=vq.s[:1, ..., 0])
+            case = f"{shape} T={T} n_past={n_past}"
+            err = check(f"flash_attention_int8 {case}", flash_attention(*args, **kw),
+                        flash_attention_plain(*args, **kw), torch)
+            n_keys = n_past + T
+            pairs = T * n_past + T * (T + 1) // 2
+            kl = dequantize_rows(kq[:1], bf)[:, :n_keys].transpose(1, 2).contiguous()
+            vl = dequantize_rows(vq[:1], bf)[:, :n_keys].transpose(1, 2).contiguous()
+            qs = q.transpose(1, 2).contiguous()
+            mask = (torch.arange(n_keys, device=dev)[None, :]
+                    <= n_past + torch.arange(T, device=dev)[:, None])
+            record("flash_attention_int8", case, err,
+                   device_ms(lambda: flash_attention(*args, **kw), torch, flush),
+                   device_ms(lambda: flash_attention_plain(*args, **kw), torch, flush),
+                   2 * q.numel() * 2 + n_keys * row_i8, 4 * Hq * pairs * D,
+                   device_ms(lambda: F.scaled_dot_product_attention(
+                       qs, kl, vl, attn_mask=mask, scale=scale, enable_gqa=True),
+                       torch, flush), library="SDPA on pre-dequantized bf16")
+        del kq, vq, kb, vb
+        torch.cuda.empty_cache()
 
 
 def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
@@ -480,11 +635,22 @@ def loop_logits(torch, eng, tok: int, layers_fn=None):
         return logits[0, -1].cpu().numpy()
 
 
+def launches_since(before: dict) -> dict:
+    """Launches that ran since ``before`` (a ``kernels.device_counts()``), as
+    the kernels count them on the device: graph replays included, and exact
+    where a profiler trace can drop records (it dropped a K7 record in
+    some runs)."""
+    from llama_cpp_gfx906_tpu_torch import kernels
+
+    return {k: v - before[k] for k, v in kernels.device_counts().items()}
+
+
 def profile_steps(torch, step, steps: int, tokens_per_step: int = 1) -> dict:
     """Device time of ``steps`` calls of ``step`` by kernel name
     (torch.profiler), against the wall time of the same calls run without
-    the profiler, and the launches of the port's kernels that the trace
-    recorded (graph replays included); per generated token."""
+    the profiler, and the launches of the port's kernels in the profiled
+    calls (device-side counts, graph replays included); per generated
+    token."""
     from torch.profiler import ProfilerActivity, profile
 
     from llama_cpp_gfx906_tpu_torch import kernels
@@ -496,6 +662,7 @@ def profile_steps(torch, step, steps: int, tokens_per_step: int = 1) -> dict:
     torch.cuda.synchronize()
     n_tok = steps * tokens_per_step
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_tok
+    before = kernels.device_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step()
@@ -513,10 +680,9 @@ def profile_steps(torch, step, steps: int, tokens_per_step: int = 1) -> dict:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / n_tok
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    traced = kernels.traced_launches(prof)
-    return dict(tokens=n_tok, wall_ms_per_token=wall_ms,
-                traced_launches=traced,
-                launches_per_token={k: n / n_tok for k, n in traced.items()},
+    launches = launches_since(before)
+    return dict(tokens=n_tok, wall_ms_per_token=wall_ms, launches=launches,
+                launches_per_token={k: n / n_tok for k, n in launches.items()},
                 device_ms_per_token=dev_ms if by_name else "not measured",
                 device_idle_share=(1 - dev_ms / wall_ms) if by_name else "not measured",
                 top_kernels_ms_per_token=[[k[:90], v] for k, v in top])
@@ -587,8 +753,8 @@ def compare_routes(torch, eng, ids, tol: float, enforce_loop: bool,
 
 def fused_run(torch, eng, ids, kernel: str, chunk: int = 32, chunks: int = 2) -> dict:
     """decode_fused after a prefill: tok/s (the first chunk, which captures
-    the step, apart), and a profile of two chunks with the launches per
-    token that its trace recorded."""
+    the step, apart), and a profile of two chunks with its launches per
+    token."""
     import numpy as np
 
     eng.reset()
@@ -602,13 +768,13 @@ def fused_run(torch, eng, ids, kernel: str, chunk: int = 32, chunks: int = 2) ->
     dt = time.perf_counter() - t0
     prof = profile_steps(torch, lambda: eng.decode_fused(tok, n_steps=chunk), 2,
                          tokens_per_step=chunk)
-    per_tok = prof["launches_per_token"]
+    per_tok = prof["launches_per_token"]  # counted on the device
     want = {kernel: 1.0, "gemv_int8": 1.0, "gemv_nib4c": 0.0, "flash_decode": 0.0}
     if any(per_tok[k] != v for k, v in want.items()):
         fail(f"fused decode launches per token {per_tok}, want {want}")
     return dict(first_chunk_with_capture_s=capture_s,
                 decode_fused_tok_s=chunk * chunks / dt,
-                launches=prof["traced_launches"], launches_per_token=per_tok,
+                launches=prof["launches"], launches_per_token=per_tok,
                 profile=prof)
 
 
@@ -691,6 +857,342 @@ def phase_8b_fused(torch, eng, ids, paths: dict) -> None:
          **out, layer_loop_comparison=cmp)
 
 
+def http(url: str, body: dict | None = None, timeout: float = 900) -> tuple[int, str]:
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def metrics_of(base: str) -> dict:
+    """/metrics by name (a labelled kernel count as ``kernel_launches_total``
+    plus its label)."""
+    text = http(base + "/metrics")[1]
+    return {ln.split()[0].split(":", 1)[1]: float(ln.split()[1])
+            for ln in text.splitlines() if ln and not ln.startswith("#")}
+
+
+def serve_bodies(rng, vocab: int, lens, n_predict: int) -> list[dict]:
+    """Token-id completion requests: the first half greedy, the second at
+    temperature 0.8 with a seed; the first of each half streamed."""
+    half = len(lens) // 2
+    out = []
+    for i, n in enumerate(lens):
+        body = {"prompt": [int(t) for t in rng.integers(3, vocab, n)],
+                "max_tokens": n_predict, "temperature": 0.0 if i < half else 0.8,
+                "stream": i in (0, half)}
+        if i >= half:
+            body["seed"] = 1000 + i
+        out.append(body)
+    return out
+
+
+def post_all(base: str, bodies: list[dict]) -> list[dict]:
+    """POST every body to /v1/completions at once, one thread each; per
+    request its status, completion tokens and the server's timings."""
+    results: list[dict] = [{} for _ in bodies]
+
+    def one(i, body):
+        try:
+            status, text = http(base + "/v1/completions", body)
+            if body["stream"]:
+                ev = [ln[6:] for ln in text.splitlines() if ln.startswith("data: ")]
+                if ev[-1] != "[DONE]":
+                    raise AssertionError(f"stream did not end in [DONE]: {ev[-1:]}")
+                timings = json.loads(ev[-2])["timings"]
+                n = timings["predicted_n"]
+            else:
+                out = json.loads(text)
+                timings = out["choices"][0]["timings"]
+                n = out["usage"]["completion_tokens"]
+            results[i] = dict(status=status, completion_tokens=n, **timings)
+        except Exception as e:  # noqa: BLE001 (reported as this request's failure)
+            results[i] = dict(status=getattr(e, "code", None), error=repr(e))
+
+    threads = [threading.Thread(target=one, args=(i, b)) for i, b in enumerate(bodies)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return results
+
+
+def serve_http_run(torch, path: str, kind: str, rng, vocab: int, tmp: Path) -> dict:
+    """The server as a user starts it, with 4 slots of 4096 tokens and a
+    ``kind`` cache: two warm requests (other prompts, so no prefix cache
+    hit flatters the times), then the 8 timed requests at once.  The
+    server's /metrics before and after them give the run's tokens, times,
+    decode steps, prefill chunks and the kernels' device launch counts,
+    held to ``SERVE_PER_STEP`` and ``SERVE_PER_CHUNK``."""
+    import numpy as np
+
+    log_path = tmp / f"server-{kind}.log"
+    cmd = [sys.executable, "-m", f"{PKG}.server", "-m", path, "-np", "4", "-c", "4096",
+           "-ctk", kind, "--host", "127.0.0.1", "--port", "0"]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        base = None
+        while base is None:
+            if proc.poll() is not None:
+                raise RuntimeError(f"server exited with {proc.returncode}: "
+                                   f"{log_path.read_text()[-2000:]}")
+            if time.perf_counter() - t0 > 600:
+                raise RuntimeError("server did not start in 600 s")
+            m = re.search(r"listening on (http://[\d.]+:\d+)", log_path.read_text())
+            base = m.group(1) if m else time.sleep(0.5)
+        start_s = time.perf_counter() - t0
+        post_all(base, serve_bodies(rng, vocab, (64, 300), 8))
+        before = metrics_of(base)
+        bodies = serve_bodies(rng, vocab, SERVE_PROMPT_LENS, 64)
+        t0 = time.perf_counter()
+        results = post_all(base, bodies)
+        wall = time.perf_counter() - t0
+        after = metrics_of(base)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    d = {k: after[k] - before[k] for k in after if "_total" in k}
+    launches = {m.group(1): int(v) for k, v in d.items()
+                if (m := re.fullmatch(r'kernel_launches_total\{kernel="(\w+)"\}', k))}
+    steps, chunks = int(d["decode_steps_total"]), int(d["prefill_chunks_total"])
+    want = {k: SERVE_PER_STEP[kind].get(k, 0) * steps + SERVE_PER_CHUNK[kind].get(k, 0) * chunks
+            for k in {*SERVE_PER_STEP[kind], *SERVE_PER_CHUNK[kind]}}
+    n_out = sum(r.get("completion_tokens", 0) for r in results)
+    ttft = [r["ttft_ms"] for r in results if r.get("ttft_ms") is not None]
+    out = dict(
+        kind=kind, start_to_listening_s=start_s, requests=len(bodies),
+        prompt_tokens=sum(len(b["prompt"]) for b in bodies), completion_tokens=n_out,
+        wall_s=wall, served_tok_s=n_out / wall,
+        decode_tok_s=(d["tokens_predicted_total"] - d["requests_total"])
+        / d["predicted_seconds_total"],
+        prefill_tok_s=(d["prompt_tokens_total"] - d["prompt_tokens_cached_total"])
+        / d["prompt_seconds_total"],
+        ttft_ms_p50=float(np.percentile(ttft, 50)) if ttft else None,
+        ttft_ms_p90=float(np.percentile(ttft, 90)) if ttft else None,
+        decode_steps=steps, prefill_chunks=chunks,
+        decode_step_wall_ms=d["predicted_seconds_total"] * 1e3 / max(steps, 1),
+        decode_step_device_ms=d["predicted_device_seconds_total"] * 1e3 / max(steps, 1),
+        decode_idle_share=1 - d["predicted_device_seconds_total"]
+        / d["predicted_seconds_total"],
+        launches=launches, launches_want=want,
+        launches_per_step={k: v / max(steps, 1) for k, v in launches.items()},
+        per_request=results)
+    bad = [r for r in results if r.get("status") != 200]
+    if bad:
+        fail(f"8b_serve {kind}: requests failed: {bad}")
+    if d["tokens_predicted_total"] != n_out or d["requests_total"] != len(bodies) or \
+            d["prompt_tokens_total"] != out["prompt_tokens"]:
+        fail(f"8b_serve {kind}: /metrics {d} does not add up to the responses "
+             f"({n_out} tokens, {out['prompt_tokens']} prompt tokens)")
+    if not steps or any(launches.get(k) != v for k, v in want.items()):
+        fail(f"8b_serve {kind}: the server launched {launches} in {steps} decode steps "
+             f"and {chunks} prefill chunks, want {want}")
+    return out
+
+
+def run_requests(eng, prompts, n_predict: int, until_generating: bool = False) -> list:
+    """Admit ``prompts`` (greedy) and step until every one has finished and
+    release them, or, with ``until_generating``, until every one has its
+    first token (with ``n_predict`` 1, no decode step runs: each slot stops
+    at its prompt's end); returns the slots."""
+    from llama_cpp_gfx906_tpu_torch.runtime.batch_engine import SamplerConfig, SlotState
+
+    slots = [eng.add_request(p, n_predict, SamplerConfig(temp=0.0)) for p in prompts]
+    if any(s is None for s in slots):
+        raise AssertionError("no free slot")
+    while True:
+        if until_generating and all(s.state == SlotState.GENERATING for s in slots):
+            return slots
+        if all(s.stop_reason is not None for s in slots):
+            break
+        eng.step()
+    for s in slots:
+        eng.release(s)
+    return slots
+
+
+def kv_clone(kv, i: int):
+    """Slot i of a batched cache as a cache of its own (copies)."""
+    from llama_cpp_gfx906_tpu_torch.models.llama import KVCache
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import QuantKV
+
+    def one(x):
+        x = x[:, i:i + 1]
+        return QuantKV(x.q.clone(), x.s.clone()) if isinstance(x, QuantKV) else x.clone()
+
+    return KVCache(k=one(kv.k), v=one(kv.v), n_past=kv.n_past[i:i + 1].clone(),
+                   shared_k=kv.shared_k, shared_v=kv.shared_v)
+
+
+def first_decode_logits(torch, eng, tokens):
+    """The T = 1 forward of every slot at its n_past, fed ``tokens``."""
+    from llama_cpp_gfx906_tpu_torch.models.llama import forward
+
+    eng.kv.n_past.copy_(torch.from_numpy(eng.n_past_host))
+    with torch.inference_mode():
+        logits, _ = forward(eng.params, eng.cfg, tokens, eng.kv, last_only=True)
+    return logits[:, 0]
+
+
+def rel_of(torch, a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
+def batched_vs_single(torch, eng, prompts, rng, steps: int = 8) -> float:
+    """4 slots at different n_past: ``steps`` teacher-forced T = 1 forwards
+    of the whole batch against each slot alone on a copy of its rows; the
+    worst max |batched - single| / max |single| over slots and steps."""
+    from llama_cpp_gfx906_tpu_torch.models.llama import forward
+
+    slots = run_requests(eng, prompts, 1, until_generating=True)  # prefill only
+    dev = eng.device
+    toks = torch.tensor(rng.integers(3, eng.cfg.n_vocab, (len(slots), steps)), device=dev)
+    singles = [kv_clone(eng.kv, s.id) for s in slots]
+    for s, kv1 in zip(slots, singles):
+        kv1.n_past.fill_(s.n_past)
+    ids = torch.tensor([s.id for s in slots], device=dev)
+    worst = 0.0
+    with torch.inference_mode():
+        eng.kv.n_past.copy_(torch.from_numpy(eng.n_past_host))
+        for j in range(steps):
+            col = torch.zeros((eng.n_slots, 1), dtype=torch.long, device=dev)
+            col[ids, 0] = toks[:, j]
+            batched = forward(eng.params, eng.cfg, col, eng.kv, last_only=True)[0][ids, 0]
+            for r, kv1 in enumerate(singles):
+                one = forward(eng.params, eng.cfg, toks[r:r + 1, j:j + 1], kv1,
+                              last_only=True)[0][0, 0]
+                worst = max(worst, rel_of(torch, batched[r], one))
+    for s in slots:
+        s.stop_reason = "length"
+        eng.release(s)
+        s.cache_tokens = []  # rows past the prompt were teacher-forced
+    return worst
+
+
+def phase_8b_serve(torch, paths: dict, tmp: Path) -> None:
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.runtime.batch_engine import BatchedEngine
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import load_model
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = tmp / "synth-8b-q4km.gguf"
+    if not path.exists():
+        write_synth(str(path), "8b", seed=0)
+    V = 128256
+    rng = np.random.default_rng(3)
+    for kind in ("q8", "bf16"):
+        out = serve_http_run(torch, str(path), kind, rng, V, tmp)
+        paths[f"8b_serve_http_{kind}"] = out["launches"]
+        emit(phase="8b_serve_http", **out)
+
+    dev = torch.device("cuda")
+    cfg, params, tok = load_model(str(path), torch.bfloat16, dev)
+
+    def prompts(lens):
+        return [[int(t) for t in rng.integers(3, V, n)] for n in lens]
+
+    # the shared-segment hold: one system prompt, 4 tails, teacher tokens
+    system, tails = prompts((SYSTEM_LEN,))[0], prompts((256, 300, 400, 500))
+    teach = rng.integers(3, V, len(tails))
+    unshared_bf16 = None
+    for kind in ("bf16", "q8"):  # bf16 first: its unshared logits are q8's reference
+        kv_dtype = "q8" if kind == "q8" else torch.bfloat16
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        def engine():
+            eng = BatchedEngine(cfg, params, tok, n_slots=4, max_seq=4096,
+                                kv_cache_dtype=kv_dtype, device=dev)
+            eng.warmup()
+            return eng
+
+        def hold_logits(eng):
+            """Prefill system + tails (the system rows shared or not), then the
+            teacher tokens' first-decode logits, row i for tail i."""
+            slots = run_requests(eng, [system + t for t in tails], 1, until_generating=True)
+            toks = torch.zeros((eng.n_slots, 1), dtype=torch.long, device=dev)
+            for s, t in zip(slots, teach):
+                toks[s.id, 0] = int(t)
+            logits = first_decode_logits(torch, eng, toks)[[s.id for s in slots]]
+            for s in slots:
+                eng.release(s)
+            return logits
+
+        eng = engine()
+        out = dict(kind=kind, kv_bytes=eng.kv.nbytes)
+        if eng._step.graph is None:
+            fail(f"8b_serve {kind}: the decode step was not captured")
+        # a 4-slot decode stretch: launches per step, device idle share
+        slots = run_requests(eng, prompts((700, 800, 900, 1000)), 64, until_generating=True)
+        stretch = profile_steps(torch, eng.step, 16)
+        for s in slots:
+            while s.stop_reason is None:
+                eng.step()
+            eng.release(s)
+        per_step = stretch["launches_per_token"]
+        if any(per_step.get(k) != v for k, v in SERVE_PER_STEP[kind].items()):
+            fail(f"8b_serve {kind}: launches per decode step {per_step}, "
+                 f"want {SERVE_PER_STEP[kind]}")
+        out["decode_stretch"] = stretch
+        out["batched_vs_single_rel"] = worst = batched_vs_single(
+            torch, eng, prompts((256, 700, 1500, 3000)), rng)
+        if not worst <= TOL:
+            fail(f"8b_serve {kind}: batched vs single-slot logits {worst} > {TOL}")
+        # a 512-token system prompt stored once: first-decode logits against
+        # the same prompts unshared, then the shared path counted.  With a
+        # q8 cache the two differ by more than the shared mode (unshared,
+        # the system rows are int8 too): that gap is reported, and the
+        # shared q8 logits are held to TOL of the bf16 unshared ones.
+        eng.set_system_prompt(system)
+        shared_logits = hold_logits(eng)
+        plain = BatchedEngine(cfg, params, tok, n_slots=4, max_seq=4096,
+                              kv_cache_dtype=kv_dtype, device=dev)
+        unshared_logits = hold_logits(plain)
+        del plain
+
+        def rel_rows(a, b):
+            return max(rel_of(torch, a[i], b[i]) for i in range(len(tails)))
+
+        out["shared_vs_unshared_rel"] = worst = rel_rows(shared_logits, unshared_logits)
+        if kind == "bf16":
+            unshared_bf16 = unshared_logits
+            if not worst <= TOL:
+                fail(f"8b_serve bf16: shared vs unshared first-decode logits {worst} > {TOL}")
+        else:
+            gap = out["unshared_q8_vs_unshared_bf16_rel"] = rel_rows(unshared_logits,
+                                                                     unshared_bf16)
+            got = out["shared_q8_vs_unshared_bf16_rel"] = rel_rows(shared_logits,
+                                                                   unshared_bf16)
+            if not got <= TOL:
+                fail(f"8b_serve q8: shared first-decode logits {got} > {TOL} from the "
+                     f"bf16 unshared ones (the all-int8 cache: {gap})")
+        eng.set_system_prompt(system)  # drops the rows the hold left in the slots
+        kernel_counts(reset=True)
+        before = kernels.device_counts()
+        run_requests(eng, [system + t for t in prompts((256, 300, 400, 500))], 64)
+        torch.cuda.synchronize()
+        paths[f"8b_serve_{kind}_shared"] = launches_since(before)
+        out.update(shared_launches=paths[f"8b_serve_{kind}_shared"],
+                   shared_wrapper_counts=kernel_counts(),
+                   shared_rows_bytes=eng.kv.shared_k.nbytes * 2,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        mode = "flash_decode_int8_shared" if kind == "q8" else "flash_decode_shared"
+        if not paths[f"8b_serve_{kind}_shared"][mode]:
+            fail(f"8b_serve {kind}: the shared path never launched {mode}")
+        emit(phase="8b_serve_engine", **out)
+        del eng
+    del params
+
+
 def phase_270m(torch, paths: dict, tmp: Path) -> None:
     from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
     from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
@@ -756,6 +1258,70 @@ def phase_tinydoc(torch, paths: dict) -> None:
         raise AssertionError(f"tinydoc: ppl {ppl} vs pinned {expected['ppl']}")
     if not (counts["flash_decode"] and counts["flash_attention"]):
         raise AssertionError(f"tinydoc: attention kernels not launched: {counts}")
+
+
+def phase_tinydoc_batched(torch, paths: dict) -> None:
+    """tinydoc's pinned greedy prompts, all at once through ``BatchedEngine``
+    (one slot each, 8-token prefill chunks, the decode step replayed from a
+    CUDA graph): with an f32 cache on the card the pinned tokens exactly;
+    with a q8 cache the tokens' agreement with the same engine on the CPU
+    (reported), and the held-out perplexity through a q8 cache within 1% of
+    the CPU's."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.models.llama import KVCache, forward
+    from llama_cpp_gfx906_tpu_torch.runtime.batch_engine import BatchedEngine, SamplerConfig
+
+    expected = json.loads((FIX / "tinydoc_expected.json").read_text())
+    prompts, held = list(expected["greedy"]), expected["held_ids"]
+    out = {}
+    for kv_dtype, devs in ((None, ("cuda",)), ("q8", ("cuda", "cpu"))):
+        name = kv_dtype or "f32"
+        for dev in devs:
+            eng = BatchedEngine.from_gguf(str(FIX / "tinydoc-byte.f16.gguf"),
+                                          dtype=torch.float32, device=dev,
+                                          n_slots=len(prompts), max_seq=128, n_chunk=8,
+                                          kv_cache_dtype=kv_dtype)
+            kernel_counts(reset=True)
+            slots = [eng.add_request(
+                eng.tokenizer.tokenize(p, add_special=True, parse_special=True),
+                len(expected["greedy"][p]), SamplerConfig(temp=0.0)) for p in prompts]
+            got = {s.id: [] for s in slots}
+            while any(s.stop_reason is None for s in slots):
+                for s, t, _ in eng.step():
+                    got[s.id].append(t)
+            kv = KVCache.create(eng.cfg, 1, len(held) - 1, kv_dtype or torch.float32,
+                                eng.device)
+            with torch.inference_mode():
+                logits, _ = forward(eng.params, eng.cfg,
+                                    torch.tensor([held[:-1]], device=eng.device), kv)
+                logp = torch.log_softmax(logits[0], -1)[
+                    torch.arange(len(held) - 1, device=eng.device),
+                    torch.tensor(held[1:], device=eng.device)]
+            out[f"{name}_{dev}"] = dict(tokens=[got[s.id] for s in slots],
+                                        ppl=float(np.exp(-float(logp.mean()))))
+            if dev == "cuda":
+                paths[f"tinydoc_batched_{name}"] = out[f"{name}_{dev}"]["launches"] = \
+                    kernel_counts()
+                if eng._step.graph is None:
+                    fail(f"tinydoc_batched {name}: the decode step was not captured")
+            del eng
+    want = [expected["greedy"][p] for p in prompts]
+    pairs = [(a, b) for x, y in zip(out["q8_cuda"]["tokens"], out["q8_cpu"]["tokens"])
+             for a, b in zip(x, y)]
+    q8_ppl_gap = abs(out["q8_cuda"]["ppl"] - out["q8_cpu"]["ppl"]) / out["q8_cpu"]["ppl"]
+    emit(phase="tinydoc_batched", f32_tokens_exact=out["f32_cuda"]["tokens"] == want,
+         q8_tokens_agree_with_cpu=sum(a == b for a, b in pairs) / len(pairs),
+         q8_tokens_agree_with_pinned=sum(a == b for x, y in zip(out["q8_cuda"]["tokens"], want)
+                                         for a, b in zip(x, y)) / len(pairs),
+         f32_ppl=out["f32_cuda"]["ppl"], q8_ppl_card=out["q8_cuda"]["ppl"],
+         q8_ppl_cpu=out["q8_cpu"]["ppl"], q8_ppl_rel_gap=q8_ppl_gap,
+         launches={k: v.get("launches") for k, v in out.items() if "launches" in v})
+    if out["f32_cuda"]["tokens"] != want:
+        fail(f"tinydoc_batched: f32 tokens {out['f32_cuda']['tokens']} are not the pinned ones")
+    if not q8_ppl_gap < 0.01:
+        fail(f"tinydoc_batched: q8 ppl on the card {out['q8_cuda']['ppl']} vs the CPU "
+             f"{out['q8_cpu']['ppl']}")
 
 
 def plant_faults() -> None:
@@ -842,8 +1408,11 @@ def main() -> None:
             run_phase("8b_fused", phase_8b_fused, torch, *got, paths)
         del got
         torch.cuda.empty_cache()
+        run_phase("8b_serve", phase_8b_serve, torch, paths, tmp)
+        torch.cuda.empty_cache()
         run_phase("270m_q8_0", phase_270m, torch, paths, tmp)
     run_phase("tinydoc", phase_tinydoc, torch, paths)
+    run_phase("tinydoc_batched", phase_tinydoc_batched, torch, paths)
 
     idle = [k for k, p in KERNEL_PATH.items() if not paths.get(p, {}).get(k)]
     if idle:
@@ -855,7 +1424,9 @@ def main() -> None:
     pick = {"gemv_int8": "lm_head", "gemv_nib4c": "ffn_gate_up",
             "flash_decode": "n_past=8000 window=0", "flash_attention": "n_past=256",
             "decode_stream": "B=1 n_past=3000", "decode_step": "B=1 n_past=3000",
-            "qmm_int8": "ffn_gate_up"}
+            "qmm_int8": "ffn_gate_up", "flash_decode_int8": "8b B=4",
+            "flash_decode_shared": "8b B=4", "flash_decode_int8_shared": "8b B=4",
+            "flash_attention_int8": "8b T=256 n_past=700"}
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = next(r for r in results[name] if pick[name] in r["case"])

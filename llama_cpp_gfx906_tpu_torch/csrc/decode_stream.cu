@@ -424,6 +424,7 @@ __device__ void merge_head(const DecodeArgs& a, int b, int qi) {
 template <int MP, bool FOLDED, bool NIB_OK, typename KV>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ DecodeArgs a) {
+  lcg::count_launch(NIB_OK ? 1 : 0);  // slot 0: K7, 1: K6
   __shared__ __align__(16) float smem[GT_SMEM_FLOATS];
   __shared__ float red[NWARP * MP], rs[MP];
   __shared__ float m_s[MAX_G], l_s[MAX_G];

@@ -2,19 +2,27 @@
 // KV cache, never materialising the (T, S) score matrix.
 //
 // Replaces: llama_cpp_gfx906_tpu/ops/flash_attention.py  _flash_kernel
-// (wrapper flash_attention), for bf16 or f32 KV with GQA, a per-sequence
-// offset n_past, sliding window, logit softcap and attention sinks.  The
-// int8-KV mode is not ported yet.
+// (wrapper flash_attention), for bf16, f32 or int8 KV with GQA, a
+// per-sequence offset n_past, sliding window, logit softcap and attention
+// sinks.
 //
-// Contract: q (B, T, Hq, D) and the cache (B, S, Hkv, D) share one element
-// type (bf16 or f32); query t of head hq sits at position n_past + t and
-// attends KV head hq / (Hq / Hkv), keys k <= n_past + t and, with a window
-// W > 0, k > n_past + t - W.  A per-head sink logit joins the softmax
-// denominator only.  Output (B, T, Hq, D) in the element type.
+// Contract: q (B, T, Hq, D) in the element type E (bf16 or f32); the cache
+// (B, S, Hkv, D) in E, or int8 with one f32 scale per (row, KV head),
+// kscale / vscale (B, S, Hkv); query t of head hq sits at position
+// n_past + t and attends KV head hq / (Hq / Hkv), keys k <= n_past + t and,
+// with a window W > 0, k > n_past + t - W.  A per-head sink logit joins the
+// softmax denominator only.  Output (B, T, Hq, D) in E.
+//
+// int8 mode: each K and V element is dequantized (int8 value x its row's
+// scale, in f32) as the tile is staged into shared memory, so both products
+// run on the same f32 tiles as the other modes; the only rounding to E is
+// the output's.  (The JAX kernel applies the scales to the scores and to p,
+// and returns bf16.)
 //
 // Bound on the card: the flops, 4 * T * S_live * D per head (QK^T and PV),
-// against 989 TFLOP/s of bf16 tensor cores; the bytes (Q, K, V once, O once)
-// are far smaller.  This first version runs the two products as f32 FMA
+// against 989 TFLOP/s of bf16 tensor cores; the bytes (Q, K, V once, O once,
+// and in the int8 mode 1 byte per element plus 4 bytes of scale per row and
+// KV head) are far smaller.  This first version runs the two products as f32 FMA
 // tile loops from shared memory (no mma / wgmma yet), so it is bound by the
 // 67 TFLOP/s of f32 FMA at best.  Design:
 //   - grid (q tile of 64, query head, batch); K and V are read strided from
@@ -22,6 +30,8 @@
 //   - key tiles of 64 wholly above the causal diagonal or wholly outside the
 //     window are skipped (the block computes its live key-tile range);
 //   - online softmax in f32 per query row, 8 threads per row group.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -41,15 +51,29 @@ struct Smem {
   static constexpr size_t bytes = sizeof(float) * (QS + KS + VS + PS);
 };
 
-template <typename E, int D>
+// element i of a K or V plane as f32; int8 rows take their scale
+template <typename KV>
+__device__ __forceinline__ float kv_at(const KV* p, size_t i,
+                                       const float* sc, size_t si) {
+  if constexpr (std::is_same<KV, int8_t>::value) {
+    return static_cast<float>(p[i]) * sc[si];
+  } else {
+    return lcg::to_float(p[i]);
+  }
+}
+
+template <typename E, typename KV, int D>
 __global__ void __launch_bounds__(NT)
-flash_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                       const E* __restrict__ v,
+flash_attention_kernel(const E* __restrict__ q, const KV* __restrict__ k,
+                       const KV* __restrict__ v,
+                       const float* __restrict__ kscale,  // (B, S, Hkv) or null
+                       const float* __restrict__ vscale,
                        const int* __restrict__ n_past_arr,
                        const float* __restrict__ sinks,  // (Hq,) or null
                        E* __restrict__ out, int T, int S, int Hq, int Hkv,
                        float scale, int window, float softcap) {
   extern __shared__ __align__(16) float sm[];
+  lcg::count_launch(std::is_same<KV, int8_t>::value ? 1 : 0);  // slot 1: int8
   float* Qs = sm;
   float* Ks = Qs + Smem<D>::QS;
   float* Vs = Ks + Smem<D>::KS;
@@ -86,8 +110,9 @@ flash_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int k_end = min(S, n_past + q_last + 1);  // exclusive
   const int k_beg = window > 0 ? max(0, n_past + q0 - window + 1) : 0;
   const size_t row_stride = (size_t)Hkv * D;
-  const E* kb = k + (size_t)b * S * row_stride + (size_t)hk * D;
-  const E* vb = v + (size_t)b * S * row_stride + (size_t)hk * D;
+  const KV* kb = k + (size_t)b * S * row_stride + (size_t)hk * D;
+  const KV* vb = v + (size_t)b * S * row_stride + (size_t)hk * D;
+  const size_t sbase = (size_t)b * S * Hkv + hk;  // scale of row kp: + kp * Hkv
 
   for (int kt = k_beg / BKT; kt * BKT < k_end; ++kt) {
     const int c0 = kt * BKT;
@@ -97,8 +122,9 @@ flash_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
       const int kp = c0 + c;
       float kv = 0.f, vv = 0.f;
       if (kp < k_end) {
-        kv = lcg::to_float(kb[(size_t)kp * row_stride + d]);
-        vv = lcg::to_float(vb[(size_t)kp * row_stride + d]);
+        const size_t si = sbase + (size_t)kp * Hkv;
+        kv = kv_at(kb, (size_t)kp * row_stride + d, kscale, si);
+        vv = kv_at(vb, (size_t)kp * row_stride + d, vscale, si);
       }
       Ks[d * KLD + c] = kv;
       Vs[c * D + d] = vv;
@@ -207,12 +233,13 @@ flash_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
   }
 }
 
-template <typename E, int D>
+template <typename E, typename KV, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const float* kscale, const float* vscale,
                      const int* n_past, const float* sinks, void* out, int B,
                      int T, int S, int Hq, int Hkv, float scale, int window,
                      float softcap, cudaStream_t st) {
-  auto kern = flash_attention_kernel<E, D>;
+  auto kern = flash_attention_kernel<E, KV, D>;
   static bool smem_set = false;  // once, so later launches may be graph-captured
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -222,27 +249,28 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   }
   dim3 grid((T + BQ - 1) / BQ, Hq, B);
   kern<<<grid, NT, Smem<D>::bytes, st>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), n_past, sinks, static_cast<E*>(out), T, S, Hq,
-      Hkv, scale, window, softcap);
+      static_cast<const E*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), kscale, vscale, n_past, sinks,
+      static_cast<E*>(out), T, S, Hq, Hkv, scale, window, softcap);
   return cudaGetLastError();
 }
 
-template <typename E>
+template <typename E, typename KV>
 cudaError_t launch(int D, const void* q, const void* k, const void* v,
+                   const float* kscale, const float* vscale,
                    const int* n_past, const float* sinks, void* out, int B,
                    int T, int S, int Hq, int Hkv, float scale, int window,
                    float softcap, cudaStream_t st) {
   switch (D) {
     case 64:
-      return launch_d<E, 64>(q, k, v, n_past, sinks, out, B, T, S, Hq, Hkv,
-                             scale, window, softcap, st);
+      return launch_d<E, KV, 64>(q, k, v, kscale, vscale, n_past, sinks, out,
+                                 B, T, S, Hq, Hkv, scale, window, softcap, st);
     case 128:
-      return launch_d<E, 128>(q, k, v, n_past, sinks, out, B, T, S, Hq, Hkv,
-                              scale, window, softcap, st);
+      return launch_d<E, KV, 128>(q, k, v, kscale, vscale, n_past, sinks, out,
+                                  B, T, S, Hq, Hkv, scale, window, softcap, st);
     case 256:  // 222 KB of shared tiles
-      return launch_d<E, 256>(q, k, v, n_past, sinks, out, B, T, S, Hq, Hkv,
-                              scale, window, softcap, st);
+      return launch_d<E, KV, 256>(q, k, v, kscale, vscale, n_past, sinks, out,
+                                  B, T, S, Hq, Hkv, scale, window, softcap, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -250,16 +278,28 @@ cudaError_t launch(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// bf16 != 0: q, cache and output are bf16, else f32.  n_past: int32 (B,).
-LCG_EXPORT int lcg_flash_attention(int bf16, int D, const void* q,
+// bf16 != 0: q and output are bf16, else f32; kv_int8 != 0: the cache is
+// int8 with kscale / vscale (B, S, Hkv) f32, else in q's type.  n_past:
+// int32 (B,).
+LCG_EXPORT int lcg_flash_attention(int bf16, int kv_int8, int D, const void* q,
                                    const void* k, const void* v,
+                                   const float* kscale, const float* vscale,
                                    const int* n_past, const float* sinks,
                                    void* out, int B, int T, int S, int Hq,
                                    int Hkv, float scale, int window,
                                    float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16>(D, q, k, v, n_past, sinks, out, B, T, S,
-                                      Hq, Hkv, scale, window, softcap, st)
-              : launch<float>(D, q, k, v, n_past, sinks, out, B, T, S, Hq,
-                              Hkv, scale, window, softcap, st);
+  if (kv_int8)
+    return bf16 ? launch<__nv_bfloat16, int8_t>(D, q, k, v, kscale, vscale,
+                                                n_past, sinks, out, B, T, S, Hq,
+                                                Hkv, scale, window, softcap, st)
+                : launch<float, int8_t>(D, q, k, v, kscale, vscale, n_past,
+                                        sinks, out, B, T, S, Hq, Hkv, scale,
+                                        window, softcap, st);
+  return bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(
+                    D, q, k, v, nullptr, nullptr, n_past, sinks, out, B, T, S,
+                    Hq, Hkv, scale, window, softcap, st)
+              : launch<float, float>(D, q, k, v, nullptr, nullptr, n_past,
+                                     sinks, out, B, T, S, Hq, Hkv, scale,
+                                     window, softcap, st);
 }

@@ -53,6 +53,7 @@ gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
             float* __restrict__ out, int K, int Np, int group, int sgroup,
             int ck, int seg) {
   __shared__ __align__(16) float smem[GT_SMEM_FLOATS];
+  lcg::count_launch(NIB ? 1 : 0);  // slot 0: int8, 1: nib4c
   lcg::gemv_tile<M, NIB, FOLDED, false>(
       [&](int m, int k) { return x[(size_t)m * K + k]; }, q, s, mn, sd, md,
       out, Np, K, Np, group, sgroup, ck, seg, blockIdx.x, blockIdx.y, smem);

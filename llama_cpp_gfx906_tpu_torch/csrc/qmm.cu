@@ -49,6 +49,7 @@ qmm_int8_kernel(const __nv_bfloat16* __restrict__ x,
                 float* __restrict__ out, int M, int K, int Np, int group) {
   __shared__ __align__(32) __nv_bfloat16 xs[BM * LDA];
   __shared__ __align__(32) __nv_bfloat16 ws[BK * LDB];
+  lcg::count_launch(0);
   const int tid = threadIdx.x, warp = tid / 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int wm = warp / 4, wn = warp % 4;

@@ -159,6 +159,7 @@ class Keys:
         ADD_BOS = "tokenizer.ggml.add_bos_token"
         ADD_EOS = "tokenizer.ggml.add_eos_token"
         ADD_PREFIX = "tokenizer.ggml.add_space_prefix"
+        CHAT_TEMPLATE = "tokenizer.chat_template"
 
 
 class TokenType(enum.IntEnum):

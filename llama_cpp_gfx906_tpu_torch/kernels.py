@@ -7,11 +7,14 @@ library names carry a hash of their sources, so an edited kernel is rebuilt
 and a stale library is never loaded.  All sources build in parallel, one
 ``nvcc`` each.  Nothing is built or loaded at import time.
 
-Launch counts: every kernel wrapper is registered here with a plain
-integer ``launches`` that it bumps where it launches (:func:`counts`,
-:func:`set_counts`).  A captured CUDA graph launches again on every replay
-without running the wrappers; :func:`traced_launches` counts the launches
-that a ``torch.profiler`` trace recorded on the device, replays included.
+Launch counts: every kernel wrapper is registered here (:func:`counted`)
+with a plain integer ``launches`` that it bumps where it launches
+(:func:`count`, :func:`counts`, :func:`set_counts`); a kernel with modes
+also bumps the count of the mode it launched (``flash_decode_int8`` beside
+``flash_decode``).  A captured CUDA graph launches again on every replay
+without running the wrappers: the kernels also count their launches on the
+device (:func:`device_counts`, graph replays included), each into the
+slot its registration names.
 """
 
 from __future__ import annotations
@@ -19,7 +22,6 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,8 +29,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = ("gemv", "flash_decode", "flash_attention", "decode_stream", "qmm")
+# --split-compile=0: optimise a source's kernels in parallel on every core
+# (the decode megakernels' many instantiations built 4x faster on the card)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> what ``-Xptxas -v`` reported when this process built the library
@@ -109,17 +114,46 @@ def stream(device) -> ctypes.c_void_p:
 
 # name -> the wrapper function whose ``launches`` attribute counts its kernel
 COUNTERS: dict = {}
+# (library, device count slot) -> the count names one launch there adds to
+_SLOTS: dict = {}
 
 
-def counted(name: str):
-    """Register a kernel wrapper under ``name``, with ``launches = 0``."""
+class _ModeCount:
+    launches = 0
+
+
+def counted(name: str, lib: str | None = None, slot: int = 0,
+            modes: tuple[str, ...] = ()):
+    """Register a kernel wrapper under ``name``, with ``launches = 0``.
+    ``modes`` are the kernel's flags: a launch with some of them on also
+    counts as ``<name>_<the flags on, joined by _>`` (in
+    ``wrapper.modes``).  On the device, the kernel of ``csrc/<lib>.cu``
+    counts each launch in slot ``slot`` plus its flags as bits (bit i for
+    ``modes[i]``; ``csrc/common.cuh`` ``count_launch``)."""
 
     def deco(fn):
         fn.launches = 0
+        fn.flags = modes
+        fn.modes = {}
         COUNTERS[name] = fn
+        for bits in range(1 << len(modes)):
+            mode = "_".join(m for i, m in enumerate(modes) if bits >> i & 1)
+            if mode:
+                fn.modes[mode] = COUNTERS[f"{name}_{mode}"] = _ModeCount()
+            if lib is not None:
+                _SLOTS[lib, slot + bits] = (name, f"{name}_{mode}") if mode else (name,)
         return fn
 
     return deco
+
+
+def count(fn, *flags: bool) -> None:
+    """One launch of ``fn``'s kernel, with its mode flags in the order of
+    its registered ``modes``."""
+    fn.launches += 1
+    mode = "_".join(m for m, on in zip(fn.flags, flags) if on)
+    if mode:
+        fn.modes[mode].launches += 1
 
 
 def counts() -> dict:
@@ -131,30 +165,20 @@ def set_counts(values: dict) -> None:
         fn.launches = values.get(k, 0)
 
 
-# device function -> (index of the template argument that tells two kernels
-# apart or None, the count's name for each of its values)
-_TRACE_NAMES = {
-    "gemv_kernel": (1, {"false": "gemv_int8", "true": "gemv_nib4c"}),
-    "flash_decode_kernel": (None, "flash_decode"),
-    "flash_attention_kernel": (None, "flash_attention"),
-    "decode_kernel": (2, {"true": "decode_stream", "false": "decode_step"}),
-    "qmm_int8_kernel": (None, "qmm_int8"),
-}
-
-
-def traced_launches(prof) -> dict:
-    """Launches of each counted kernel in a ``torch.profiler`` trace, read
-    from the device events by the kernels' (demangled) names."""
-    from torch.autograd import DeviceType
-
-    out = {name: 0 for name in COUNTERS}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+def device_counts() -> dict:
+    """Launches that ran on the card since each library was loaded, as the
+    kernels counted them on the device (graph replays included), under the
+    wrappers' count names (those that count on the device); a library not
+    loaded yet counts 0.  Synchronises with the legacy default stream."""
+    out = {c: 0 for names in _SLOTS.values() for c in names}
+    for lib_name in sorted({lib_name for lib_name, _ in _SLOTS}):
+        so = _libs.get(lib_name)
+        if so is None:
             continue
-        m = re.search(r"::(\w+)<([^()]*)>\(", ev.name)
-        if m is None or m.group(1) not in _TRACE_NAMES:
-            continue
-        arg, names = _TRACE_NAMES[m.group(1)]
-        name = names if arg is None else names[m.group(2).split(",")[arg].strip()]
-        out[name] = out.get(name, 0) + 1
+        vals = (ctypes.c_ulonglong * 4)()
+        check(so, so.lcg_device_counts(vals), f"{lib_name}: device counts")
+        for (l, s), names in _SLOTS.items():
+            if l == lib_name:
+                for c in names:
+                    out[c] += int(vals[s])
     return out

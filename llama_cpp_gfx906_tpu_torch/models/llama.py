@@ -10,10 +10,16 @@ Python loop over per-layer parameters (:func:`layers_forward`).
 Single-token decode on the card goes through one decode kernel for the
 whole stack where the JAX forward sends it to one on its accelerator: K7
 (``ops/decode_step.py``) for layers of at most 6 MiB of quantized planes,
-K6 (``ops/decode_stream.py``) for larger ones, each behind its gate;
+K6 (``ops/decode_stream.py``) for larger ones, each behind its gate (which
+refuses a q8 cache and a shared segment, as the JAX gates do);
 everything else, and everything on the CPU, takes the per-layer loop.  The
 rope frequencies live on the device once per (cfg, device), so a step has
 no host-to-device copy.
+
+The cache is bf16/f32 or q8 (``ops/kv_quant.QuantKV`` per K and V), and may
+carry a shared-prefix segment (one system prompt's rows, stored once for
+the whole batch): its S0 rows sit at logical positions 0..S0-1, so every
+own token is roped and masked at S0 + its row.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from ..ops.attention import mha_with_cache
 from ..ops.decode_step import _fused_ok, fused_decode_step
 from ..ops.decode_stream import _stream_ok, fused_decode_step_streamed
+from ..ops.kv_quant import QuantKV
 from ..ops.norms import rms_norm
 from ..ops.quant_matmul import QuantTensor, linear
 from ..ops.rope import apply_rope, inv_freq_for
@@ -34,24 +41,43 @@ from .config import ModelConfig
 
 @dataclass
 class KVCache:
-    """KV cache (L, B, S, Hkv, Dh) per K and V, updated in place, and the
-    per-sequence fill level ``n_past`` (B,) int32 on the cache's device."""
+    """KV cache (L, B, S, Hkv, Dh) per K and V (a tensor, or a ``QuantKV``
+    for a q8 cache), updated in place, the per-sequence fill level
+    ``n_past`` (B,) int32 on the cache's device, and the optional
+    shared-prefix rows ``shared_k``/``shared_v`` (L, 1, S0, Hkv, Dh) in the
+    compute dtype."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: torch.Tensor | QuantKV
+    v: torch.Tensor | QuantKV
     n_past: torch.Tensor
+    shared_k: torch.Tensor | None = None
+    shared_v: torch.Tensor | None = None
 
     @classmethod
     def create(cls, cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device="cpu") -> "KVCache":
+        """``dtype`` "q8" makes a quantized cache (JAX ``create(..., "q8")``)."""
         shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device),
+        if dtype in ("q8", "q8_0"):
+            k, v = QuantKV.zeros(shape, device), QuantKV.zeros(shape, device)
+        else:
+            k = torch.zeros(shape, dtype=dtype, device=device)
+            v = torch.zeros(shape, dtype=dtype, device=device)
+        return cls(k=k, v=v,
                    n_past=torch.zeros((batch,), dtype=torch.int32, device=device))
 
     @property
     def max_seq(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def n_shared(self) -> int:
+        return 0 if self.shared_k is None else self.shared_k.shape[2]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the per-slot K and V storage (scales included)."""
+        return self.k.nbytes + self.v.nbytes
 
 
 FUSED_LAYER_BYTES = 6 * 2**20  # K7 takes layers up to this many plane bytes
@@ -64,16 +90,23 @@ def layer_bytes(params) -> int:
                if isinstance(t, QuantTensor))
 
 
+def _on_card(kv: KVCache) -> bool:
+    return kv.k.device.type == "cuda"
+
+
 def decode_route(params, cfg: ModelConfig, kv: KVCache) -> str | None:
     """"k7", "k6" or None (the per-layer loop) for single-token decode into
-    ``kv`` on the card; decided once per (batch, length, cache dtype) and
-    held with the params, and the kernels' plane table is built with it."""
-    key = (kv.k.shape[1], kv.max_seq, kv.k.dtype, kv.k.device)
+    ``kv`` on the card; decided once per (batch, length, cache kind, shared
+    segment, contiguity) and held with the params, and the kernels' plane
+    table is built with it."""
+    quant = isinstance(kv.k, QuantKV)
+    key = (kv.k.shape[1], kv.max_seq, "q8" if quant else kv.k.dtype,
+           kv.k.device, kv.shared_k is not None, kv.k.is_contiguous())
     routes = params.__dict__.setdefault("_decode_routes", {})
     if key not in routes:
         B = kv.k.shape[1]
         route = None
-        if kv.k.is_cuda:
+        if _on_card(kv):
             small = layer_bytes(params) <= FUSED_LAYER_BYTES
             if small and _fused_ok(params, cfg, kv, B, 1):
                 route = "k7"
@@ -90,11 +123,13 @@ def decode_route(params, cfg: ModelConfig, kv: KVCache) -> str | None:
 def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
                    kv: KVCache) -> torch.Tensor:
     """The per-layer loop: x (B, T, D) through every layer; the T new K/V
-    rows land at n_past in place (n_past is not advanced here)."""
+    rows land at n_past in place (n_past is not advanced here).  Tokens sit
+    at logical positions n_shared + n_past + t."""
     B, T = x.shape[:2]
     dev = x.device
     inv_freq = inv_freq_for(cfg, dev)
-    positions = kv.n_past.long()[:, None] + torch.arange(T, device=dev)[None, :]
+    positions = (kv.n_shared + kv.n_past.long()[:, None]
+                 + torch.arange(T, device=dev)[None, :])
     scale = cfg.attn_scale or cfg.head_dim ** -0.5
     Dq = cfg.n_heads * cfg.head_dim
     Dkv = cfg.n_kv_heads * cfg.head_dim
@@ -115,8 +150,11 @@ def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
         k = apply_rope(k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim), positions,
                        inv_freq, cfg.rope_interleaved)
         v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+        shared = {}
+        if kv.shared_k is not None:
+            shared = dict(shared_k=kv.shared_k[li], shared_v=kv.shared_v[li])
         attn, _, _ = mha_with_cache(q, k, v, kv.k[li], kv.v[li], kv.n_past, scale,
-                                    sliding_window=cfg.sliding_window)
+                                    sliding_window=cfg.sliding_window, **shared)
         x = x + linear(attn.reshape(B, T, Dq), p["wo"])
         h = rms_norm(x, p["ffn_norm"], cfg.rms_eps)
         if "wgateup_fused" in p:

@@ -4,23 +4,32 @@
 Shapes:
   q:          (B, T, Hq, Dh)   new queries
   k/v new:    (B, T, Hkv, Dh)
-  k/v cache:  (B, S, Hkv, Dh)  updated in place (the JAX package donates it)
+  k/v cache:  (B, S, Hkv, Dh)  updated in place (the JAX package donates it),
+              or a ``QuantKV`` (q8: int8 rows + per-row f32 scales)
   n_past:     (B,) int32       rows already in the cache, on q's device
+  shared k/v: (1, S0, Hkv, Dh) a batch-shared prefix segment at logical
+              positions 0..S0-1; the own rows then sit at S0 + row
 
 :func:`attend` is the plain masked-softmax einsum: the oracle of the K3 and
-K4 kernels and the CPU path.  On the card :func:`mha_with_cache` sends every
-call to a kernel: K3 ``flash_decode`` when the G*T queries of a KV head fit
-its 128-query limit, K4 ``flash_attention`` otherwise.  (The JAX package's
-``S >= 4096`` condition for its decode kernel is about the TPU einsum reading
-the whole allocation; it is not carried over.)
+K4 kernels and the CPU path.  On the card :func:`mha_with_cache` sends a
+call to K3 ``flash_decode`` when the G*T queries of a KV head fit its
+128-query limit (every cache kind, with or without a shared segment), else
+to K4 ``flash_attention`` (bf16/f32 or int8 cache).  A chunk of more than
+128 queries per KV head with a shared segment has no kernel, in the JAX
+package either (its flash prefill has no shared mode and leaves that case to
+XLA): it takes the einsum on the card, counted by :func:`attend_einsum`.
+(The JAX package's ``S >= 4096`` condition for its decode kernel is about
+the TPU einsum reading the whole allocation; it is not carried over.)
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import kernels
 from .flash_attention import flash_attention
 from .flash_decode import MAX_QUERIES, flash_decode
+from .kv_quant import QuantKV, dequantize_rows, insert_quant
 
 NEG_INF = -1e30
 
@@ -87,29 +96,65 @@ def attend(q, k_cache, v_cache, n_past, scale: float, sliding_window: int = 0,
     return out.reshape(B, T, Hq, Dh).to(q.dtype)
 
 
+@kernels.counted("attend_einsum")
+def attend_einsum(q, k_cache, v_cache, n_past, scale: float,
+                  sliding_window: int = 0, logit_softcap: float = 0.0,
+                  sinks=None, shared_k=None, shared_v=None) -> torch.Tensor:
+    """:func:`attend` for a call that no kernel takes (a chunk of more than
+    128 queries per KV head over a shared segment), over rows dequantized
+    in q's dtype for a q8 cache (the JAX einsum path's rounding point).  On
+    the card each call counts like a kernel launch."""
+    if isinstance(k_cache, QuantKV):
+        k_cache = dequantize_rows(k_cache, q.dtype)
+        v_cache = dequantize_rows(v_cache, q.dtype)
+    out = attend(q, k_cache, v_cache, n_past, scale, sliding_window,
+                 logit_softcap, sinks, shared_k=shared_k, shared_v=shared_v)
+    if q.is_cuda:
+        attend_einsum.launches += 1
+    return out
+
+
 def mha_with_cache(q, k_new, v_new, k_cache, v_cache, n_past, scale: float,
                    sliding_window: int = 0, logit_softcap: float = 0.0,
                    sinks=None, kv_pos=None, q_pos=None, alibi_slopes=None,
                    shared_k=None, shared_v=None):
-    """Insert the new rows, then attend.  Returns (out (B, T, Hq, Dh),
-    k_cache, v_cache); the caches are updated in place."""
+    """Insert the new rows (quantized first for a ``QuantKV`` cache), then
+    attend.  Returns (out (B, T, Hq, Dh), k_cache, v_cache); the caches are
+    updated in place."""
     if shared_k is not None and kv_pos is not None:
         raise NotImplementedError("shared-prefix KV + self-extend positions")
-    insert_kv(k_cache, k_new, n_past)
-    insert_kv(v_cache, v_new, n_past)
-    extra = dict(kv_pos=kv_pos, q_pos=q_pos, alibi_slopes=alibi_slopes,
-                 shared_k=shared_k, shared_v=shared_v)
-    if any(v is not None for v in extra.values()):
-        if q.is_cuda:
-            raise NotImplementedError(
-                "ALiBi, self-extend and shared-prefix attention have no CUDA "
-                "kernel yet")
-        out = attend(q, k_cache, v_cache, n_past, scale, sliding_window,
-                     logit_softcap, sinks, **extra)
-        return out, k_cache, v_cache
+    quant = isinstance(k_cache, QuantKV)
+    if quant:
+        insert_quant(k_cache, k_new, n_past)
+        insert_quant(v_cache, v_new, n_past)
+    else:
+        insert_kv(k_cache, k_new, n_past)
+        insert_kv(v_cache, v_new, n_past)
     B, T, Hq, _ = q.shape
     G = Hq // k_cache.shape[2]
-    attn = flash_decode if G * T <= MAX_QUERIES else flash_attention
-    out = attn(q, k_cache, v_cache, n_past, scale, sliding_window,
-               logit_softcap, sinks)
+    shared = dict(shared_k=shared_k, shared_v=shared_v)
+    if kv_pos is not None or alibi_slopes is not None:
+        if q.is_cuda:
+            raise NotImplementedError(
+                "ALiBi and self-extend attention have no CUDA kernel yet")
+        kc, vc = k_cache, v_cache
+        if quant:
+            kc, vc = dequantize_rows(kc, q.dtype), dequantize_rows(vc, q.dtype)
+        out = attend(q, kc, vc, n_past, scale, sliding_window, logit_softcap,
+                     sinks, kv_pos=kv_pos, q_pos=q_pos,
+                     alibi_slopes=alibi_slopes, **shared)
+    elif G * T <= MAX_QUERIES:
+        out = flash_decode(q, k_cache, v_cache, n_past, scale, sliding_window,
+                           logit_softcap, sinks, **shared)
+    elif shared_k is not None:
+        out = attend_einsum(q, k_cache, v_cache, n_past, scale, sliding_window,
+                            logit_softcap, sinks, **shared)
+    elif quant:
+        out = flash_attention(q, k_cache.q, v_cache.q, n_past, scale,
+                              sliding_window, logit_softcap, sinks,
+                              k_scales=k_cache.s, v_scales=v_cache.s)
+    else:
+        out = flash_attention(q, k_cache, v_cache, n_past, scale,
+                              sliding_window, logit_softcap, sinks)
     return out, k_cache, v_cache
+

@@ -33,6 +33,11 @@ def _fused_ok(params, cfg, kv, B: int, T: int) -> bool:
     """The K7 gate: B = 1, T = 1, fused q|k|v, int8 plain-scale weights."""
     if T != 1 or B != 1:
         return False
+    # a q8 cache or a shared-prefix segment: the JAX gate refuses both first
+    if kv.shared_k is not None or not isinstance(kv.k, torch.Tensor):
+        return False
+    if not (kv.k.is_contiguous() and kv.v.is_contiguous()):
+        return False  # a slot's view of a batched cache
     if kv.k.ndim != 5 or kv.k.shape[1] != B:
         return False
     if kv.k.dtype not in (torch.bfloat16, torch.float32):
@@ -56,7 +61,7 @@ def _fused_ok(params, cfg, kv, B: int, T: int) -> bool:
     return p["wgateup_fused"].shape == (D, 2 * F_)
 
 
-@kernels.counted("decode_step")
+@kernels.counted("decode_step", lib="decode_stream", slot=0)
 def fused_decode_step(params, cfg, x: torch.Tensor, kv) -> torch.Tensor:
     """K7: x (B = 1, 1, D) through every layer, the KV updated in place.
     On the CPU, the plain version."""

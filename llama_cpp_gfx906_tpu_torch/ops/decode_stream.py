@@ -105,6 +105,11 @@ def _stream_ok(params, cfg, kv, B: int, T: int) -> bool:
     chunk grid)."""
     if T != 1 or not (1 <= B <= 8):
         return False
+    # a q8 cache or a shared-prefix segment: the JAX gate refuses both first
+    if kv.shared_k is not None or not isinstance(kv.k, torch.Tensor):
+        return False
+    if not (kv.k.is_contiguous() and kv.v.is_contiguous()):
+        return False  # a slot's view of a batched cache
     if kv.k.ndim != 5 or kv.k.shape[1] != B:
         return False
     if kv.k.dtype not in (torch.bfloat16, torch.float32):
@@ -410,7 +415,7 @@ def launch_decode(params, cfg, x: torch.Tensor, kv, k7: bool) -> torch.Tensor:
     return ws.xout[:B].to(x.dtype, copy=True).reshape(B, 1, D)
 
 
-@kernels.counted("decode_stream")
+@kernels.counted("decode_stream", lib="decode_stream", slot=1)
 def fused_decode_step_streamed(params, cfg, x: torch.Tensor, kv) -> torch.Tensor:
     """K6: x (B, 1, D) through every layer, the KV updated in place (see the
     module docstring).  On the CPU, the plain version."""

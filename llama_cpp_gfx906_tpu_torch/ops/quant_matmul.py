@@ -311,7 +311,7 @@ def _gemv_launch(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return out[:M, : qt.N]
 
 
-@kernels.counted("gemv_int8")
+@kernels.counted("gemv_int8", lib="gemv", slot=0)
 def gemv_int8(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """K1: x (M <= 8, K) @ int8 QuantTensor -> f32 (M, N)."""
     if x2.device.type == "cpu":
@@ -323,7 +323,7 @@ def gemv_int8(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return out
 
 
-@kernels.counted("gemv_nib4c")
+@kernels.counted("gemv_nib4c", lib="gemv", slot=1)
 def gemv_nib4c(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """K2: x (M <= 8, K) @ nib4c QuantTensor -> f32 (M, N)."""
     if x2.device.type == "cpu":
@@ -367,7 +367,7 @@ def qmm_plain(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return _sub_mins(xb @ w.float(), xb, qt)[:, : qt.N]
 
 
-@kernels.counted("qmm_int8")
+@kernels.counted("qmm_int8", lib="qmm", slot=0)
 def qmm_int8(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """K5: x (M, K) @ int8 plain-scale QuantTensor -> f32 (M, N)."""
     if x2.device.type == "cpu":

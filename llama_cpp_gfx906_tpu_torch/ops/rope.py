@@ -72,3 +72,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
         x0, x1 = rot[..., : rope_dim // 2], rot[..., rope_dim // 2 :]
         out = torch.cat([x0 * cos - x1 * sin, x0 * sin + x1 * cos], -1)
     return torch.cat([out.to(x.dtype), rest], -1) if rest.shape[-1] else out.to(x.dtype)
+
+
+def rope_shift_rows(k_cache: torch.Tensor, deltas: torch.Tensor,
+                    inv_freq: torch.Tensor, interleaved: bool = True) -> torch.Tensor:
+    """Re-rotate cached (already roped) K rows (L, B, S, H, Dh) by per-row
+    position deltas (B, S) (0 leaves a row as it is): rotation by p + d is
+    rotation by p, then by d, so a key moves from p to p + d by one more
+    rope application (the context shift)."""
+    L, B = k_cache.shape[:2]
+    flat = k_cache.reshape(L * B, *k_cache.shape[2:])
+    out = apply_rope(flat, deltas.repeat(L, 1), inv_freq, interleaved)
+    return out.reshape(k_cache.shape)

@@ -4,8 +4,9 @@
 decode loop ``decode_fused`` / ``generate_fused``).
 
 PyTorch runs eagerly, so there are no shape buckets: prefill runs at the
-prompt's own length.  The KV cache is updated in place.  The engine runs on
-the card unless ``device="cpu"`` is passed.
+prompt's own length.  The KV cache (bf16/f32, or q8 with
+``kv_cache_dtype="q8"``) is updated in place.  The engine runs on the card
+unless ``device="cpu"`` is passed.
 
 The fused loop keeps decode on the device: one step (forward at T = 1,
 on-device sampling, the recent-token ring) is captured once per engine in
@@ -56,6 +57,41 @@ class PerfCounters:
 RECENT = 64  # the recent-token ring of the on-device repetition penalty
 
 
+def load_model(path: str, dtype: torch.dtype, device: torch.device,
+               keep_quantized: bool = True):
+    """(cfg, params, tokenizer) of a llama GGUF, the weights on ``device``
+    (see :meth:`Engine.from_gguf` for ``keep_quantized``)."""
+    reader = GGUFModelReader(path)
+    cfg = config_from_gguf(reader)
+    tok = tokenizer_from_gguf(reader)
+    if keep_quantized:
+        params = load_llama_params_quantized(reader, cfg, dtype, device)
+    else:
+        params = load_llama_params(reader, cfg, dtype, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return cfg, params, tok
+
+
+def sample_one(logits: np.ndarray, sp: SamplerParams, prev: list[int],
+               gen: torch.Generator, device) -> int:
+    """One token from host logits (V,) through the on-device sampler, the
+    repetition penalty over the last ``RECENT`` of ``prev``."""
+    recent = np.full((1, RECENT), -1, np.int32)
+    if prev and sp.penalty_repeat != 1.0:
+        tail = prev[-RECENT:]
+        recent[0, -len(tail):] = tail
+    vec = lambda v, dt: torch.full((1,), v, dtype=dt, device=device)  # noqa: E731
+    u = torch.rand((1, CAND), generator=gen, device=device)
+    tok = sample_tokens(
+        torch.from_numpy(logits[None]).to(device), u,
+        vec(sp.temp, torch.float32), vec(sp.top_k, torch.int32),
+        vec(sp.top_p, torch.float32), vec(sp.min_p, torch.float32),
+        vec(sp.penalty_repeat, torch.float32),
+        torch.from_numpy(recent).to(device))
+    return int(tok[0])
+
+
 class _FusedLoop:
     """Static buffers of the fused decode loop: a captured step reads and
     writes only these, at fixed addresses."""
@@ -84,7 +120,7 @@ class Engine:
     tokenizer: Tokenizer
     device: torch.device
     max_seq: int = 2048
-    kv_dtype: torch.dtype = torch.bfloat16
+    kv_dtype: torch.dtype | str = torch.bfloat16  # or "q8"
     perf: PerfCounters = field(default_factory=PerfCounters)
 
     def __post_init__(self):
@@ -93,24 +129,20 @@ class Engine:
     @classmethod
     def from_gguf(cls, path: str, max_seq: int = 2048,
                   dtype: torch.dtype = torch.bfloat16, device=None,
-                  keep_quantized: bool = True) -> "Engine":
-        """Load a llama GGUF; weights and the KV cache in ``dtype``.
+                  keep_quantized: bool = True,
+                  kv_cache_dtype: str | torch.dtype | None = None) -> "Engine":
+        """Load a llama GGUF; weights and the KV cache in ``dtype``, or the
+        cache in ``kv_cache_dtype`` ("q8": int8 rows and per-row scales).
         ``keep_quantized`` keeps supported quant types block-quantized on
         the device (nib4c for the Q4 family, int8 otherwise, folded k-quant
-        scales); off, every weight is dequantized to ``dtype``."""
+        scales); off, every weight is dequantized to ``dtype``.  With a q8
+        cache, single-token decode takes the per-layer loop: the K6/K7
+        gates refuse it, as in the JAX package."""
         dev = resolve_device(device)
         t0 = time.perf_counter()
-        reader = GGUFModelReader(path)
-        cfg = config_from_gguf(reader)
-        tok = tokenizer_from_gguf(reader)
-        if keep_quantized:
-            params = load_llama_params_quantized(reader, cfg, dtype, dev)
-        else:
-            params = load_llama_params(reader, cfg, dtype, dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        cfg, params, tok = load_model(path, dtype, dev, keep_quantized)
         eng = cls(cfg=cfg, params=params, tokenizer=tok, device=dev,
-                  max_seq=max_seq, kv_dtype=dtype)
+                  max_seq=max_seq, kv_dtype=kv_cache_dtype or dtype)
         eng.perf.t_load_s = time.perf_counter() - t0
         return eng
 
@@ -296,20 +328,7 @@ class Engine:
     def _sample_first(self, logits: np.ndarray, sp: SamplerParams,
                       prev: list[int], gen: torch.Generator) -> int:
         """One token from host logits through the on-device sampler."""
-        recent = np.full((1, RECENT), -1, np.int32)
-        if prev and sp.penalty_repeat != 1.0:
-            tail = prev[-RECENT:]
-            recent[0, -len(tail):] = tail
-        dev = self.device
-        vec = lambda v, dt: torch.full((1,), v, dtype=dt, device=dev)  # noqa: E731
-        u = torch.rand((1, CAND), generator=gen, device=dev)
-        tok = sample_tokens(
-            torch.from_numpy(logits[None]).to(dev), u,
-            vec(sp.temp, torch.float32), vec(sp.top_k, torch.int32),
-            vec(sp.top_p, torch.float32), vec(sp.min_p, torch.float32),
-            vec(sp.penalty_repeat, torch.float32),
-            torch.from_numpy(recent).to(dev))
-        return int(tok[0])
+        return sample_one(logits, sp, prev, gen, self.device)
 
     def generate(self, prompt: str, n_predict: int = 64,
                  sampler: SamplerParams | SamplerChain | None = None,

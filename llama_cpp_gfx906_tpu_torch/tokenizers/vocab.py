@@ -40,6 +40,7 @@ class Vocab:
     add_bos: bool = False
     add_eos: bool = False
     add_space_prefix: bool = True
+    chat_template: str | None = None
 
     token_to_id: dict[str, int] = field(default_factory=dict, repr=False)
     _special_sorted: list[int] = field(default_factory=list, repr=False)
@@ -152,4 +153,5 @@ def vocab_from_gguf(reader) -> Vocab:
         add_bos=bool(add_bos),
         add_eos=bool(add_eos),
         add_space_prefix=bool(add_space_prefix),
+        chat_template=get(Keys.Tokenizer.CHAT_TEMPLATE),
     )

@@ -1,7 +1,9 @@
 """The port stands alone: no file of llama_cpp_gfx906_tpu_torch, nor
-chip_smoke.py, imports jax or the JAX package; the package imports with
-both blocked; and its entry points default to the card, raising where
-there is none instead of falling back to the CPU."""
+chip_smoke.py, imports jax, the JAX package or aiohttp (absent where the
+port runs: its server is built on the standard library); the package
+imports with all three blocked; and its entry points (the engines and the
+server) default to the card, raising where there is none instead of falling
+back to the CPU."""
 
 import ast
 import os
@@ -14,7 +16,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "llama_cpp_gfx906_tpu_torch"
-FORBIDDEN = ("jax", "llama_cpp_gfx906_tpu")
+FORBIDDEN = ("jax", "llama_cpp_gfx906_tpu", "aiohttp")
 
 
 def _imports(path: Path):
@@ -50,6 +52,7 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
     mods.append(m.name)
 assert "llama_cpp_gfx906_tpu_torch.runtime.engine" in mods, mods
+assert "llama_cpp_gfx906_tpu_torch.server.app" in mods, mods
 assert not any(k.split(".")[0] in {FORBIDDEN!r} for k in sys.modules)
 print(len(mods))
 """
@@ -67,10 +70,17 @@ def no_cuda():
 
 def test_engine_defaults_to_the_card(no_cuda):
     from llama_cpp_gfx906_tpu_torch.device import resolve_device
+    from llama_cpp_gfx906_tpu_torch.runtime.batch_engine import BatchedEngine
     from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.server.app import main as server_main
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine.from_gguf(str(ROOT / "tests" / "fixtures" / "tinydoc-byte.f16.gguf"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedEngine.from_gguf(str(ROOT / "tests" / "fixtures" / "tinydoc-byte.f16.gguf"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server_main(["-m", str(ROOT / "tests" / "fixtures" / "tinydoc-byte.f16.gguf"),
+                     "--port", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"

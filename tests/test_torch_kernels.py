@@ -314,8 +314,8 @@ def test_engine_fused_route_matches_cpu(cuda_device, tmp_path, monkeypatch, pres
     loop does not; the gap grows with depth, so chip_smoke.py reports it.)
     decode_fused
     gives the card's own greedy tokens, one launch of the decode kernel per
-    token (read from a profiler trace: graph replays bypass the wrappers'
-    counts)."""
+    token (graph replays bypass the wrappers' counts: launches are read
+    from the kernels' device-side counts)."""
     from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
 
     if route == "k6":
@@ -346,11 +346,119 @@ def test_engine_fused_route_matches_cpu(cuda_device, tmp_path, monkeypatch, pres
     toks = card.generate("card", n_predict=12, stop_on_eog=False)[1]
     fused = card.generate_fused("card", n_predict=11, stop_on_eog=False, chunk=5)[1]
     assert _greedy_consistent(card, "card", fused, toks[:11], tol)
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):  # two chunks of replays
-            card.decode_fused(fused[-1], n_steps=5)
+    before = kernels.device_counts()
+    for _ in range(2):  # two chunks of replays
+        card.decode_fused(fused[-1], n_steps=5)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in kernels.device_counts().items()}
+    assert (ran[route_kernel], ran["gemv_int8"], ran["gemv_nib4c"],
+            ran["flash_decode"]) == (10, 10, 0, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("mode,T,n_past,window,use_sinks", [
+    ("int8", 1, (17, 200), 0, False), ("int8", 4, (0, 250), 64, True),
+    ("shared", 1, (3, 300), 0, False), ("shared", 3, (40, 0), 32, True),
+    ("int8+shared", 1, (17, 290), 0, False), ("int8+shared", 2, (0, 64), 48, False)])
+def test_k3_quant_and_shared_modes_match_plain(cuda_device, dtype, D, mode, T, n_past,
+                                               window, use_sinks):
+    """K3's int8-KV mode, shared-prefix mode and both together against the
+    plain version (the einsum over f32-dequantized rows, the shared rows
+    concatenated before the own ones)."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode_plain
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import quantize_rows
+
+    q, k, v, npast, sinks = _attn_case(11, 2, T, 8, 2, D, 320, n_past, cuda_device, dtype)
+    kw = {}
+    if "shared" in mode:
+        g = torch.Generator().manual_seed(12)
+        kw = {n: (torch.randn((1, 75, 2, D), generator=g) * 0.3).to(cuda_device, dtype)
+              for n in ("shared_k", "shared_v")}
+    if "int8" in mode:
+        k, v = quantize_rows(k), quantize_rows(v)
+    args = (q, k, v, npast, D ** -0.5, window, 0.0, sinks if use_sinks else None)
+    name = mode.replace("+", "_")
+    count = flash_decode.modes[name]
+    before, before_mode = flash_decode.launches, count.launches
+    on_device = kernels.device_counts()
+    got = flash_decode(*args, **kw)
+    ref = flash_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (flash_decode.launches, count.launches) == (before + 1, before_mode + 1)
+    ran = {k: v - on_device[k] for k, v in kernels.device_counts().items()}
+    assert (ran["flash_decode"], ran[f"flash_decode_{name}"]) == (1, 1)
+    assert got.shape == q.shape and got.dtype == q.dtype and _rel(got, ref) < TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("T,n_past,window", [(130, (0, 90), 0), (64, (5, 100), 48)])
+def test_k4_int8_mode_matches_plain(cuda_device, dtype, D, T, n_past, window):
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention_plain
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import quantize_rows
+
+    q, k, v, npast, _ = _attn_case(13, 2, T, 8, 2, D, 320, n_past, cuda_device, dtype)
+    kq, vq = quantize_rows(k), quantize_rows(v)
+    args = (q, kq.q, vq.q, npast, D ** -0.5, window, 0.0, None)
+    kw = dict(k_scales=kq.s[..., 0], v_scales=vq.s[..., 0])
+    before = flash_attention.modes["int8"].launches
+    got = flash_attention(*args, **kw)
+    ref = flash_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.modes["int8"].launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype and _rel(got, ref) < TOL
+
+
+def test_mha_q8_and_shared_dispatch_on_card(cuda_device):
+    """A q8 cache: K3 for G*T <= 128, K4 beyond; a shared segment: K3, and
+    the counted einsum beyond 128 queries per KV head."""
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import QuantKV, quantize_rows
+
+    g = torch.Generator().manual_seed(3)
+    sh = {n: (torch.randn((1, 20, 2, 64), generator=g) * 0.3).to(cuda_device)
+          for n in ("shared_k", "shared_v")}
+    for T, shared, kern in ((2, False, flash_decode), (80, False, flash_attention),
+                            (2, True, flash_decode), (80, True, tatt.attend_einsum)):
+        q, k, v, npast, _ = _attn_case(9, 1, T, 4, 2, 64, 256, (30,), cuda_device,
+                                       torch.float32)
+        kc, vc = QuantKV.zeros(k.shape, cuda_device), QuantKV.zeros(v.shape, cuda_device)
+        before = kern.launches
+        out, _, _ = tatt.mha_with_cache(q, k[:, :T], v[:, :T], kc, vc, npast, 0.125,
+                                        **(sh if shared else {}))
         torch.cuda.synchronize()
-    traced = kernels.traced_launches(prof)
-    assert (traced[route_kernel], traced["gemv_int8"], traced["gemv_nib4c"],
-            traced["flash_decode"]) == (10, 10, 0, 0)
+        assert kern.launches == before + 1
+        assert torch.equal(kc.q[:, 30:30 + T], quantize_rows(k[:, :T]).q)
+        ref = tatt.attend_einsum(q, kc, vc, npast, 0.125, **(sh if shared else {}))
+        assert _rel(out, ref) < TOL
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "q8"])
+def test_batched_engine_card_matches_cpu(cuda_device, kv_dtype):
+    """tinydoc's pinned greedy prompts, all at once through the batched
+    engine at f32 on the card (the decode step replayed from a CUDA graph)
+    and on the CPU: the same tokens with an f32 cache, the pinned ones."""
+    from llama_cpp_gfx906_tpu_torch.runtime.batch_engine import BatchedEngine, SamplerConfig
+
+    with open(os.path.join(FIX, "tinydoc_expected.json")) as f:
+        expected = json.load(f)
+    path = os.path.join(FIX, "tinydoc-byte.f16.gguf")
+    outs = []
+    for dev in (cuda_device, "cpu"):
+        eng = BatchedEngine.from_gguf(path, dtype=torch.float32, device=dev, n_slots=4,
+                                      max_seq=128, n_chunk=8, kv_cache_dtype=kv_dtype)
+        prompts = [eng.tokenizer.tokenize(p, add_special=True, parse_special=True)
+                   for p in expected["greedy"]]
+        slots = [eng.add_request(p, 24, SamplerConfig(temp=0.0)) for p in prompts]
+        got = {s.id: [] for s in slots}
+        while any(s.stop_reason is None for s in slots):
+            for s, t, _ in eng.step():
+                got[s.id].append(t)
+        outs.append([got[s.id] for s in slots])
+        if kv_dtype is None:
+            assert outs[-1] == list(expected["greedy"].values())
+    if kv_dtype is None:
+        assert outs[0] == outs[1]
+    else:  # int8 rows may round apart where card and CPU K differ by an ulp
+        pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
+        assert sum(a == b for a, b in pairs) >= 0.9 * len(pairs)
