@@ -8,7 +8,9 @@ Phases, each printing JSON lines:
      paths, with its time, its bound and a PyTorch yardstick: K1-K4 at the
      8B Q4_K_M shapes, K5 at the 270M Q8_0 prefill shapes, K6 on two
      full-width 8B layers (B 1 and 8), K7 on the 18 layers of the 270M Q8_0
-     shape;
+     shape, K8 at the Mixtral Q8_0 expert shapes (one token's 2 pairs and 4
+     slots' 8), K6's MoE branch on two full-width Mixtral layers (nib4c and
+     int8 experts) with the expert ids it chose;
   2. the 8B Q4_K_M model end to end (synthetic weights from a seed, full
      width and depth): ``Engine.from_gguf``, a greedy ``generate`` (decode
      through K6), the per-layer loop called as a function (K1-K4), and a
@@ -28,7 +30,18 @@ Phases, each printing JSON lines:
      profile of a 4-slot decode stretch) and two holds: the batched T = 1
      forward against single-slot forwards, and the shared segment against
      the same prompts unshared;
-  6. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
+  6. ``mixtral_q4km``: Mixtral-8x7B Q4_K_M (synthetic, full width and
+     depth, about 26 GB): prefill through the dense all-experts path, a
+     greedy ``generate`` and ``decode_fused`` through K6's MoE branch, one
+     K6 and one K1 launch per fused token, the fused route held against the
+     per-layer loop;
+  7. ``mixtral_q8_0``: Mixtral-8x7B Q8_0 cut to 4 of 32 layers: one stream
+     through K6 with int8 experts and prefill through K5 per expert; then
+     ``BatchedEngine`` at 4 slots x 4096 (bf16 cache), whose batched decode
+     step routes every layer's experts through K8 (3 launches a layer),
+     counted per decode step and prefill chunk, and held against
+     single-slot forwards;
+  8. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
      and held-out perplexity, through ``Engine`` and, all prompts at once,
      through ``BatchedEngine`` with an f32 and a q8 cache.
 Kernel launch counts are set to 0 before each path and read after it.  A
@@ -45,8 +58,9 @@ Usage: python3 chip_smoke.py
 check can fail: it copies the package and this script into temporary
 directories, plants one known fault (``FAULTS``) in each copy's
 ``csrc/decode_stream.cu``, builds the copies, and prints the errors that
-``decode_errors`` reads for each (K6 on two 8B layers, K7 on the 18 layers
-of the 270M shape; B = 1, n_past 700), the unmodified source first.
+``decode_errors`` reads for each (K6 on two 8B layers and on two Mixtral
+Q4_K_M layers, K7 on the 18 layers of the 270M shape; B = 1, n_past 700),
+the unmodified source first.
 """
 
 from __future__ import annotations
@@ -85,6 +99,13 @@ FAULTS = {
     # attention reads one live row too few
     "one_row_short": ("const int live = min(np, a.S);",
                       "const int live = min(np - 1, a.S);"),
+    # the MoE router drops each token's best expert: the second best takes
+    # its place (and the third the second's)
+    "wrong_expert": ("    float wsum = 0.f;\n",
+                     "    float wsum = 0.f;\n    {\n      int b0 = 0;\n"
+                     "      for (int i = 1; i < E; ++i)\n"
+                     "        if (lg[i] > lg[b0]) b0 = i;\n"
+                     "      lg[b0] = lcg::kNegInf;\n    }\n"),
 }
 
 KERNEL_INFO = {
@@ -102,6 +123,10 @@ KERNEL_INFO = {
                     "llama_cpp_gfx906_tpu/ops/decode_step.py:69"),
     "qmm_int8": ("llama_cpp_gfx906_tpu_torch/csrc/qmm.cu",
                  "llama_cpp_gfx906_tpu/ops/quant_matmul.py:706"),
+    "rqmm_int8": ("llama_cpp_gfx906_tpu_torch/csrc/rqmm.cu",
+                  "llama_cpp_gfx906_tpu/ops/quant_matmul.py:1225"),
+    "decode_stream_moe": ("llama_cpp_gfx906_tpu_torch/csrc/decode_stream.cu",
+                          "llama_cpp_gfx906_tpu/ops/decode_stream.py:676"),
 }
 # the K3 / K4 modes of the serve path: the same kernels, counted apart
 for _mode in ("int8", "shared", "int8_shared"):
@@ -117,7 +142,8 @@ KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
                "flash_decode_int8": "8b_serve_http_q8",
                "flash_attention_int8": "8b_serve_http_q8",
                "flash_decode_int8_shared": "8b_serve_q8_shared",
-               "flash_decode_shared": "8b_serve_bf16_shared"}
+               "flash_decode_shared": "8b_serve_bf16_shared",
+               "decode_stream_moe": "mixtral_q4km", "rqmm_int8": "mixtral_q8_0_serve"}
 SERVE_PROMPT_LENS = (256, 384, 512, 640, 768, 896, 1024, 320)
 # the serve path's launches per 4-slot decode step and per prefill chunk (of
 # 64 or more tokens: K4 and the dequant matmul, the head's GEMV on its last row)
@@ -129,6 +155,19 @@ SERVE_PER_CHUNK = {"q8": {"flash_attention": 32, "flash_attention_int8": 32, "ge
                    "bf16": {"flash_attention": 32, "flash_attention_int8": 0,
                             "gemv_int8": 1}}
 SYSTEM_LEN = 512  # the shared system prompt of the serve path's shared runs
+MIXTRAL_Q8_LAYERS = 4  # the mixtral_q8_0 phase's cut depth (of 32)
+# its batched decode step at 4 slots (bf16 cache: the per-layer loop, K6
+# refuses MoE at B > 1), per layer: K1 for q|k|v and o, K3, K8 for the
+# experts' gate, up and down; plus K1 for the head.  A prefill chunk (more
+# than 8 tokens: the dense path) per layer: K5 for q|k|v, o and each of the
+# 8 experts' 3 matrices, K4; plus K1 for the head on the chunk's last row
+MIXTRAL_PER_STEP = {"rqmm_int8": 3 * MIXTRAL_Q8_LAYERS,
+                    "gemv_int8": 2 * MIXTRAL_Q8_LAYERS + 1,
+                    "flash_decode": MIXTRAL_Q8_LAYERS, "decode_stream": 0,
+                    "qmm_int8": 0, "flash_attention": 0}
+MIXTRAL_PER_CHUNK = {"qmm_int8": (2 + 3 * 8) * MIXTRAL_Q8_LAYERS,
+                     "flash_attention": MIXTRAL_Q8_LAYERS, "gemv_int8": 1,
+                     "rqmm_int8": 0, "flash_decode": 0, "decode_stream": 0}
 
 
 FAILURES: list[str] = []
@@ -383,7 +422,69 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
                             record, whole)
         del eng
         torch.cuda.empty_cache()
+    moe_kernel_cases(torch, dev, g, flush, record, tmp)
     del flush
+
+
+def moe_kernel_cases(torch, dev, g, flush, record, tmp: Path) -> None:
+    """K8 at the Mixtral Q8_0 expert shapes (8 experts; gate 4096 x 14336 and
+    down 14336 x 4096) for one token's 2 pairs and 4 slots' 8 (two distinct
+    experts per token), and once with mins (Q4_K experts unified to
+    int8/g16); K6's MoE branch on two full-width Mixtral layers with nib4c
+    (Q4_K_M) and int8 (Q8_0) experts, B = 1, held as the dense K6 is held.
+    K8's bound counts each distinct expert's slice once
+    (``bound_ms_every_pair``: every pair's); its library yardstick is a
+    gather of pre-dequantized bf16 experts and ``torch.bmm``."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4k_rows, q8_0_rows, write_synth
+
+    E = 8
+    rng = np.random.default_rng(5)
+    cases = (("gate 4096x14336", GGMLType.Q8_0, 14336, 4096, (2, 8)),
+             ("down 14336x4096", GGMLType.Q8_0, 4096, 14336, (2, 8)),
+             ("gate 4096x14336 with mins", GGMLType.Q4_K, 14336, 4096, (2,)))
+    for case, gtype, N, K, pairs in cases:
+        rows = q8_0_rows if gtype == GGMLType.Q8_0 else q4k_rows
+        raw = np.concatenate([rows(np.random.default_rng([5, e]), N, K) for e in range(E)])
+        pack = qmm.pack_gguf_experts if gtype == GGMLType.Q8_0 else qmm.pack_experts_int8_g16
+        qt = pack(raw.reshape(-1), gtype, (E, N, K), device=dev)
+        del raw
+        wb = qmm.dequantize_qt_experts(qt, torch.bfloat16)
+        one = sum(t[0].numel() * t.element_size() for t in (qt.q, qt.s, qt.m) if t is not None)
+        for P in pairs:
+            ids = np.concatenate([rng.choice(E, 2, replace=False) for _ in range(P // 2)])
+            idx = torch.tensor(ids, dtype=torch.int32, device=dev)
+            x = torch.randn((P, K), generator=g, device=dev).to(torch.bfloat16)
+            err = check(f"rqmm_int8 {case} P={P}", qmm.rqmm_int8(x, qt, idx),
+                        qmm.rqmm_plain(x, qt, idx), torch)
+            io = P * K * 2 + P * N * 4
+            lib = lambda: torch.bmm(x[:, None, :], wb[idx.long()])  # noqa: E731
+            record("rqmm_int8", f"{case} P={P}", err,
+                   device_ms(lambda: qmm.rqmm_int8(x, qt, idx), torch, flush),
+                   device_ms(lambda: qmm.rqmm_plain(x, qt, idx), torch, flush),
+                   len(set(ids.tolist())) * one + io, 2 * P * K * N,
+                   device_ms(lib, torch, flush), distinct_experts=len(set(ids.tolist())),
+                   bound_ms_every_pair=bound(P * one + io, 2 * P * K * N)[0],
+                   library="gather of pre-dequantized bf16 experts + torch.bmm")
+        del qt, wb
+        torch.cuda.empty_cache()
+
+    for preset in ("mixtral-q4_k_m", "mixtral-q8_0"):
+        path = write_synth(str(tmp / f"{preset}-kernel.gguf"), preset, seed=0,
+                           n_layers=2, n_vocab=512)
+        eng = Engine.from_gguf(path, max_seq=4096)
+        for n_past in (700, 3000):
+            decode_case(torch, eng, "decode_stream_moe", k6.fused_decode_step_streamed,
+                        k6.fused_decode_step_streamed_plain, 1, n_past, g, flush,
+                        record, True, expert_format=eng.params["layers"][0]["moe_gate"].fmt)
+        del eng
+        Path(path).unlink()
+        torch.cuda.empty_cache()
 
 
 def kv_mode_cases(torch, dev, g, flush, record) -> None:
@@ -512,14 +613,19 @@ def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
     the layer before (``per_layer``); depth amplifies neither of the two
     last.  ``one_ulp_spread`` is
     the plain version's own output moved by one bf16 ulp on one element of
-    x: how far depth carries a single rounding.  Returns the errors, x and
-    the three caches."""
+    x: how far depth carries a single rounding.  For an MoE stack (B = 1),
+    ``expert_ids_kernel`` and ``expert_ids_plain`` are the experts each
+    layer chose, as the kernel wrote them and as the plain version chose
+    them: a router near-tie shows as a differing id.  Returns the errors, x
+    and the three caches."""
     import dataclasses
 
     from llama_cpp_gfx906_tpu_torch.models.llama import KVCache
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
     from llama_cpp_gfx906_tpu_torch.runtime.weights import ParamDict
 
     params, cfg, dev = eng.params, eng.cfg, eng.device
+    moe = "moe_gate_inp" in params["layers"][0]
     caches = []
     for _ in range(3):
         kv = KVCache.create(cfg, B, eng.max_seq, torch.bfloat16, dev)
@@ -551,11 +657,17 @@ def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
     x = params["tok_emb"][toks]
     with torch.inference_mode():
         got = kern(params, cfg, x, caches[0])
+        kern_ids = k6.last_expert_ids(params, caches[0]).tolist() if moe else None
         ref = plain(params, cfg, x, caches[1])
         (ka, va), (kb, vb) = rows(caches[0]), rows(caches[1])
         errs = dict(x=rel(got, ref), x_abs=float((got.float() - ref.float()).abs().max()),
                     k_rows=rel(ka, kb), v_rows=rel(va, vb), finite=bool(
                         torch.isfinite(got).all()))
+        if moe:  # the plain version again on its cache: the same step, same rows
+            ids = []
+            k6.decode_layers_plain(params, cfg, x, caches[1], ids_out=ids)
+            errs["expert_ids_kernel"] = kern_ids
+            errs["expert_ids_plain"] = [i[0].tolist() for i in ids]
         errs["first_two_layers"] = stack_err(*sub_stack(0, min(2, cfg.n_layers)), x)[0]
         worst, xl = 0.0, x
         for li in range(cfg.n_layers):
@@ -570,7 +682,7 @@ def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
 
 
 def decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record,
-                whole_stack: bool) -> None:
+                whole_stack: bool, **extra) -> None:
     """One decode kernel case: its errors against the plain version (the
     first two layers and each layer alone always held to TOL; the whole
     stack too where ``whole_stack``), its time, the plain version's and
@@ -578,16 +690,16 @@ def decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record,
     from llama_cpp_gfx906_tpu_torch.models.llama import KVCache, layers_forward
     from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
     from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
-    from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import QuantTensor
 
     params, cfg = eng.params, eng.cfg
-    gate = k6._stream_ok if name == "decode_stream" else k7._fused_ok
+    gate = k6._stream_ok if name.startswith("decode_stream") else k7._fused_ok
     if not gate(params, cfg, KVCache.create(cfg, B, eng.max_seq, torch.bfloat16, "meta"),
                 B, 1):
         raise AssertionError(f"{name}: the gate refuses B={B}")
     toks = torch.randint(0, cfg.n_vocab, (B, 1), generator=g, device=eng.device)
     errs, x, caches = decode_errors(torch, eng, kern, plain, B, n_past, toks)
-    case = f"L={cfg.n_layers} B={B} n_past={n_past}"
+    case = f"L={cfg.n_layers} B={B} n_past={n_past}" + "".join(
+        f" {v} experts" for v in extra.values())
     if not errs["finite"]:
         fail(f"{name} {case}: non-finite kernel output")
     for what in ("first_two_layers", "per_layer") + (
@@ -598,23 +710,42 @@ def decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record,
         ms = device_ms(lambda: kern(params, cfg, x, caches[0]), torch, flush)
         plain_ms = device_ms(lambda: plain(params, cfg, x, caches[1]), torch, flush)
         loop_ms = device_ms(lambda: layers_forward(params, cfg, x, caches[2]), torch, flush)
-    planes = [t for p in params["layers"] for q in p.children()
-              if isinstance(q, QuantTensor)
-              for t in (q.q, q.s, q.m, q.sd, q.md) if t is not None]
-    planes += [p[n] for p in params["layers"] for n in ("attn_norm", "ffn_norm")]
     HD = cfg.n_kv_heads * cfg.head_dim
     L, D = cfg.n_layers, cfg.n_embd
-    macs = sum(q.K * q.N for p in params["layers"] for q in p.children()
-               if isinstance(q, QuantTensor))
-    nbytes = (sum(t.numel() * t.element_size() for t in planes)
-              + 2 * L * B * (n_past + 1) * HD * 2  # live KV read, new rows written
-              + B * D * 4)                         # x in and out (bf16)
+    nbytes, macs = weight_bytes_macs(params, errs.get("expert_ids_kernel"))
+    nbytes += (2 * L * B * (n_past + 1) * HD * 2  # live KV read, new rows written
+               + B * D * 4)                       # x in and out (bf16)
     flops = 2 * B * macs + 4 * L * B * cfg.n_heads * (n_past + 1) * cfg.head_dim
     record(name, case, (errs["x_abs"], errs["x"]), ms, plain_ms, nbytes, flops, None,
            flop_s=F32_FLOP_S, per_layer_loop_ms=loop_ms,
            errors={k: v for k, v in errs.items() if k not in ("x_abs", "finite")},
-           whole_stack_checked=whole_stack)
+           whole_stack_checked=whole_stack, **extra)
     del caches
+
+
+def weight_bytes_macs(params, expert_ids=None) -> tuple[int, int]:
+    """The plane bytes one decode step must read and its weight MACs per
+    token: every dense projection and norm; of a layer's stacked experts,
+    the slices of the distinct experts it chose (``expert_ids``, per layer)
+    and the router."""
+    from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import QuantTensor
+
+    nbytes = macs = 0
+    for li, p in enumerate(params["layers"]):
+        for q in p.children():
+            if not isinstance(q, QuantTensor):
+                continue
+            planes = [t for t in (q.q, q.s, q.m, q.sd, q.md) if t is not None]
+            if q.q.ndim == 3:
+                one = sum(t[0].numel() * t.element_size() for t in planes)
+                nbytes += len(set(expert_ids[li])) * one
+                macs += len(expert_ids[li]) * q.K * q.N
+            else:
+                nbytes += sum(t.numel() * t.element_size() for t in planes)
+                macs += q.K * q.N
+        nbytes += sum(p[n].numel() * p[n].element_size()
+                      for n in ("attn_norm", "ffn_norm", "moe_gate_inp") if n in p)
+    return nbytes, macs
 
 
 def loop_logits(torch, eng, tok: int, layers_fn=None):
@@ -1045,11 +1176,30 @@ def rel_of(torch, a, b) -> float:
     return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
 
 
-def batched_vs_single(torch, eng, prompts, rng, steps: int = 8) -> float:
+def loop_forward(params, cfg, tokens, kv, last_only: bool = True):
+    """``forward`` through the per-layer loop whatever the decode route."""
+    from llama_cpp_gfx906_tpu_torch.models.llama import layers_forward
+    from llama_cpp_gfx906_tpu_torch.ops.norms import rms_norm
+    from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import linear
+
+    x = layers_forward(params, cfg, params["tok_emb"][tokens], kv)[:, -1:]
+    kv.n_past += tokens.shape[1]
+    return linear(rms_norm(x, params["out_norm"], cfg.rms_eps), params["lm_head"]).float(), kv
+
+
+def batched_vs_single(torch, eng, prompts, rng, steps: int = 8, single_fn=None) -> dict:
     """4 slots at different n_past: ``steps`` teacher-forced T = 1 forwards
-    of the whole batch against each slot alone on a copy of its rows; the
-    worst max |batched - single| / max |single| over slots and steps."""
-    from llama_cpp_gfx906_tpu_torch.models.llama import forward
+    of the whole batch against each slot alone on a copy of its rows
+    (through ``single_fn``, by default ``forward``); ``worst_rel``, the
+    worst max |batched - single| / max |single| over slots and steps.  For
+    an MoE model it also counts the (slot, step) pairs whose expert ids
+    differ between the two in some layer, and the worst error over the
+    pairs whose ids agree: a near-tie that two routes' roundings (K6's
+    router on the f32 h2, the loop's on the bf16 h) break differently
+    changes an expert, and that step with it."""
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route, forward
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
+    from llama_cpp_gfx906_tpu_torch.ops import moe
 
     slots = run_requests(eng, prompts, 1, until_generating=True)  # prefill only
     dev = eng.device
@@ -1058,22 +1208,47 @@ def batched_vs_single(torch, eng, prompts, rng, steps: int = 8) -> float:
     for s, kv1 in zip(slots, singles):
         kv1.n_past.fill_(s.n_past)
     ids = torch.tensor([s.id for s in slots], device=dev)
-    worst = 0.0
+    track = (single_fn is None and "moe_gate_inp" in eng.params["layers"][0]
+             and decode_route(eng.params, eng.cfg, singles[0]) == "k6")
+    out = dict(worst_rel=0.0)
+    if track:
+        out.update(worst_rel_same_experts=0.0, pairs=0, pairs_expert_differs=0)
+    chosen, route = [], moe.route
+
+    def recording_route(logits, cfg):
+        w, i = route(logits, cfg)
+        chosen.append(i.sort(-1).values)
+        return w, i
+
     with torch.inference_mode():
         eng.kv.n_past.copy_(torch.from_numpy(eng.n_past_host))
         for j in range(steps):
             col = torch.zeros((eng.n_slots, 1), dtype=torch.long, device=dev)
             col[ids, 0] = toks[:, j]
-            batched = forward(eng.params, eng.cfg, col, eng.kv, last_only=True)[0][ids, 0]
+            chosen.clear()
+            moe.route = recording_route
+            try:
+                batched = forward(eng.params, eng.cfg, col, eng.kv, last_only=True)[0][ids, 0]
+            finally:
+                moe.route = route
             for r, kv1 in enumerate(singles):
-                one = forward(eng.params, eng.cfg, toks[r:r + 1, j:j + 1], kv1,
-                              last_only=True)[0][0, 0]
-                worst = max(worst, rel_of(torch, batched[r], one))
+                one = (single_fn or forward)(eng.params, eng.cfg, toks[r:r + 1, j:j + 1],
+                                             kv1, last_only=True)[0][0, 0]
+                err = rel_of(torch, batched[r], one)
+                out["worst_rel"] = max(out["worst_rel"], err)
+                if track:
+                    k6_ids = k6.last_expert_ids(eng.params, kv1).sort(-1).values
+                    same = all(bool((k6_ids[li] == c[ids[r]]).all())
+                               for li, c in enumerate(chosen))
+                    out["pairs"] += 1
+                    out["pairs_expert_differs"] += not same
+                    if same:
+                        out["worst_rel_same_experts"] = max(out["worst_rel_same_experts"], err)
     for s in slots:
         s.stop_reason = "length"
         eng.release(s)
         s.cache_tokens = []  # rows past the prompt were teacher-forced
-    return worst
+    return out
 
 
 def phase_8b_serve(torch, paths: dict, tmp: Path) -> None:
@@ -1144,7 +1319,7 @@ def phase_8b_serve(torch, paths: dict, tmp: Path) -> None:
                  f"want {SERVE_PER_STEP[kind]}")
         out["decode_stretch"] = stretch
         out["batched_vs_single_rel"] = worst = batched_vs_single(
-            torch, eng, prompts((256, 700, 1500, 3000)), rng)
+            torch, eng, prompts((256, 700, 1500, 3000)), rng)["worst_rel"]
         if not worst <= TOL:
             fail(f"8b_serve {kind}: batched vs single-slot logits {worst} > {TOL}")
         # a 512-token system prompt stored once: first-decode logits against
@@ -1222,6 +1397,149 @@ def phase_270m(torch, paths: dict, tmp: Path) -> None:
          route=route, generate_launches=launches, **perf, **out,
          layer_loop_comparison=cmp)
     del eng
+    torch.cuda.empty_cache()
+
+
+def phase_mixtral_q4km(torch, paths: dict, tmp: Path) -> None:
+    """Mixtral-8x7B Q4_K_M at full width and depth (nib4c experts, 32
+    layers): load, a greedy ``generate`` (the 676-token prefill through the
+    dense all-experts path, decode through K6's MoE branch),
+    ``decode_fused`` with its launches per token, and the fused route held
+    against the per-layer loop (routed: the quantized nib4c gather)."""
+    import os
+
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
+    from llama_cpp_gfx906_tpu_torch.ops.decode_stream import last_expert_ids
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = tmp / "synth-mixtral-q4km.gguf"
+    t0 = time.perf_counter()
+    write_synth(str(path), "mixtral-q4_k_m", seed=0)
+    t_write = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine.from_gguf(str(path), max_seq=8192)
+    mem_weights = torch.cuda.memory_allocated()
+    route = decode_route(eng.params, eng.cfg, eng.kv)
+    if route != "k6":
+        raise AssertionError(f"mixtral_q4km: decode route {route}, want k6")
+    ids = prompt_ids(eng)
+    kernel_counts(reset=True)
+    _, toks = eng.generate(eng.tokenizer.detokenize(ids), n_predict=32, stop_on_eog=False)
+    torch.cuda.synchronize()
+    paths["mixtral_q4km"] = launches = kernel_counts()
+    perf = eng.perf.summary()
+    chosen = last_expert_ids(eng.params, eng.kv).tolist()
+    head = eng.params["lm_head"]
+    nbytes, macs = weight_bytes_macs(eng.params, chosen)
+    nbytes += sum(t.numel() * t.element_size() for t in (head.q, head.s, head.m, head.sd, head.md)
+                  if t is not None)
+    if len(toks) != 32 or not all(0 <= t < eng.cfg.n_vocab for t in toks):
+        raise AssertionError(f"mixtral_q4km: bad generated tokens {toks}")
+    if (launches["decode_stream_moe"] != 32 or launches["decode_stream"] != 32
+            or launches["gemv_nib4c"] or launches["flash_decode"] or launches["rqmm_int8"]):
+        raise AssertionError(f"mixtral_q4km: decode went elsewhere than K6's MoE branch: "
+                             f"{launches}")
+    fused = fused_run(torch, eng, ids, "decode_stream_moe")
+    cmp = compare_routes(torch, eng, ids, TOL_Q4KM, enforce_loop=True)
+    emit(phase="mixtral_q4km", synth_write_s=t_write, gguf_bytes=os.path.getsize(path),
+         prompt_tokens=len(ids), new_tokens=len(toks), route=route, **perf,
+         weights_and_cache_bytes=mem_weights,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         active_weight_bytes_per_token=nbytes, weight_macs_per_token=macs,
+         bound_ms_per_token=bound(nbytes, 2 * macs)[0], expert_ids_last_step=chosen,
+         generate_launches=launches, **fused, layer_loop_comparison=cmp)
+    del eng
+    path.unlink()
+    torch.cuda.empty_cache()
+
+
+def phase_mixtral_q8_0(torch, paths: dict, tmp: Path) -> None:
+    """Mixtral-8x7B Q8_0 at full width, cut to ``MIXTRAL_Q8_LAYERS`` layers
+    (int8 experts): one stream (prefill: K5 for every projection and
+    expert; decode: K6's MoE branch), then ``BatchedEngine`` at 4 slots x
+    4096 with a bf16 cache: 4 requests of 256-1024 prompt tokens and 32 new
+    tokens each, their launches held to ``MIXTRAL_PER_STEP`` per decode step
+    (K8 in the captured batched step) and ``MIXTRAL_PER_CHUNK`` per prefill
+    chunk, and the batched forward held against single-slot ones."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
+    from llama_cpp_gfx906_tpu_torch.runtime.batch_engine import BatchedEngine
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = tmp / "synth-mixtral-q8_0.gguf"
+    t0 = time.perf_counter()
+    write_synth(str(path), "mixtral-q8_0", seed=0, n_layers=MIXTRAL_Q8_LAYERS)
+    t_write = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine.from_gguf(str(path), max_seq=4096)
+    L = eng.cfg.n_layers
+    route = decode_route(eng.params, eng.cfg, eng.kv)
+    if route != "k6":
+        raise AssertionError(f"mixtral_q8_0: decode route {route}, want k6")
+    ids = prompt_ids(eng)
+    kernel_counts(reset=True)
+    _, toks = eng.generate(eng.tokenizer.detokenize(ids), n_predict=32, stop_on_eog=False)
+    torch.cuda.synchronize()
+    paths["mixtral_q8_0"] = launches = kernel_counts()
+    single = dict(eng.perf.summary(), launches=launches)
+    if launches["decode_stream_moe"] != 32 or launches["rqmm_int8"]:
+        raise AssertionError(f"mixtral_q8_0: decode went elsewhere than K6: {launches}")
+    if launches["qmm_int8"] != MIXTRAL_PER_CHUNK["qmm_int8"]:  # one prefill
+        raise AssertionError(f"mixtral_q8_0: prefill went elsewhere than K5: {launches}")
+    cfg, params, tok, dev = eng.cfg, eng.params, eng.tokenizer, eng.device
+    del eng
+
+    rng = np.random.default_rng(4)
+
+    def prompts(lens):
+        return [[int(t) for t in rng.integers(3, cfg.n_vocab, n)] for n in lens]
+
+    be = BatchedEngine(cfg, params, tok, n_slots=4, max_seq=4096,
+                       kv_cache_dtype=torch.bfloat16, device=dev)
+    be.warmup()
+    run_requests(be, prompts((20, 40, 60, 80)), 4)  # captures the decode step
+    if be._step.graph is None:
+        fail("mixtral_q8_0: the batched decode step was not captured")
+    m0 = dict(be.metrics)
+    before = kernels.device_counts()
+    t0 = time.perf_counter()
+    run_requests(be, prompts((256, 512, 768, 1024)), 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["mixtral_q8_0_serve"] = served = launches_since(before)
+    steps = be.metrics["n_decode_steps"] - m0["n_decode_steps"]
+    chunks = be.metrics["n_prefill_chunks"] - m0["n_prefill_chunks"]
+    want = {k: MIXTRAL_PER_STEP.get(k, 0) * steps + MIXTRAL_PER_CHUNK.get(k, 0) * chunks
+            for k in {*MIXTRAL_PER_STEP, *MIXTRAL_PER_CHUNK}}
+    if any(served.get(k) != v for k, v in want.items()):
+        fail(f"mixtral_q8_0: the batched engine launched {served} in {steps} decode steps "
+             f"and {chunks} prefill chunks, want {want}")
+    n_out = be.metrics["n_generated_tokens"] - m0["n_generated_tokens"]
+    if n_out != 4 * 32:
+        fail(f"mixtral_q8_0: {n_out} tokens served, want 128")
+    # each slot alone through the same route (the per-layer loop: K8 at 2
+    # pairs) is held; through its own route (K6 at B = 1: the router on the
+    # f32 h2, Q8_0 weights rounded to bf16 in the kernel) it is reported
+    worst = batched_vs_single(torch, be, prompts((256, 700, 1500, 3000)), rng,
+                              single_fn=loop_forward)["worst_rel"]
+    if not worst <= TOL:
+        fail(f"mixtral_q8_0: batched vs single-slot logits {worst} > {TOL}")
+    k6_routes = batched_vs_single(torch, be, prompts((256, 700, 1500, 3000)), rng)
+    emit(phase="mixtral_q8_0", layers=L, synth_write_s=t_write, single_stream=single,
+         served_tokens=n_out, served_wall_s=wall, served_tok_s=n_out / wall,
+         decode_steps=steps, prefill_chunks=chunks,
+         decode_step_wall_ms=(be.metrics["t_decode_s"] - m0["t_decode_s"]) * 1e3 / max(steps, 1),
+         decode_step_device_ms=(be.metrics["t_decode_device_s"] - m0["t_decode_device_s"])
+         * 1e3 / max(steps, 1),
+         launches=served, launches_want=want, batched_vs_single_rel=worst,
+         batched_vs_single_k6=k6_routes,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del be, params
+    path.unlink()
     torch.cuda.empty_cache()
 
 
@@ -1361,6 +1679,7 @@ def decode_errors_of_copy(torch, fault: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for name, preset, L, kern in (
                 ("decode_stream", "8b", 2, k6.fused_decode_step_streamed),
+                ("decode_stream_moe", "mixtral-q4_k_m", 2, k6.fused_decode_step_streamed),
                 ("decode_step", "270m-q8_0", None, k7.fused_decode_step)):
             eng = Engine.from_gguf(write_synth(f"{tmp}/{preset}.gguf", preset, seed=0,
                                                n_layers=L, n_vocab=512), max_seq=4096)
@@ -1411,6 +1730,9 @@ def main() -> None:
         run_phase("8b_serve", phase_8b_serve, torch, paths, tmp)
         torch.cuda.empty_cache()
         run_phase("270m_q8_0", phase_270m, torch, paths, tmp)
+        torch.cuda.empty_cache()
+        run_phase("mixtral_q4km", phase_mixtral_q4km, torch, paths, tmp)
+        run_phase("mixtral_q8_0", phase_mixtral_q8_0, torch, paths, tmp)
     run_phase("tinydoc", phase_tinydoc, torch, paths)
     run_phase("tinydoc_batched", phase_tinydoc_batched, torch, paths)
 
@@ -1426,7 +1748,8 @@ def main() -> None:
             "decode_stream": "B=1 n_past=3000", "decode_step": "B=1 n_past=3000",
             "qmm_int8": "ffn_gate_up", "flash_decode_int8": "8b B=4",
             "flash_decode_shared": "8b B=4", "flash_decode_int8_shared": "8b B=4",
-            "flash_attention_int8": "8b T=256 n_past=700"}
+            "flash_attention_int8": "8b T=256 n_past=700",
+            "rqmm_int8": "gate 4096x14336 P=2", "decode_stream_moe": "n_past=3000 nib4c"}
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = next(r for r in results[name] if pick[name] in r["case"])

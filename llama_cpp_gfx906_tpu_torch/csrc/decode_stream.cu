@@ -6,9 +6,11 @@
 // fused_decode_step), for the dense llama modes: int8 or nib4c weights with
 // plain or folded scales and affine mins, a fused q|k|v or split-v (q|k
 // fused, v apart) layout, NORM/NEOX rope, per-layer sliding windows, silu,
-// bf16 or f32 KV.  K7 is the instantiation with B = 1, int8 weights and
-// plain scales (its own C entry point); its gate picks it.  Not ported yet:
-// the MoE branch, qk-norm, post-norms, dual rope bases and gelu.
+// bf16 or f32 KV, and the MoE FFN (B = 1: router, softmax or sigmoid,
+// top-k, renorm and scale, then only the chosen experts' slices).  K7 is
+// the instantiation with B = 1, int8 weights and plain scales (its own C
+// entry point); its gate picks it.  Not ported yet: the MoE shared expert,
+// qk-norm, post-norms, dual rope bases and gelu.
 //
 // Per layer (x: the f32 carry, B rows):
 //   P1  h = rms(x) * attn_norm, bf16;  qkv = h · Wqkv (and h · Wv)
@@ -24,6 +26,20 @@
 // and the next layer's P1 adds x = bf16(x) + bf16(mlp).  A grid-wide
 // barrier ends each phase (7 per layer); every block recomputes the RMS
 // norm it needs instead of waiting on another barrier.
+//
+// An MoE layer (MOE, B = 1) replaces P6 and P7 and keeps 7 barriers:
+//   P6  x, h2 as above; every block computes the router logits h2 · Wr
+//       (D x E f32, from the f32 h2, as the JAX kernel) and the top-k
+//       itself, as it recomputes the norm: softmax or sigmoid, k masked-max
+//       passes (the first maximum on ties), renorm and scale; then the
+//       gate and up GEMVs of the k chosen experts as one phase (work units
+//       k x 2 x their tiles, expert e's planes at base + e * stride)
+//   P7  per expert j: y = bf16(bf16(silu(g)) * bf16(u)) from the f32 gate
+//       and up; mlp += w_j * (y · Wdown_j), each unit's partial sums scaled
+//       by w_j before their atomicAdd
+// Expert planes are int8 or nib4c with plain f32 scales (never folded,
+// while the dense projections may be).  Block 0 writes the chosen ids to
+// eids (L, k), so a check can tell a router near-tie from a fault.
 //
 // Bound on the card: the weight bytes of every layer plus the live KV, read
 // once per step (B <= 8 rows ride the same weight stream).  Design:
@@ -60,10 +76,16 @@ using lcg::GT_TN;
 
 constexpr int NT = GT_NT;
 constexpr int NWARP = NT / 32;
-constexpr int TABLE_W = 28;   // per layer: 5 projections x 5 planes, 2 norms, window
-constexpr int NPROJ = 5;
-enum { P_QKV = 0, P_V = 1, P_O = 2, P_GU = 3, P_DN = 4 };
-constexpr int T_ANORM = 25, T_FNORM = 26, T_WINDOW = 27;
+// per layer: 5 projections x 5 planes, 2 norms, window; MoE: the router,
+// then 3 expert tensors x (q, s, m bases, q stride, s stride in bytes)
+constexpr int TABLE_W = 44;
+constexpr int NPROJ = 8;
+enum { P_QKV = 0, P_V = 1, P_O = 2, P_GU = 3, P_DN = 4, P_EG = 5, P_EU = 6,
+       P_ED = 7 };
+constexpr int T_ANORM = 25, T_FNORM = 26, T_WINDOW = 27, T_ROUTER = 28,
+              T_EXP = 29;
+constexpr int MAX_E = 256;      // router lanes
+constexpr int MAX_K = 8;        // experts per token
 constexpr int KT = 64;          // keys per attention tile
 constexpr int MAX_G = 16;       // query heads per KV head
 constexpr int MAX_QDIM = 4096;  // G * Dh
@@ -96,9 +118,12 @@ struct DecodeArgs {
   float* part;             // (B, Hkv, nsplit, G, Dh + 2) split partials
   float* selfs;            // (B, Hq) self-term scores
   unsigned* bar;           // barrier count and generation, zero at rest
+  int* eids;               // (L, topk) the chosen experts (MoE)
   ProjDims proj[NPROJ];
   int L, B, D, Hq, Hkv, Dh, F, S, nsplit, split_v, interleaved;
-  float scale, eps;
+  int gu_len;              // floats of gu_acc (MoE: topk x 2 x expert N)
+  int n_exp, topk, gating_sigmoid, wnorm;  // MoE routing
+  float scale, eps, wscale;
 };
 
 __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
@@ -177,7 +202,8 @@ __device__ __forceinline__ int gemv_units(const ProjDims& p) {
 template <int MP, bool FOLDED, bool NIB_OK, class XF>
 __device__ __forceinline__ void gemv_unit(XF xf, const ProjDims& p,
                                           const long long* planes, float* out,
-                                          int out_ld, int u, float* smem) {
+                                          int out_ld, int u, float* smem,
+                                          float oscale = 1.f) {
   const int8_t* q = reinterpret_cast<const int8_t*>(planes[0]);
   const void* s = reinterpret_cast<const void*>(planes[1]);
   const void* mn = reinterpret_cast<const void*>(planes[2]);
@@ -188,11 +214,11 @@ __device__ __forceinline__ void gemv_unit(XF xf, const ProjDims& p,
   if (NIB_OK && p.nib)
     lcg::gemv_tile<MP, true, FOLDED, false>(xf, q, s, mn, sd, md, out, out_ld,
                                             p.K, p.N, p.group, sg, p.ck, p.seg,
-                                            u % ntn, u / ntn, smem);
+                                            u % ntn, u / ntn, smem, oscale);
   else
     lcg::gemv_tile<MP, false, FOLDED, true>(xf, q, s, mn, sd, md, out, out_ld,
                                             p.K, p.N, p.group, sg, p.ck, p.seg,
-                                            u % ntn, u / ntn, smem);
+                                            u % ntn, u / ntn, smem, oscale);
 }
 
 // every unit of one projection (and of a second one, when given) over the
@@ -213,6 +239,76 @@ __device__ __forceinline__ void gemv_phase(XF xf, const DecodeArgs& a,
       gemv_unit<MP, FOLDED, NIB_OK>(xf, a.proj[p1], tb + 5 * p1, out1, out_ld,
                                     u - n0, smem);
   }
+}
+
+// ---- MoE --------------------------------------------------------------
+
+// The router and top-k of one token, computed by every block (no barrier):
+// h2(k) yields the f32 normed row; the router is (D, Ep) f32, Ep the power
+// of two >= n_exp (pad lanes masked).  Leaves the ids and weights in
+// ids/wts (shared); block 0 also writes the ids to eids[l].
+template <class H2>
+__device__ void moe_route(const DecodeArgs& a, int l, const float* router,
+                          H2 h2, float* hs, float* red, float* lg, int* ids,
+                          float* wts) {
+  const int tid = threadIdx.x, D = a.D, E = a.n_exp;
+  int Ep = 1;
+  while (Ep < E) Ep <<= 1;
+  for (int k = tid; k < D; k += NT) hs[k] = h2(k);
+  __syncthreads();
+  // thread t owns lane t % Ep over rows t / Ep, + NT / Ep, ... (coalesced)
+  const int e = tid % Ep, step = NT / Ep;
+  float acc = 0.f;
+  for (int k = tid / Ep; k < D; k += step)
+    acc = fmaf(hs[k], router[(size_t)k * Ep + e], acc);
+  red[tid] = acc;
+  __syncthreads();
+  if (tid < Ep) {
+    float v = 0.f;
+    for (int r = 0; r < step; ++r) v += red[r * Ep + tid];
+    lg[tid] = tid < E ? v : lcg::kNegInf;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (a.gating_sigmoid) {
+      for (int i = 0; i < E; ++i) lg[i] = 1.f / (1.f + expf(-lg[i]));
+    } else {
+      float mx = lcg::kNegInf, sum = 0.f;
+      for (int i = 0; i < E; ++i) mx = fmaxf(mx, lg[i]);
+      for (int i = 0; i < E; ++i) {
+        lg[i] = expf(lg[i] - mx);
+        sum += lg[i];
+      }
+      for (int i = 0; i < E; ++i) lg[i] /= sum;
+    }
+    float wsum = 0.f;
+    for (int j = 0; j < a.topk; ++j) {  // masked-max passes, first on ties
+      int best = 0;
+      for (int i = 1; i < E; ++i)
+        if (lg[i] > lg[best]) best = i;
+      ids[j] = best;
+      wts[j] = lg[best];
+      wsum += lg[best];
+      lg[best] = lcg::kNegInf;
+    }
+    for (int j = 0; j < a.topk; ++j) {
+      if (a.wnorm) wts[j] /= fmaxf(wsum, 1e-9f);
+      if (a.wscale != 1.f) wts[j] *= a.wscale;
+      if (blockIdx.x == 0) a.eids[l * a.topk + j] = ids[j];
+    }
+  }
+  __syncthreads();
+}
+
+// expert e's planes (q, s, m, no folds) of expert tensor t (0 gate, 1 up,
+// 2 down) from the layer's table row
+__device__ __forceinline__ void expert_planes(const long long* tb, int t,
+                                              int e, long long* planes) {
+  const long long* eb = tb + T_EXP + 5 * t;
+  planes[0] = eb[0] + e * eb[3];
+  planes[1] = eb[1] + e * eb[4];
+  planes[2] = eb[2] != 0 ? eb[2] + e * eb[4] : 0;
+  planes[3] = planes[4] = 0;
 }
 
 // element d of a rotated head whose raw projection starts at v (f32,
@@ -421,13 +517,16 @@ __device__ void merge_head(const DecodeArgs& a, int b, int qi) {
   }
 }
 
-template <int MP, bool FOLDED, bool NIB_OK, typename KV>
+template <int MP, bool FOLDED, bool NIB_OK, bool MOE, typename KV>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ DecodeArgs a) {
-  lcg::count_launch(NIB_OK ? 1 : 0);  // slot 0: K7, 1: K6
+  lcg::count_launch(NIB_OK ? (MOE ? 2 : 1) : 0);  // 0: K7, 1: K6, 2: K6 MoE
   __shared__ __align__(16) float smem[GT_SMEM_FLOATS];
   __shared__ float red[NWARP * MP], rs[MP];
   __shared__ float m_s[MAX_G], l_s[MAX_G];
+  __shared__ float e_red[MOE ? NT : 1], e_lg[MOE ? MAX_E : 1];
+  __shared__ float e_w[MAX_K];
+  __shared__ int e_id[MAX_K];
   const int B = a.B, D = a.D, F = a.F;
   const int Dq = a.Hq * a.Dh, HD = a.Hkv * a.Dh;
   const int Nqkv = Dq + 2 * HD;
@@ -459,7 +558,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     // P2, P3: the attention partials in two passes (maxima, then p and
     // P·V); the accumulators of P5 and P6 are free
     zero_grid(a.o_acc, MP * D);
-    zero_grid(a.gu_acc, MP * 2 * F);
+    zero_grid(a.gu_acc, a.gu_len);
     const int nu = B * a.Hkv * a.nsplit;
     for (int u = blockIdx.x; u < nu; u += gridDim.x) {
       __syncthreads();
@@ -503,26 +602,66 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     auto h2src = [&](int m, int k) -> float {
       return m < B ? bf16r(asrc(m, k) * rs[m] * fnorm[k]) : 0.f;
     };
-    gemv_phase<MP, FOLDED, NIB_OK>(h2src, a, tb, P_GU, a.gu_acc, -1, nullptr,
-                                   2 * F, smem);
+    if constexpr (MOE) {
+      // the router and top-k in every block, then the chosen experts' gate
+      // and up: expert j's gate row at gu_acc + 2j EF, its up row after it
+      moe_route(a, l, reinterpret_cast<const float*>(tb[T_ROUTER]),
+                [&](int k) { return asrc(0, k) * rs[0] * fnorm[k]; }, smem,
+                e_red, e_lg, e_id, e_w);
+      const int EF = a.proj[P_EG].N;
+      const int ug = gemv_units(a.proj[P_EG]), uu = gemv_units(a.proj[P_EU]);
+      for (int u = blockIdx.x; u < a.topk * (ug + uu); u += gridDim.x) {
+        __syncthreads();  // smem: the router's h2, or the last unit
+        const int j = u / (ug + uu), r = u % (ug + uu);
+        const int up = r >= ug;
+        long long planes[5];
+        expert_planes(tb, up, e_id[j], planes);
+        gemv_unit<MP, false, NIB_OK>(h2src, a.proj[P_EG + up], planes,
+                                     a.gu_acc + (size_t)(2 * j + up) * EF, EF,
+                                     up ? r - ug : r, smem);
+      }
+    } else {
+      gemv_phase<MP, FOLDED, NIB_OK>(h2src, a, tb, P_GU, a.gu_acc, -1,
+                                     nullptr, 2 * F, smem);
+    }
     grid_sync(a.bar);
 
-    // P7: silu(gate) * up, down projection
-    auto ysrc = [&](int m, int k) -> float {
-      if (m >= B) return 0.f;
-      const float g = bf16r(ldcg(a.gu_acc + (size_t)m * 2 * F + k));
-      const float u = bf16r(ldcg(a.gu_acc + (size_t)m * 2 * F + F + k));
-      return bf16r(bf16r(g / (1.f + expf(-g))) * u);
-    };
-    gemv_phase<MP, FOLDED, NIB_OK>(ysrc, a, tb, P_DN, a.dn_acc, -1, nullptr,
-                                   D, smem);
+    // P7: silu(gate) * up, down projection (MoE: per chosen expert, its
+    // partial sums weighted by the expert's routing weight)
+    if constexpr (MOE) {
+      const int EF = a.proj[P_EG].N;
+      const int ud = gemv_units(a.proj[P_ED]);
+      for (int u = blockIdx.x; u < a.topk * ud; u += gridDim.x) {
+        __syncthreads();
+        const int j = u / ud;
+        const float* gr = a.gu_acc + (size_t)2 * j * EF;
+        auto ysrc = [&](int m, int k) -> float {
+          if (m >= B) return 0.f;
+          const float g = ldcg(gr + k), v = bf16r(ldcg(gr + EF + k));
+          return bf16r(bf16r(g / (1.f + expf(-g))) * v);
+        };
+        long long planes[5];
+        expert_planes(tb, 2, e_id[j], planes);
+        gemv_unit<MP, false, NIB_OK>(ysrc, a.proj[P_ED], planes, a.dn_acc, D,
+                                     u % ud, smem, e_w[j]);
+      }
+    } else {
+      auto ysrc = [&](int m, int k) -> float {
+        if (m >= B) return 0.f;
+        const float g = bf16r(ldcg(a.gu_acc + (size_t)m * 2 * F + k));
+        const float u = bf16r(ldcg(a.gu_acc + (size_t)m * 2 * F + F + k));
+        return bf16r(bf16r(g / (1.f + expf(-g))) * u);
+      };
+      gemv_phase<MP, FOLDED, NIB_OK>(ysrc, a, tb, P_DN, a.dn_acc, -1, nullptr,
+                                     D, smem);
+    }
     grid_sync(a.bar);
   }
   for (int i = blockIdx.x * NT + threadIdx.x; i < B * D; i += gridDim.x * NT)
     a.xout[i] = bf16r(ldcg(a.xmid + i) + bf16r(ldcg(a.dn_acc + i)));
 }
 
-template <int MP, bool FOLDED, bool NIB_OK, typename KV>
+template <int MP, bool FOLDED, bool NIB_OK, bool MOE, typename KV>
 cudaError_t grid_of(int* grid) {
   static int cached = 0;  // once, so later launches may be graph-captured
   if (cached == 0) {
@@ -532,7 +671,7 @@ cudaError_t grid_of(int* grid) {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &occ, decode_kernel<MP, FOLDED, NIB_OK, KV>, NT, 0);
+          &occ, decode_kernel<MP, FOLDED, NIB_OK, MOE, KV>, NT, 0);
     if (e != cudaSuccess) return e;
     if (occ < 1) return cudaErrorInvalidConfiguration;
     cached = sms * (occ < 2 ? occ : 2);
@@ -541,10 +680,10 @@ cudaError_t grid_of(int* grid) {
   return cudaSuccess;
 }
 
-template <int MP, bool FOLDED, bool NIB_OK, typename KV>
+template <int MP, bool FOLDED, bool NIB_OK, bool MOE, typename KV>
 cudaError_t launch(const DecodeArgs* a, int query_only, int* grid,
                    cudaStream_t st) {
-  cudaError_t e = grid_of<MP, FOLDED, NIB_OK, KV>(grid);
+  cudaError_t e = grid_of<MP, FOLDED, NIB_OK, MOE, KV>(grid);
   if (e != cudaSuccess || query_only) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(*grid);
@@ -556,19 +695,25 @@ cudaError_t launch(const DecodeArgs* a, int query_only, int* grid,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, decode_kernel<MP, FOLDED, NIB_OK, KV>, *a);
+  e = cudaLaunchKernelEx(&cfg, decode_kernel<MP, FOLDED, NIB_OK, MOE, KV>, *a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 template <bool FOLDED, typename KV>
-cudaError_t dispatch_mp(int mp, const DecodeArgs* a, int query_only,
+cudaError_t dispatch_mp(int mp, int moe, const DecodeArgs* a, int query_only,
                         int* grid, cudaStream_t st) {
+  if (moe) {  // the kernel routes one token: B = 1
+    if (mp != 1 || a->topk < 1 || a->topk > MAX_K || a->n_exp < a->topk ||
+        a->n_exp > MAX_E || a->D > GT_SMEM_FLOATS)
+      return cudaErrorInvalidValue;
+    return launch<1, FOLDED, true, true, KV>(a, query_only, grid, st);
+  }
   switch (mp) {
-    case 1: return launch<1, FOLDED, true, KV>(a, query_only, grid, st);
-    case 2: return launch<2, FOLDED, true, KV>(a, query_only, grid, st);
-    case 4: return launch<4, FOLDED, true, KV>(a, query_only, grid, st);
-    case 8: return launch<8, FOLDED, true, KV>(a, query_only, grid, st);
+    case 1: return launch<1, FOLDED, true, false, KV>(a, query_only, grid, st);
+    case 2: return launch<2, FOLDED, true, false, KV>(a, query_only, grid, st);
+    case 4: return launch<4, FOLDED, true, false, KV>(a, query_only, grid, st);
+    case 8: return launch<8, FOLDED, true, false, KV>(a, query_only, grid, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -576,24 +721,25 @@ cudaError_t dispatch_mp(int mp, const DecodeArgs* a, int query_only,
 }  // namespace
 
 // K6.  mp: the slots padded to 1, 2, 4 or 8 (the buffers' row count);
-// folded != 0: every projection carries int8 sub-scales and f32 super
-// planes; kv_bf16 != 0: the cache is bf16, else f32.  query_only != 0 sets
-// *grid to the launch's block count and launches nothing.
+// folded != 0: every dense projection carries int8 sub-scales and f32
+// super planes; kv_bf16 != 0: the cache is bf16, else f32; moe != 0: the
+// layers' FFN is routed (mp 1).  query_only != 0 sets *grid to the
+// launch's block count and launches nothing.
 LCG_EXPORT int lcg_decode_stream(const DecodeArgs* a, int mp, int folded,
-                                 int kv_bf16, int query_only, int* grid,
-                                 void* stream) {
+                                 int kv_bf16, int moe, int query_only,
+                                 int* grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_bf16)
-    return folded ? dispatch_mp<true, __nv_bfloat16>(mp, a, query_only, grid, st)
-                  : dispatch_mp<false, __nv_bfloat16>(mp, a, query_only, grid, st);
-  return folded ? dispatch_mp<true, float>(mp, a, query_only, grid, st)
-                : dispatch_mp<false, float>(mp, a, query_only, grid, st);
+    return folded ? dispatch_mp<true, __nv_bfloat16>(mp, moe, a, query_only, grid, st)
+                  : dispatch_mp<false, __nv_bfloat16>(mp, moe, a, query_only, grid, st);
+  return folded ? dispatch_mp<true, float>(mp, moe, a, query_only, grid, st)
+                : dispatch_mp<false, float>(mp, moe, a, query_only, grid, st);
 }
 
 // K7: B = 1, fused q|k|v, int8 weights with plain scales.
 LCG_EXPORT int lcg_decode_step(const DecodeArgs* a, int kv_bf16,
                                int query_only, int* grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return kv_bf16 ? launch<1, false, false, __nv_bfloat16>(a, query_only, grid, st)
-                 : launch<1, false, false, float>(a, query_only, grid, st);
+  return kv_bf16 ? launch<1, false, false, false, __nv_bfloat16>(a, query_only, grid, st)
+                 : launch<1, false, false, false, float>(a, query_only, grid, st);
 }

@@ -82,14 +82,15 @@ __device__ __forceinline__ void load_planes(const void* plane, const float* sup,
 // megakernel's rounding point; the nib4c path there is exact in f32).
 // xf(m, k) yields x; `smem` holds GT_SMEM_FLOATS floats and is free on
 // entry (the caller synchronises before reusing it).  sgroup is 1 unless
-// FOLDED.
+// FOLDED.  The partial sums are multiplied by `oscale` before they are
+// added into `out` (an MoE expert's routing weight; 1 elsewhere, exact).
 template <int M, bool NIB, bool FOLDED, bool ROUNDW, class XF>
 __device__ __forceinline__ void gemv_tile(
     XF xf, const int8_t* __restrict__ q, const void* __restrict__ s,
     const void* __restrict__ mn, const float* __restrict__ sd,
     const float* __restrict__ md, float* __restrict__ out, int out_ld, int K,
     int Np, int group, int sgroup, int ck, int seg, int tile_n, int tile_k,
-    float* smem) {
+    float* smem, float oscale = 1.f) {
   const int tid = threadIdx.x;
   const int tx = tid % GT_TX, ty = tid / GT_TX;
   const int col0 = tile_n * GT_TN + tx * GT_COLS;
@@ -237,7 +238,7 @@ __device__ __forceinline__ void gemv_tile(
     float v = 0.f;
 #pragma unroll
     for (int w8 = 0; w8 < GT_NT / 32; ++w8) v += smem[(w8 * M + m) * GT_TN + c];
-    atomicAdd(out + (size_t)m * out_ld + col, v);
+    atomicAdd(out + (size_t)m * out_ld + col, v * oscale);
   }
 }
 

@@ -1,0 +1,183 @@
+// K8 rqmm_int8: the routed (expert-indexed) quantized matmul, the
+// ggml_mul_mat_id analog of the MoE FFN.
+//
+// Replaces: llama_cpp_gfx906_tpu/ops/quant_matmul.py  _rqmm_int8_kernel
+// (launched by _routed_qmm_pallas) for int8 experts with plain scales:
+//   out[p, n] = sum_k bf16(x[p, k]) * bf16(q[e, k, n] * s[e, k/g, n]
+//                                         - m[e, k/g, n]),   e = idx[p]
+// in f32, for P (token, expert) pairs.  The mins fold into each weight
+// before its bf16 rounding (K1 takes them outside, as (sum x) * m: the
+// rounding differs, so K1's tile is not reused).  The expert ids are read
+// on the device, as the JAX kernel's scalar prefetch reads them, so a
+// captured graph replays with new ids and no host sync.
+//
+// Planes: q int8 (E, K, Np), s and m f32 (E, K/g, Np), g 16 or 32.
+//
+// Bound on the card: the bytes of the chosen experts' slices (each pair
+// streams its expert's K x Np int8 rows and K/g x Np scale and min rows);
+// the flops are P * 2 * K * Np, far below the byte time.  Design:
+//   - one block per (pair, 128-column tile, K split); the split is chosen
+//     so that the grid holds about two blocks per SM (the down projection
+//     has few column tiles), partial sums meet by atomicAdd into the
+//     zeroed output;
+//   - a block walks its K range in 256-row chunks: each thread issues its
+//     8 rows' 16-byte loads of 16 adjacent columns first, then the block
+//     stages the chunk's x slice and scale/min rows in shared memory, so
+//     the weight loads are in flight while the staging runs;
+//   - a thread's 8 rows lie inside one quant group: one scale and min
+//     vector per chunk; int8 bytes become floats by a byte permute (exact);
+//     w = q * s - m is rounded without contraction, then to bf16;
+//   - partial sums meet by shuffles and shared memory, one atomicAdd per
+//     output per block.
+// Pairs that share an expert stream its slice once each (grouping them is
+// later work).
+
+#include "gemv_tile.cuh"
+
+namespace {
+
+constexpr int NT = 256;
+constexpr int TX = 8;            // threads across columns
+constexpr int TY = NT / TX;      // threads across K
+constexpr int COLS = 16;         // columns per thread: one 16-byte load
+constexpr int TN = TX * COLS;    // columns per tile
+constexpr int KC = 256;          // rows per chunk
+constexpr int RPT = KC / TY;     // rows per thread per chunk
+constexpr int MAX_GROWS = KC / 16;  // scale rows per chunk (g >= 16)
+
+__global__ void __launch_bounds__(NT) rqmm_int8_kernel(
+    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
+    const float* __restrict__ s, const float* __restrict__ m,
+    const int* __restrict__ idx, float* __restrict__ out, int K, int Np,
+    int group, int E, int chunks_per_split) {
+  lcg::count_launch(0);
+  __shared__ __align__(16) float xs[KC];
+  __shared__ __align__(16) float ss[MAX_GROWS * TN];
+  __shared__ __align__(16) float ms[MAX_GROWS * TN];
+  const int tile = blockIdx.x, p = blockIdx.y, split = blockIdx.z;
+  const int e = idx[p];
+  if (e < 0 || e >= E) return;  // the same for the whole block
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int col0 = tile * TN + tx * COLS;
+  const int nchunks = (K + KC - 1) / KC;
+  const int c0 = split * chunks_per_split;
+  const int c1 = min(nchunks, c0 + chunks_per_split);
+  const int ngroups = K / group;
+  const int8_t* qe = q + (size_t)e * K * Np;
+  const float* se = s + (size_t)e * ngroups * Np;
+  const float* me = m != nullptr ? m + (size_t)e * ngroups * Np : nullptr;
+  const __nv_bfloat16* xp = x + (size_t)p * K;
+  const int r0 = ty * RPT;  // this thread's first row in a chunk
+
+  float acc[COLS];
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) acc[c] = 0.f;
+
+  for (int ch = c0; ch < c1; ++ch) {
+    const int k0 = ch * KC;
+    const int kc = min(KC, K - k0);  // a multiple of the group
+    const bool live = r0 < kc;
+    uint4 w[RPT];
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < RPT; ++u)
+        w[u] = *reinterpret_cast<const uint4*>(qe + (size_t)(k0 + r0 + u) * Np +
+                                               col0);
+    }
+    for (int i = tid; i < kc; i += NT) xs[i] = __bfloat162float(xp[k0 + i]);
+    const int g0 = k0 / group, gr = kc / group;
+    for (int i = tid; i < gr * (TN / 4); i += NT) {
+      const int r = i / (TN / 4), c4 = (i % (TN / 4)) * 4;
+      const size_t off = (size_t)(g0 + r) * Np + tile * TN + c4;
+      *reinterpret_cast<float4*>(ss + r * TN + c4) =
+          *reinterpret_cast<const float4*>(se + off);
+      if (me != nullptr)
+        *reinterpret_cast<float4*>(ms + r * TN + c4) =
+            *reinterpret_cast<const float4*>(me + off);
+    }
+    __syncthreads();
+    if (live) {
+      const int gi = r0 / group;  // RPT divides the group: one group
+      float sc[COLS], mn[COLS];
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        sc[c] = ss[gi * TN + tx * COLS + c];
+        mn[c] = me != nullptr ? ms[gi * TN + tx * COLS + c] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < RPT; ++u) {
+        const float xv = xs[r0 + u];
+        const uint32_t words[4] = {w[u].x, w[u].y, w[u].z, w[u].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t u8 = words[i] ^ 0x80808080u;  // int8 + 128
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int c = 4 * i + b;
+            const float qv = lcg::ubyte_f(u8, b) - 128.f;
+            const float wv = lcg::bf16r(__fsub_rn(__fmul_rn(qv, sc[c]), mn[c]));
+            acc[c] = fmaf(xv, wv, acc[c]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // xs, ss and ms are restaged by the next chunk
+  }
+
+  // reduce over ty: lanes 8 and 16 apart share tx inside a warp, then the
+  // 8 warps meet in shared memory (ss is free); one atomicAdd per output
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) {
+    float v = acc[c];
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    acc[c] = v;
+  }
+  const int warp = tid / 32, lane = tid % 32;
+  if (lane < TX) {
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) ss[warp * TN + lane * COLS + c] = acc[c];
+  }
+  __syncthreads();
+  if (tid < TN) {
+    float v = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < NT / 32; ++w8) v += ss[w8 * TN + tid];
+    atomicAdd(out + (size_t)p * Np + tile * TN + tid, v);
+  }
+}
+
+static_assert((NT / 32) * TN <= MAX_GROWS * TN, "reduction fits in ss");
+
+}  // namespace
+
+// K8.  x bf16 (P, K); q int8 (E, K, Np); s, m f32 (E, K/group, Np), m may
+// be null; idx int32 (P,) on the device; out f32 (P, Np), zeroed by the
+// caller.  Np % 128 == 0, K % 16 == 0, group 16 or 32.
+LCG_EXPORT int lcg_rqmm_int8(const void* x, const void* q, const void* s,
+                             const void* m, const void* idx, void* out, int P,
+                             int K, int Np, int group, int E, void* stream) {
+  if (Np % TN || K % 16 || (group != 16 && group != 32) || P < 1)
+    return cudaErrorInvalidValue;
+  static int sms = 0;  // once, so later launches may be graph-captured
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int tiles = Np / TN, nchunks = (K + KC - 1) / KC;
+  const int want = (2 * sms + tiles * P - 1) / (tiles * P);
+  int splits = want < nchunks ? want : nchunks;
+  if (splits < 1) splits = 1;
+  const int per = (nchunks + splits - 1) / splits;
+  splits = (nchunks + per - 1) / per;
+  rqmm_int8_kernel<<<dim3(tiles, P, splits), NT, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(s), static_cast<const float*>(m),
+      static_cast<const int*>(idx), static_cast<float*>(out), K, Np, group, E,
+      per);
+  return cudaGetLastError();
+}

@@ -127,6 +127,11 @@ class Keys:
         BLOCK_COUNT = "{arch}.block_count"
         FEED_FORWARD_LENGTH = "{arch}.feed_forward_length"
         EXPERT_COUNT = "{arch}.expert_count"
+        EXPERT_USED_COUNT = "{arch}.expert_used_count"
+        EXPERT_FEED_FORWARD_LENGTH = "{arch}.expert_feed_forward_length"
+        EXPERT_WEIGHTS_SCALE = "{arch}.expert_weights_scale"
+        EXPERT_WEIGHTS_NORM = "{arch}.expert_weights_norm"
+        EXPERT_GATING_FUNC = "{arch}.expert_gating_func"
         VOCAB_SIZE = "{arch}.vocab_size"
 
     class Attention:

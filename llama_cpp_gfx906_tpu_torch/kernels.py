@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("gemv", "flash_decode", "flash_attention", "decode_stream", "qmm")
+SOURCES = ("gemv", "flash_decode", "flash_attention", "decode_stream", "qmm", "rqmm")
 # --split-compile=0: optimise a source's kernels in parallel on every core
 # (the decode megakernels' many instantiations built 4x faster on the card)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,7 +1,9 @@
 """Model hyperparameters read from GGUF metadata.
 
 Port of ``llama_cpp_gfx906_tpu/models/config.py`` for arch ``llama``: only
-the fields that ``models/llama.py`` reads on this slice's path.
+the fields that ``models/llama.py`` and ``ops/moe.py`` read.  A llama file
+with ``llama.expert_count`` > 0 is an MoE llama (Mixtral); its routing
+fields take the JAX package's llama defaults (renormalised top-k softmax).
 """
 
 from __future__ import annotations
@@ -40,6 +42,16 @@ class ModelConfig:
     rope_high_freq_factor: float = 4.0
     sliding_window: int = 0  # every layer windowed when > 0 (mistral style)
     attn_scale: float = 0.0  # 0 -> 1/sqrt(head_dim)
+    n_experts: int = 0  # > 0: every layer's FFN is routed (ops/moe.py)
+    n_experts_used: int = 0
+    expert_ff: int = 0
+    expert_weights_norm: bool = False  # renormalise the top-k probabilities
+    expert_weights_scale: float = 1.0
+    expert_gating_func: int = 1  # 1 softmax, 2 sigmoid (LLAMA_EXPERT_GATING_FUNC_*)
+    # routing variants of other families (gpt-oss, llama4): ops/moe.py
+    # refuses them until those families are ported
+    moe_topk_softmax: bool = False
+    moe_scale_input: bool = False
 
 
 def config_from_gguf(reader) -> ModelConfig:
@@ -51,8 +63,6 @@ def config_from_gguf(reader) -> ModelConfig:
         v = reader.get(key, arch=arch)
         return default if v is None else v
 
-    if int(g(Keys.LLM.EXPERT_COUNT, 0)):
-        raise NotImplementedError("MoE llama models are not ported yet")
     n_embd = int(g(Keys.LLM.EMBEDDING_LENGTH))
     n_heads = int(g(Keys.Attention.HEAD_COUNT))
     head_dim = int(g(Keys.Attention.KEY_LENGTH, n_embd // n_heads))
@@ -79,4 +89,11 @@ def config_from_gguf(reader) -> ModelConfig:
         rope_low_freq_factor=float(g(Keys.Rope.SCALING_LOW_FREQ_FACTOR, 1.0)),
         rope_high_freq_factor=float(g(Keys.Rope.SCALING_HIGH_FREQ_FACTOR, 4.0)),
         sliding_window=int(g(Keys.Attention.SLIDING_WINDOW, 0)),
+        n_experts=int(g(Keys.LLM.EXPERT_COUNT, 0)),
+        n_experts_used=int(g(Keys.LLM.EXPERT_USED_COUNT, 0)),
+        expert_ff=int(g(Keys.LLM.EXPERT_FEED_FORWARD_LENGTH, 0)),
+        # mixtral renormalises the selected expert probabilities; the JAX
+        # package reads no gating function for llama (softmax)
+        expert_weights_norm=bool(g(Keys.LLM.EXPERT_WEIGHTS_NORM, True)),
+        expert_weights_scale=float(g(Keys.LLM.EXPERT_WEIGHTS_SCALE, 1.0)),
     )

@@ -1,10 +1,11 @@
 """Llama forward pass (port of ``llama_cpp_gfx906_tpu/models/llama.py``,
-plain-llama branches only).
+llama and MoE-llama branches).
 
 Per layer: pre-norm, the fused q|k|v (or q|k + split v) projection, rope,
 attention over the in-place KV cache, the output projection and residual,
 then pre-norm, the fused gate|up projection with SiLU, the down projection
-and residual.  The JAX package's ``lax.scan`` over stacked layers becomes a
+and residual; an MoE layer (Mixtral) takes the routed FFN
+(``ops/moe.moe_ffn``) in place of the dense one.  The JAX package's ``lax.scan`` over stacked layers becomes a
 Python loop over per-layer parameters (:func:`layers_forward`).
 
 Single-token decode on the card goes through one decode kernel for the
@@ -33,6 +34,7 @@ from ..ops.attention import mha_with_cache
 from ..ops.decode_step import _fused_ok, fused_decode_step
 from ..ops.decode_stream import _stream_ok, fused_decode_step_streamed
 from ..ops.kv_quant import QuantKV
+from ..ops.moe import moe_ffn
 from ..ops.norms import rms_norm
 from ..ops.quant_matmul import QuantTensor, linear
 from ..ops.rope import apply_rope, inv_freq_for
@@ -84,10 +86,10 @@ FUSED_LAYER_BYTES = 6 * 2**20  # K7 takes layers up to this many plane bytes
 
 
 def layer_bytes(params) -> int:
-    """q and s plane bytes of one layer's quantized weights (the JAX
-    forward's K7/K6 split)."""
+    """q and s plane bytes of one layer's dense quantized weights (the JAX
+    forward's K7/K6 split; stacked experts are left out, as there)."""
     return sum(t.q.nbytes + t.s.nbytes for t in params["layers"][0].children()
-               if isinstance(t, QuantTensor))
+               if isinstance(t, QuantTensor) and t.q.ndim == 2)
 
 
 def _on_card(kv: KVCache) -> bool:
@@ -157,6 +159,10 @@ def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
                                     sliding_window=cfg.sliding_window, **shared)
         x = x + linear(attn.reshape(B, T, Dq), p["wo"])
         h = rms_norm(x, p["ffn_norm"], cfg.rms_eps)
+        if "moe_gate_inp" in p:
+            x = x + moe_ffn(h, p["moe_gate_inp"], p["moe_gate"], p["moe_up"],
+                            p["moe_down"], cfg)
+            continue
         if "wgateup_fused" in p:
             gu = linear(h, p["wgateup_fused"])
             g, u = gu[..., : cfg.n_ff], gu[..., cfg.n_ff:]

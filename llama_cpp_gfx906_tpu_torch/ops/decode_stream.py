@@ -1,12 +1,14 @@
 """K6: single-token decode through the whole layer stack in one launch.
 
-Port of ``llama_cpp_gfx906_tpu/ops/decode_stream.py`` for the dense llama
-modes: the gate (:func:`_stream_ok`), the entry point
-(:func:`fused_decode_step_streamed`) and its plain version
+Port of ``llama_cpp_gfx906_tpu/ops/decode_stream.py`` for the llama modes,
+dense and MoE: the gates (:func:`_stream_ok`, :func:`_moe_stream_ok`), the
+entry point (:func:`fused_decode_step_streamed`) and its plain version
 (:func:`fused_decode_step_streamed_plain`).  The kernel is
 ``csrc/decode_stream.cu`` (see its header for the design); K7
 (``ops/decode_step.py``) is an instantiation of the same source, and both
 entry points share the launch and the plain layer math defined here.
+An MoE layer (Mixtral) routes inside the kernel: router, top-k and the
+reads of only the chosen experts' slices (B = 1, as the JAX kernel).
 
 Contract (as the JAX kernel): ``x`` (B, 1, D) is the embedded token of each
 of B <= 8 slots; the result is x after every layer (B, 1, D) in x's dtype;
@@ -14,11 +16,13 @@ each slot's new K/V row is written at its ``n_past`` in ``kv`` in place,
 and ``n_past`` is left for the caller to advance.
 
 The gate accepts and rejects what the JAX gate does for the configurations
-the port can express (plain llama: no qk-norm, post-norms, dual rope bases,
-gelu or MoE; those modes and the MoE leg are not ported yet and are
-refused), with two additions that follow from per-layer parameters: a
-projection must have one format, group and super-group across all layers,
-and the cache must be bf16 or f32 (the JAX kernel's own scope).
+the port can express (llama: no qk-norm, post-norms, dual rope bases or
+gelu; those modes are not ported yet and are refused, as is the MoE
+shared expert), with additions that follow from per-layer parameters or
+the kernel's buffers: a projection must have one format, group and
+super-group across all layers, the cache must be bf16 or f32 (the JAX
+kernel's own scope), and an MoE model needs at most 256 experts and a
+model dim of at most 8192 (the router stages h2 in shared memory).
 """
 
 from __future__ import annotations
@@ -78,26 +82,73 @@ def _stream_qt(t) -> bool:
 
 
 def _layout(qt) -> tuple:
-    return (qt.fmt, qt.group, qt.sgroup, qt.shape, qt.m is not None,
-            qt.sd is not None)
+    return (qt.fmt, qt.group, qt.sgroup, qt.shape, tuple(qt.q.shape),
+            qt.m is not None, qt.sd is not None)
+
+
+EXPERT_KEYS = ("moe_gate", "moe_up", "moe_down")  # stacked experts, K6 order
+MAX_EXPERTS = 256   # router lanes the kernel takes
+MAX_MOE_D = 8192    # model dim whose h2 the kernel stages for the router
 
 
 def proj_keys(layer) -> tuple[str, ...]:
-    """The projections in kernel order: q|k|v (or q|k), [v], o, gate|up,
-    down."""
-    if "wqk_fused" in layer and "wv" in layer and "wqkv_fused" not in layer:
-        return ("wqk_fused", "wv", "wo", "wgateup_fused", "w_down")
-    return ("wqkv_fused", "wo", "wgateup_fused", "w_down")
+    """The projections in kernel order: q|k|v (or q|k), [v], o, then
+    gate|up and down, or an MoE layer's stacked experts gate, up, down."""
+    split = "wqk_fused" in layer and "wv" in layer and "wqkv_fused" not in layer
+    attn = ("wqk_fused", "wv", "wo") if split else ("wqkv_fused", "wo")
+    if "moe_gate_inp" in layer:
+        return attn + EXPERT_KEYS
+    return attn + ("wgateup_fused", "w_down")
 
 
 def uniform_layers(layers, keys) -> bool:
-    """Every layer holds exactly ``keys`` (plus the norms), each projection
-    with one layout across the layers."""
-    want = set(keys) | {"attn_norm", "ffn_norm"}
+    """Every layer holds exactly ``keys`` (plus the norms and an MoE
+    layer's router), each projection with one layout across the layers."""
+    extra = {"moe_gate_inp"} if "moe_gate_inp" in layers[0] else set()
+    want = set(keys) | {"attn_norm", "ffn_norm"} | extra
     if any(set(p.keys()) != want for p in layers):
+        return False
+    if extra and len({tuple(p["moe_gate_inp"].shape) for p in layers}) != 1:
         return False
     return all(len({_layout(p[k]) for p in layers}) == 1
                for k in keys if isinstance(layers[0][k], QuantTensor))
+
+
+def _moe_stream_ok(p, cfg) -> bool:
+    """MoE leg of the K6 gate (JAX ``_moe_stream_ok``): softmax or sigmoid
+    routing over all experts, top-k of at most 8, optional renorm and
+    scale; no biases, no shared expert; stacked int8 or nib4c experts with
+    plain scales on the chunk grid."""
+    if not (cfg.n_experts > 0 and 1 <= cfg.n_experts_used <= 8):
+        return False
+    if cfg.moe_topk_softmax or cfg.moe_scale_input:
+        return False  # gpt-oss / llama4 routing variants
+    if cfg.expert_gating_func not in (1, 2):
+        return False
+    if any(k in p for k in ("moe_gate_inp_b", "moe_gate_b", "moe_up_b",
+                            "moe_down_b", "moe_probs_bias", "exp_probs_b")):
+        return False
+    if any(k.startswith("shexp_") for k in p.keys()):
+        return False  # the shared expert (qwen2moe) is not ported
+    gi = p["moe_gate_inp"]
+    if not (isinstance(gi, torch.Tensor) and gi.ndim == 2
+            and tuple(gi.shape) == (cfg.n_embd, cfg.n_experts)):
+        return False
+    if cfg.n_experts > MAX_EXPERTS or cfg.n_embd > MAX_MOE_D:
+        return False
+    for k in EXPERT_KEYS:
+        t = p[k] if k in p else None
+        if not (isinstance(t, QuantTensor) and t.fmt in ("int8", "nib4c")
+                and t.sd is None and t.q.ndim == 3
+                and t.q.shape[0] == cfg.n_experts and t.q.shape[-1] == t.shape[1]
+                and (t.m is None or t.m.shape == t.s.shape)):
+            return False
+        K, N = t.shape
+        if (_pick(_TN_CAPS, N) is None
+                or _proj_tk(K, t.group, t.fmt == "nib4c") is None):
+            return False
+    return (p["moe_gate"].shape == p["moe_up"].shape
+            and p["moe_down"].shape == p["moe_gate"].shape[::-1])
 
 
 def _stream_ok(params, cfg, kv, B: int, T: int) -> bool:
@@ -118,11 +169,15 @@ def _stream_ok(params, cfg, kv, B: int, T: int) -> bool:
     p = layers[0]
     split_v = "wqk_fused" in p and "wv" in p and "wqkv_fused" not in p
     qkv_key = "wqk_fused" if split_v else "wqkv_fused"
+    moe = "moe_gate_inp" in p
+    if moe and (B != 1 or not _moe_stream_ok(p, cfg)):
+        return False  # the kernel routes one token's experts
     keys = proj_keys(p)
     if not all(k in p for k in keys + ("attn_norm", "ffn_norm")):
         return False
     if not uniform_layers(layers, keys):
         return False
+    keys = tuple(k for k in keys if k not in EXPERT_KEYS)  # the dense ones
     if not all(_stream_qt(p[k]) for k in keys):
         return False
     if len({p[k].sd is not None for k in keys}) != 1:
@@ -130,6 +185,8 @@ def _stream_ok(params, cfg, kv, B: int, T: int) -> bool:
     if p[qkv_key].sd is not None and len({p[k].sgroup for k in keys}) != 1:
         return False  # one shared super-group per launch
     D, Dh, F_ = cfg.n_embd, cfg.head_dim, cfg.n_ff
+    if moe:
+        F_ = 128  # no dense FFN; the experts' grid is checked above
     S = kv.k.shape[2]
     if not (D % 128 == 0 and Dh % 128 == 0 and F_ % 128 == 0 and S % 128 == 0):
         return False
@@ -142,7 +199,7 @@ def _stream_ok(params, cfg, kv, B: int, T: int) -> bool:
             return False
     elif p["wqkv_fused"].shape != (D, (cfg.n_heads + 2 * cfg.n_kv_heads) * Dh):
         return False
-    if p["wgateup_fused"].shape != (D, 2 * F_):
+    if not moe and p["wgateup_fused"].shape != (D, 2 * F_):
         return False
     for k in keys:
         K, N = p[k].shape
@@ -212,9 +269,57 @@ def _rotate(v: torch.Tensor, C, Ss, interleaved: bool) -> torch.Tensor:
     return v * C[:, None] + partner * Ss[:, None]
 
 
-def decode_layers_plain(params, cfg, x: torch.Tensor, kv) -> torch.Tensor:
+def moe_route_plain(h2: torch.Tensor, gate_inp: torch.Tensor, cfg):
+    """The kernel's router for f32 rows h2 (B, D): (ids int64 (B, k),
+    weights f32 (B, k)); k masked-max passes, the first maximum on ties."""
+    from .moe import route
+
+    w, ids = route(h2 @ gate_inp.float(), cfg)
+    return ids, w
+
+
+def _qlinear_experts_plain(xb: torch.Tensor, qt: QuantTensor,
+                           e: torch.Tensor) -> torch.Tensor:
+    """Row b of xb (B, K) f32 through expert e[b] of a stacked QuantTensor,
+    as :func:`qlinear_plain` computes one projection (the ids stay on the
+    device: no host sync)."""
+    vals = _unpack_nib4c(qt.q[e], qt.K) if qt.fmt == "nib4c" else qt.q[e]
+    w = vals.float() * qt.s[e].float().repeat_interleave(qt.group, -2)
+    if qt.fmt == "int8":
+        w = _bf16r(w)
+    y = torch.einsum("bk,bkn->bn", xb, w)
+    if qt.m is not None:
+        xs = xb.reshape(xb.shape[0], -1, qt.group).sum(-1)
+        y = y - torch.einsum("bg,bgn->bn", xs, qt.m[e].float())
+    return y[:, : qt.N]
+
+
+def moe_ffn_plain(h2: torch.Tensor, p, cfg, ids_out: list | None = None) -> torch.Tensor:
+    """K6's MoE FFN with the kernel's rounding points: the router reads the
+    f32 h2 (JAX kernel ``decode_stream.py:700``), the experts its bf16
+    rounding; per chosen expert y = bf16(bf16(silu(g)) * bf16(u)) from the
+    f32 gate and up, and its down output weighted in f32.  h2 (B, D) f32
+    -> mlp (B, D) f32; the chosen ids (B, k) are appended to ``ids_out``."""
+    ids, w = moe_route_plain(h2, p["moe_gate_inp"], cfg)
+    if ids_out is not None:
+        ids_out.append(ids)
+    hb = _bf16r(h2)
+    mlp = torch.zeros_like(h2)
+    for j in range(ids.shape[1]):
+        e = ids[:, j]
+        g = _qlinear_experts_plain(hb, p["moe_gate"], e)
+        u = _qlinear_experts_plain(hb, p["moe_up"], e)
+        y = _bf16r(_bf16r(F.silu(g)) * _bf16r(u))
+        mlp = mlp + _qlinear_experts_plain(y, p["moe_down"], e) * w[:, j:j + 1]
+    return mlp
+
+
+def decode_layers_plain(params, cfg, x: torch.Tensor, kv,
+                        ids_out: list | None = None) -> torch.Tensor:
     """The plain version shared by K6 and K7: x (B, 1, D) -> (B, 1, D) in
-    x's dtype, the new K/V rows written at n_past in place."""
+    x's dtype, the new K/V rows written at n_past in place.  For an MoE
+    stack, each layer's chosen expert ids (B, k) are appended to
+    ``ids_out``."""
     layers = params["layers"]
     keys = proj_keys(layers[0])
     split_v = keys[0] == "wqk_fused"
@@ -264,6 +369,10 @@ def decode_layers_plain(params, cfg, x: torch.Tensor, kv) -> torch.Tensor:
 
         attn = qlinear_plain(_bf16r(o.reshape(B, Dq)), p["wo"])
         xc = _bf16r(_bf16r(xc) + _bf16r(attn))
+        if "moe_gate_inp" in p:
+            mlp = moe_ffn_plain(_rms(xc, p["ffn_norm"], eps), p, cfg, ids_out)
+            xc = _bf16r(_bf16r(xc) + _bf16r(mlp))
+            continue
         h2 = _bf16r(_rms(xc, p["ffn_norm"], eps))
         gu = qlinear_plain(h2, p["wgateup_fused"])
         g, u = _bf16r(gu[:, :F_]), _bf16r(gu[:, F_:])
@@ -279,7 +388,8 @@ def decode_layers_plain(params, cfg, x: torch.Tensor, kv) -> torch.Tensor:
 MAX_G = 16          # query heads per KV head the kernel takes
 MAX_QDIM = 4096     # G * Dh
 MAX_SPLIT = 32      # key-range splits per (slot, KV head)
-TABLE_W = 28        # int64 words per layer in the plane table
+TABLE_W = 44        # int64 words per layer in the plane table
+NPROJ = 8           # q|k|v, v, o, gate|up, down, expert gate, up, down
 
 
 class ProjDims(ctypes.Structure):
@@ -293,25 +403,31 @@ class DecodeArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "table", "kc", "vc", "n_past", "inv_freq", "x0", "xin", "xmid",
         "xout", "qkv_acc", "o_acc", "gu_acc", "dn_acc", "obuf", "part",
-        "selfs", "bar")]
-        + [("proj", ProjDims * 5)]
+        "selfs", "bar", "eids")]
+        + [("proj", ProjDims * NPROJ)]
         + [(n, ctypes.c_int) for n in (
             "L", "B", "D", "Hq", "Hkv", "Dh", "F", "S", "nsplit", "split_v",
-            "interleaved")]
-        + [("scale", ctypes.c_float), ("eps", ctypes.c_float)])
+            "interleaved", "gu_len", "n_exp", "topk", "gating_sigmoid",
+            "wnorm")]
+        + [(n, ctypes.c_float) for n in ("scale", "eps", "wscale")])
 
 
 class _Workspace:
     """Scratch of one (params, B, S, cache dtype, kernel): allocated once
-    and reused by every step, so a step allocates nothing of its own."""
+    and reused by every step, so a step allocates nothing of its own.  An
+    MoE stack's gate|up accumulator holds the k chosen experts' gate and
+    up rows, and ``eids`` (L, k) the ids the last step chose."""
 
-    def __init__(self, cfg, mp: int, B: int, Nqkv: int, dev):
+    def __init__(self, cfg, mp: int, B: int, Nqkv: int, dev, expert_n: int = 0):
         D, F_, Dh = cfg.n_embd, cfg.n_ff, cfg.head_dim
         G = cfg.n_heads // cfg.n_kv_heads
         f32 = dict(dtype=torch.float32, device=dev)
-        self.acc = torch.zeros(mp * (Nqkv + D + 2 * F_ + D), **f32)
+        self.gu_len = max(mp * 2 * F_, cfg.n_experts_used * 2 * expert_n)
+        self.acc = torch.zeros(mp * (Nqkv + 2 * D) + self.gu_len, **f32)
         self.qkv_acc, self.o_acc, self.gu_acc, self.dn_acc = torch.split(
-            self.acc, [mp * Nqkv, mp * D, mp * 2 * F_, mp * D])
+            self.acc, [mp * Nqkv, mp * D, self.gu_len, mp * D])
+        self.eids = torch.zeros((cfg.n_layers, max(1, cfg.n_experts_used)),
+                                dtype=torch.int32, device=dev)
         self.x0 = torch.zeros((mp, D), **f32)
         self.xin = torch.zeros((mp, D), **f32)
         self.xmid = torch.zeros((mp, D), **f32)
@@ -329,7 +445,8 @@ def _so():
         so.lcg_decode_stream.restype = ctypes.c_int
         so.lcg_decode_stream.argtypes = [
             ctypes.POINTER(DecodeArgs), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.c_void_p]
         so.lcg_decode_step.restype = ctypes.c_int
         so.lcg_decode_step.argtypes = [
             ctypes.POINTER(DecodeArgs), ctypes.c_int, ctypes.c_int,
@@ -338,7 +455,7 @@ def _so():
 
 
 def _call(so, k7: bool, args, mp: int, folded: bool, kv_bf16: bool,
-          query_only: bool, dev) -> int:
+          moe: bool, query_only: bool, dev) -> int:
     grid = ctypes.c_int(0)
     if k7:
         err = so.lcg_decode_step(ctypes.byref(args), int(kv_bf16),
@@ -346,7 +463,7 @@ def _call(so, k7: bool, args, mp: int, folded: bool, kv_bf16: bool,
                                  kernels.stream(dev))
     else:
         err = so.lcg_decode_stream(ctypes.byref(args), mp, int(folded),
-                                   int(kv_bf16), int(query_only),
+                                   int(kv_bf16), int(moe), int(query_only),
                                    ctypes.byref(grid), kernels.stream(dev))
     kernels.check(so, err, "decode_step" if k7 else "decode_stream")
     return grid.value
@@ -369,6 +486,9 @@ def launch_decode(params, cfg, x: torch.Tensor, kv, k7: bool) -> torch.Tensor:
         raise ValueError("decode kernel: the cache must be contiguous bf16/f32")
     dev = x.device
     mp = next(p for p in (1, 2, 4, 8) if p >= B)
+    moe = keys[-1] == EXPERT_KEYS[-1]
+    if moe and (k7 or B != 1):
+        raise ValueError("decode kernel: an MoE stack runs on K6 at B = 1")
     qts = [layers[0][k] for k in keys]
     folded = qts[0].sd is not None
     Nqkv = Hq * Dh + 2 * Hkv * Dh
@@ -376,7 +496,8 @@ def launch_decode(params, cfg, x: torch.Tensor, kv, k7: bool) -> torch.Tensor:
     spaces = params.__dict__.setdefault("_decode_workspaces", {})
     ws = spaces.get(wkey)
     if ws is None:
-        ws = spaces[wkey] = _Workspace(cfg, mp, B, Nqkv, dev)
+        ws = spaces[wkey] = _Workspace(cfg, mp, B, Nqkv, dev,
+                                       qts[-3].N if moe else 0)
 
     args = DecodeArgs()
     for name, t in (("table", layer_table(params, cfg)), ("kc", kv.k),
@@ -386,9 +507,9 @@ def launch_decode(params, cfg, x: torch.Tensor, kv, k7: bool) -> torch.Tensor:
                     ("qkv_acc", ws.qkv_acc), ("o_acc", ws.o_acc),
                     ("gu_acc", ws.gu_acc), ("dn_acc", ws.dn_acc),
                     ("obuf", ws.obuf), ("part", ws.part), ("selfs", ws.selfs),
-                    ("bar", ws.bar)):
+                    ("bar", ws.bar), ("eids", ws.eids)):
         setattr(args, name, t.data_ptr())
-    slots = (0, 1, 2, 3, 4) if split_v else (0, 2, 3, 4)
+    slots = ((0, 1, 2) if split_v else (0, 2)) + ((5, 6, 7) if moe else (3, 4))
     for slot, qt in zip(slots, qts):
         seg, ck = _gemv_segment(qt)
         args.proj[slot] = ProjDims(qt.K, qt.N, qt.group, qt.sgroup or 1, ck,
@@ -399,30 +520,44 @@ def launch_decode(params, cfg, x: torch.Tensor, kv, k7: bool) -> torch.Tensor:
     args.split_v, args.interleaved = int(split_v), int(cfg.rope_interleaved)
     args.scale = float(cfg.attn_scale or Dh ** -0.5)
     args.eps = float(cfg.rms_eps)
+    args.gu_len = ws.gu_len
+    if moe:
+        args.n_exp, args.topk = cfg.n_experts, cfg.n_experts_used
+        args.gating_sigmoid = int(cfg.expert_gating_func == 2)
+        args.wnorm = int(cfg.expert_weights_norm)
+        args.wscale = float(cfg.expert_weights_scale)
 
     so = _so()
     kv_bf16 = kv.k.dtype == torch.bfloat16
-    gkey = (k7, mp, folded, kv_bf16)
+    gkey = (k7, mp, folded, kv_bf16, moe)
     grids = params.__dict__.setdefault("_decode_grids", {})
     if gkey not in grids:
-        grids[gkey] = _call(so, k7, args, mp, folded, kv_bf16, True, dev)
+        grids[gkey] = _call(so, k7, args, mp, folded, kv_bf16, moe, True, dev)
     args.nsplit = max(1, min(MAX_SPLIT, grids[gkey] // (B * Hkv)))
     if kv.n_past.dtype != torch.int32 or kv.n_past.device != dev:
         raise ValueError("decode kernel: n_past must be int32 on the card")
     ws.x0[:B].copy_(x.reshape(B, D))
     ws.acc.zero_()
-    _call(so, k7, args, mp, folded, kv_bf16, False, dev)
+    _call(so, k7, args, mp, folded, kv_bf16, moe, False, dev)
     return ws.xout[:B].to(x.dtype, copy=True).reshape(B, 1, D)
 
 
-@kernels.counted("decode_stream", lib="decode_stream", slot=1)
+def last_expert_ids(params, kv) -> torch.Tensor:
+    """The expert ids (L, k) that K6's last MoE step on a cache shaped like
+    ``kv`` chose, from its device buffer."""
+    ws = params.__dict__["_decode_workspaces"][(1, kv.k.shape[2], kv.k.dtype, False)]
+    return ws.eids.clone()
+
+
+@kernels.counted("decode_stream", lib="decode_stream", slot=1, modes=("moe",))
 def fused_decode_step_streamed(params, cfg, x: torch.Tensor, kv) -> torch.Tensor:
     """K6: x (B, 1, D) through every layer, the KV updated in place (see the
-    module docstring).  On the CPU, the plain version."""
+    module docstring); an MoE stack's launch also counts as
+    ``decode_stream_moe``.  On the CPU, the plain version."""
     if x.device.type == "cpu":
         return fused_decode_step_streamed_plain(params, cfg, x, kv)
     out = launch_decode(params, cfg, x, kv, k7=False)
-    fused_decode_step_streamed.launches += 1
+    kernels.count(fused_decode_step_streamed, "moe_gate_inp" in params["layers"][0])
     return out
 
 

@@ -229,12 +229,14 @@ def pad_qt_n(qt: QuantTensor, multiple: int = 2048) -> QuantTensor:
 
 
 def _unpack_nib4c(q: torch.Tensor, K: int) -> torch.Tensor:
-    """Packed nib4c (K/2, N) -> int8 values (K, N) in logical row order."""
+    """Packed nib4c (..., K/2, N) -> int8 values (..., K, N) in logical row
+    order."""
     p = q.view(torch.uint8) ^ 0x80
     ck = nib4c_chunk(K)
-    sh = (K // ck, ck // 2, q.shape[-1])
-    return torch.cat([(p & 0x0F).reshape(sh), (p >> 4).reshape(sh)], 1
-                     ).reshape(K, -1).to(torch.int8)
+    lead = q.shape[:-2]
+    sh = (*lead, K // ck, ck // 2, q.shape[-1])
+    return torch.cat([(p & 0x0F).reshape(sh), (p >> 4).reshape(sh)], -2
+                     ).reshape(*lead, K, -1).to(torch.int8)
 
 
 def dequantize_qt(qt: QuantTensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -413,3 +415,174 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, QuantTensor):
         return quant_matmul(x, w)
     return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Stacked experts (MoE) and the routed matmul, K8
+# ---------------------------------------------------------------------------
+# Expert planes carry a leading expert axis: q (E, K, N) int8 or (E, K/2, N)
+# nib4c, s/m (E, K/g, N) f32, never folded; ``shape`` is one expert's
+# (K, N).  ``qt.q[e]`` is expert e's slice, at base + e * (its byte stride).
+
+
+def _expert_grids(raw, ggml_type, shape, device):
+    """(q int8 (E, K, N), s, m or None (E, K/g, N), g) of a stacked-expert
+    GGUF tensor (E, N, K)."""
+    E, N, K = (int(d) for d in shape)
+    q, s, m, g = _GRID_DECODERS[ggml_type](
+        _as_blocks(raw, GGML_BLOCK_SIZES[ggml_type][1], device))
+    q = q.reshape(E, N, K).transpose(1, 2)
+    s = s.reshape(E, N, K // g).transpose(1, 2)
+    m = m.reshape(E, N, K // g).transpose(1, 2) if m is not None else None
+    return q, s, m, g
+
+
+def _pad_experts(q, s, m, g: int, pad_k: bool, pad_n: bool):
+    """Zero-pad K and/or N up to a multiple of 512 (zero scales and mins:
+    pad rows and columns dequantize to exact zeros)."""
+    K, N = q.shape[-2:]
+    pk = -(-K // 512) * 512 - K if pad_k else 0
+    pn = -(-N // 512) * 512 - N if pad_n else 0
+
+    def pad(a, rows):
+        return None if a is None else torch.nn.functional.pad(a, (0, pn, 0, rows))
+
+    return pad(q, pk), pad(s, pk // g), pad(m, pk // g)
+
+
+def pack_gguf_experts(raw, ggml_type, shape, pad_k: bool = False,
+                      pad_n: bool = False, device="cpu") -> QuantTensor:
+    """Decode a stacked-expert GGUF tensor (E, N, K) into a QuantTensor with
+    leaves q (E, K, N) int8 or (E, K/2, N) nib4c and s/m (E, K/g, N) f32
+    (JAX ``pack_gguf_experts``, byte-identical planes).
+
+    ``pad_k`` / ``pad_n`` zero-pad that dim up to a multiple of 512, so
+    every expert slice factors into K6's chunk grid; the loader pads the
+    expert-FF dim only (gate/up ``pad_n``, down ``pad_k``).  A 4-bit tensor
+    whose K has no nib4c chunk is stored as int8 values with mins, as
+    :func:`pack_gguf_tensor` stores such a dense weight (the JAX package
+    packs it split-K ``nib4``, a layout the port does not have)."""
+    ggml_type = GGMLType(ggml_type)
+    q, s, m, g = _expert_grids(raw, ggml_type, shape, device)
+    q, s, m = _pad_experts(q, s, m, g, pad_k, pad_n)
+    E, K, N = q.shape
+    s = s.float().contiguous()
+    m = m.float().contiguous() if m is not None else None
+    ck = nib4c_chunk(K) if ggml_type in _NIB4_TYPES and K % (2 * g) == 0 else None
+    if ck is not None and ck % (2 * g) == 0:
+        packed = _pack_nib4c(q.reshape(E * K, N).to(torch.uint8), ck)
+        return QuantTensor(packed.reshape(E, K // 2, N).contiguous(), s, m,
+                           "nib4c", g, (K, N))
+    return QuantTensor(q.contiguous(), s, m, "int8", g, (K, N))
+
+
+def pack_experts_int8_g16(raw, ggml_type, shape, pad_k: bool = False,
+                          pad_n: bool = False, device="cpu") -> QuantTensor:
+    """Stacked experts as int8 values with group-16 scales and mins (zero
+    mins where the type has none): the layout that unifies expert tensors
+    of mixed types across layers (JAX ``pack_experts_int8_g16``)."""
+    q, s, m, g = _expert_grids(raw, GGMLType(ggml_type), shape, device)
+    if m is None:
+        m = torch.zeros_like(s)
+    if g != 16:
+        s, m = s.repeat_interleave(g // 16, 1), m.repeat_interleave(g // 16, 1)
+    q, s, m = _pad_experts(q, s, m, 16, pad_k, pad_n)
+    return QuantTensor(q.contiguous(), s.float().contiguous(),
+                       m.float().contiguous(), "int8", 16, tuple(q.shape[1:]))
+
+
+def qt_expert(qt: QuantTensor, e: int) -> QuantTensor:
+    """Expert e of a stacked QuantTensor (views of its planes)."""
+    take = (lambda a: None if a is None else a[e])  # noqa: E731
+    return QuantTensor(take(qt.q), take(qt.s), take(qt.m), qt.fmt, qt.group,
+                       qt.shape, take(qt.sd), take(qt.md), qt.sgroup)
+
+
+def _expert_weights(q, s, m, qt: QuantTensor) -> torch.Tensor:
+    """Gathered expert planes (..., K[/2], N) -> f32 weights (..., K, N)."""
+    vals = _unpack_nib4c(q, qt.K) if qt.fmt == "nib4c" else q
+    w = vals.float() * s.float().repeat_interleave(qt.group, -2)
+    if m is not None:
+        w = w - m.float().repeat_interleave(qt.group, -2)
+    return w
+
+
+def dequantize_qt_experts(qt: QuantTensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Every expert's (K, N) weight, (E, K, N) (exact in f32)."""
+    if qt.sd is not None:
+        raise ValueError("stacked experts are never folded")
+    return _expert_weights(qt.q, qt.s, qt.m, qt).to(dtype)
+
+
+@kernels.counted("routed_gather")
+def routed_quant_matmul_plain(x: torch.Tensor, qt: QuantTensor,
+                              idx: torch.Tensor) -> torch.Tensor:
+    """out[p] = x[p] @ dequant(experts[idx[p]]) (JAX
+    ``routed_quant_matmul_xla``): the quantized slices are gathered, then
+    dequantized per pair in f32; returns x.dtype.  The card runs it for
+    nib4c experts, as the JAX package runs its XLA gather there (no Pallas
+    kernel takes them); those calls count as ``routed_gather``."""
+    if qt.sd is not None:
+        raise ValueError("stacked experts are never folded")
+    w = _expert_weights(qt.q[idx], qt.s[idx],
+                        qt.m[idx] if qt.m is not None else None, qt)
+    out = torch.einsum("pk,pkn->pn", x.float(), w)
+    if x.is_cuda:
+        routed_quant_matmul_plain.launches += 1
+    return out.to(x.dtype)
+
+
+@kernels.counted("rqmm_int8", lib="rqmm", slot=0)
+def rqmm_int8(x: torch.Tensor, qt: QuantTensor, idx: torch.Tensor) -> torch.Tensor:
+    """K8: out[p] = x[p] @ experts[idx[p]] for int8 experts with plain
+    scales, f32 (P, N): x rounded to bf16, each weight ``bf16(q*s - m)``,
+    f32 sums.  ``idx`` (P,) int32 stays on the device (the kernel reads it
+    there, so a captured graph replays with new ids).  On the CPU, the
+    plain version of the same rounding points (:func:`rqmm_plain`)."""
+    if x.device.type == "cpu":
+        return rqmm_plain(x, qt, idx)
+    P, K = x.shape
+    E, _, Np = qt.q.shape
+    if not qmm_tileable(qt) or K != qt.K or K % 16:
+        raise ValueError(f"rqmm_int8 kernel: P={P}, K={K}, {qt.fmt} {qt.shape}")
+    planes = [t for t in (qt.q, qt.s, qt.m) if t is not None]
+    if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16
+           for t in planes) or qt.s.dtype != torch.float32:
+        raise ValueError("rqmm_int8 kernel: planes must be contiguous, 16-byte "
+                         "aligned, f32 scales, on x's device")
+    if idx.dtype != torch.int32 or idx.device != x.device or idx.shape != (P,):
+        raise ValueError("rqmm_int8 kernel: idx must be (P,) int32 on x's device")
+    xb = x.to(torch.bfloat16).contiguous()
+    out = torch.zeros((P, Np), dtype=torch.float32, device=x.device)
+    so = kernels.lib("rqmm")
+    if so.lcg_rqmm_int8.argtypes is None:
+        so.lcg_rqmm_int8.restype = ctypes.c_int
+        so.lcg_rqmm_int8.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+    err = so.lcg_rqmm_int8(*map(kernels.ptr, (xb, qt.q, qt.s, qt.m, idx.contiguous(),
+                                              out)),
+                           P, K, Np, qt.group, E, kernels.stream(x.device))
+    kernels.check(so, err, "rqmm_int8")
+    rqmm_int8.launches += 1
+    return out[:, : qt.N]
+
+
+def rqmm_plain(x: torch.Tensor, qt: QuantTensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8 with its rounding points: f32 (P, N)."""
+    w = _expert_weights(qt.q[idx.long()], qt.s[idx.long()],
+                        qt.m[idx.long()] if qt.m is not None else None, qt)
+    xb = x.to(torch.bfloat16).float()
+    return torch.einsum("pk,pkn->pn", xb, w.to(torch.bfloat16).float())[:, : qt.N]
+
+
+def routed_quant_matmul(x: torch.Tensor, qt: QuantTensor,
+                        idx: torch.Tensor) -> torch.Tensor:
+    """out[p] = x[p] @ experts[idx[p]] with the experts kept quantized
+    (JAX ``routed_quant_matmul``): K8 on the card where its gate holds, the
+    quantized gather (:func:`routed_quant_matmul_plain`) elsewhere.  K8's
+    gate is the JAX package's, ``_pallas_tileable`` and no folded scales:
+    K5's (:func:`qmm_tileable`); it refuses nib4c experts, as the JAX
+    kernel does.  Returns x.dtype."""
+    if x.is_cuda and qmm_tileable(qt):
+        return rqmm_int8(x, qt, idx.to(torch.int32)).to(x.dtype)
+    return routed_quant_matmul_plain(x, qt, idx)

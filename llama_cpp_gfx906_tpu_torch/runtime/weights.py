@@ -1,12 +1,15 @@
 """GGUF tensors -> the port's parameters (port of
-``llama_cpp_gfx906_tpu/runtime/weights.py``, plain llama).
+``llama_cpp_gfx906_tpu/runtime/weights.py``, llama and MoE llama).
 
 Parameters are a :class:`ParamDict` module: ``tok_emb``, ``out_norm``,
 ``lm_head`` and ``layers``, an ``nn.ModuleList`` of per-layer ParamDicts
 (the JAX package stacks layers as (L, K, N) arrays for ``lax.scan``; the
 port keeps one tensor per layer).  Matmul weights are (K, N) dense tensors
 or :class:`QuantTensor` modules whose planes are byte-identical to the JAX
-package's per-layer slices.
+package's per-layer slices.  An MoE layer (Mixtral) holds the router
+``moe_gate_inp`` (D, E) f32 and the stacked experts ``moe_gate``,
+``moe_up`` (E, D, EF) and ``moe_down`` (E, EF, D) in place of the dense
+FFN.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from ..ops.quant_matmul import (
     QuantTensor,
     _SCALE_PART_DECODERS,
     _fold_streams,
+    pack_experts_int8_g16,
+    pack_gguf_experts,
     pack_gguf_tensor,
     pad_qt_n,
     supported_qmm_types,
@@ -40,9 +45,17 @@ _LAYER_NAMES = {
     "w_gate": "ffn_gate.weight",
     "w_up": "ffn_up.weight",
     "w_down": "ffn_down.weight",
+    "moe_gate_inp": "ffn_gate_inp.weight",
+    "moe_gate": "ffn_gate_exps.weight",
+    "moe_up": "ffn_up_exps.weight",
+    "moe_down": "ffn_down_exps.weight",
 }
 # weights consumed as x @ W: GGUF stores (out, in), so these transpose
 _MATMUL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# stacked experts (E, out, in) -> (E, in, out); the expert-FF dim pads to
+# the streamed chunk grid (gate/up out, down in: both round the same EF)
+_EXPERTS = {"moe_gate": dict(pad_n=True), "moe_up": dict(pad_n=True),
+            "moe_down": dict(pad_k=True)}
 
 
 class ParamDict(nn.Module):
@@ -73,7 +86,8 @@ class ParamDict(nn.Module):
 
 def _dense(t, dtype, device, transpose: bool = False) -> torch.Tensor:
     """A GGUF tensor as a dense torch tensor on ``device``.  F16/F32 bytes
-    convert there; quantized types decode on the host."""
+    convert there; quantized types decode on the host.  ``transpose`` swaps
+    the last two dims (stacked experts keep their leading axis)."""
     if t.ggml_type in (GGMLType.F16, GGMLType.F32):
         view = torch.float16 if t.ggml_type == GGMLType.F16 else torch.float32
         raw = torch.from_numpy(np.array(t.data, np.uint8, copy=True))
@@ -81,8 +95,20 @@ def _dense(t, dtype, device, transpose: bool = False) -> torch.Tensor:
     else:
         arr = torch.from_numpy(t.to_f32()).to(device)
     if transpose:
-        arr = arr.T
+        arr = arr.transpose(-1, -2)
     return arr.to(dtype).contiguous()
+
+
+def _router(t, dtype, device) -> torch.Tensor:
+    """The router (E, D) as (D, E) f32 holding ``dtype``'s values: the JAX
+    loader stores it in the compute dtype and the router reads it in f32."""
+    return _dense(t, dtype, device, transpose=True).float()
+
+
+def _layer_infos(t, cfg: ModelConfig) -> list[dict]:
+    """Per layer, the GGUF tensor info of every known name the file has."""
+    return [{k: t[f"blk.{i}.{n}"] for k, n in _LAYER_NAMES.items()
+             if f"blk.{i}.{n}" in t} for i in range(cfg.n_layers)]
 
 
 def _put_layers(layers: list[dict], fuse: bool) -> nn.ModuleList:
@@ -101,12 +127,15 @@ def load_llama_params(reader, cfg: ModelConfig, dtype=torch.bfloat16,
                     if OUTPUT in t else _dense(t[EMBD], dtype, device, True)),
     })
     layers = []
-    for i in range(cfg.n_layers):
+    for infos in _layer_infos(t, cfg):
         p = {}
-        for key, name in _LAYER_NAMES.items():
-            info = t[f"blk.{i}.{name}"]
-            p[key] = (_dense(info, dtype, device, transpose=True)
-                      if key in _MATMUL else _dense(info, torch.float32, device))
+        for key, info in infos.items():
+            if key == "moe_gate_inp":
+                p[key] = _router(info, dtype, device)
+            elif key in _MATMUL or key in _EXPERTS:
+                p[key] = _dense(info, dtype, device, transpose=True)
+            else:
+                p[key] = _dense(info, torch.float32, device)
         layers.append(p)
     params["layers"] = _put_layers(layers, fuse=False)
     return params
@@ -121,7 +150,10 @@ def load_llama_params_quantized(reader, cfg: ModelConfig, dtype=torch.bfloat16,
     whose K the folded layout serves, else all stay on plain f32 planes.  A
     quantized head wider than 8192 is zero-padded to a multiple of 2048
     columns.  Types without a device layout, like F16, load dense in
-    ``dtype``.  q/k/v and gate/up are fused (:func:`fuse_projections`)."""
+    ``dtype``.  q/k/v and gate/up are fused (:func:`fuse_projections`).
+    Stacked experts keep plain f32 scale planes (:func:`pack_gguf_experts`;
+    int8/g16 where their type differs across layers), decoded on the
+    device one tensor at a time."""
     t = reader.tensors
     qmm_ok = set(supported_qmm_types())
 
@@ -143,20 +175,32 @@ def load_llama_params_quantized(reader, cfg: ModelConfig, dtype=torch.bfloat16,
     else:
         params["lm_head"] = _dense(t.get(OUTPUT, t[EMBD]), dtype, device, True)
 
-    names = [{k: t[f"blk.{i}.{n}"] for k, n in _LAYER_NAMES.items()}
-             for i in range(cfg.n_layers)]
+    names = _layer_infos(t, cfg)
+    # one fold decision per model, over the 2-D projections only (stacked
+    # experts never fold), as the JAX loader decides it
     fold = all(
         info.ggml_type in _SCALE_PART_DECODERS
         and _fold_streams(int(info.shape[-1]), info.ggml_type)
-        for p in names for k, info in p.items() if k in _MATMUL)
+        for p in names for k, info in p.items()
+        if k in _MATMUL and len(info.shape) == 2)
+    # expert tensors of mixed types across layers unify to int8/g16, so
+    # every layer keeps one layout (K6 streams one layout per launch)
+    mixed = {k for k in _EXPERTS
+             if len({p[k].ggml_type for p in names if k in p}) > 1}
     layers = []
     for p_infos in names:
         p = {}
         for key, info in p_infos.items():
-            if key in _MATMUL and quantizable(info):
+            if key == "moe_gate_inp":
+                p[key] = _router(info, dtype, device)
+            elif key in _EXPERTS and quantizable(info):
+                pack = pack_experts_int8_g16 if key in mixed else pack_gguf_experts
+                p[key] = pack(info.data, info.ggml_type, info.shape,
+                              device=device, **_EXPERTS[key])
+            elif key in _MATMUL and quantizable(info):
                 p[key] = pack_gguf_tensor(info.data, info.ggml_type, info.shape,
                                           fold_scales=fold, device=device)
-            elif key in _MATMUL:
+            elif key in _MATMUL or key in _EXPERTS:
                 p[key] = _dense(info, dtype, device, transpose=True)
             else:
                 p[key] = _dense(info, torch.float32, device)
@@ -201,31 +245,50 @@ def fuse_projections(p: dict) -> dict:
         out["wqk_fused" if qk_only else "wqkv_fused"] = fused
         for k in keys:
             del out[k]
-    fused = _concat([p["w_gate"], p["w_up"]])
-    if fused is not None:
-        out["wgateup_fused"] = fused
-        del out["w_gate"], out["w_up"]
+    if "w_gate" in p and "w_up" in p:  # an MoE layer has neither
+        fused = _concat([p["w_gate"], p["w_up"]])
+        if fused is not None:
+            out["wgateup_fused"] = fused
+            del out["w_gate"], out["w_up"]
     return out
+
+
+def _router_rows(p) -> torch.Tensor:
+    """The layer's router (D, E) f32, zero-padded to a power-of-two width
+    for K6 (the kernel masks the pad lanes)."""
+    gi = p["moe_gate_inp"]
+    if gi.dtype != torch.float32:
+        raise ValueError("decode table: moe_gate_inp must be float32")
+    E = gi.shape[1]
+    Ep = 1 << (E - 1).bit_length()
+    return gi if Ep == E else torch.nn.functional.pad(gi, (0, Ep - E)).contiguous()
 
 
 def layer_table(params: ParamDict, cfg: ModelConfig) -> torch.Tensor:
     """The decode kernels' (K6, K7) view of the layer stack: an int64 device
-    table (L, 28) of, per layer, the addresses of the q, s, m, sd, md planes
+    table (L, 44) of, per layer, the addresses of the q, s, m, sd, md planes
     of the projections q|k|v (or q|k), v (split-v only), o, gate|up and down
     (0 where a plane is absent), then the attn_norm and ffn_norm vectors and
-    the layer's sliding window.  The JAX package stacks the layers instead;
-    the port builds this once, holds it with the params (whose tensors it
-    points into) and reuses it every step.  Planes must be contiguous,
-    16-byte aligned and on one device; otherwise this raises."""
+    the layer's sliding window; an MoE layer adds its router (D, Ep) f32
+    and, for the stacked experts gate, up and down, the q, s, m base
+    addresses and the byte strides of one expert's q and s (m) planes, so
+    expert e lies at base + e * stride (0 for a dense layer).  The JAX
+    package stacks the layers instead; the port builds this once, holds it
+    with the params (whose tensors it points into) and reuses it every
+    step.  Planes must be contiguous, 16-byte aligned and on one device;
+    otherwise this raises."""
     cached = params.__dict__.get("_layer_table")
     if cached is not None:
         return cached
-    from ..ops.decode_stream import proj_keys
+    from ..ops.decode_stream import EXPERT_KEYS, proj_keys
 
     layers = params["layers"]
     keys = proj_keys(layers[0])
-    slots = (keys if len(keys) == 5 else (keys[0], None) + keys[1:])
+    dense = [k for k in keys if k not in EXPERT_KEYS]
+    slots = dense if dense[0] == "wqk_fused" else [dense[0], None] + dense[1:]
+    slots += [None] * (5 - len(slots))  # an MoE layer has no dense FFN
     dev = layers[0]["attn_norm"].device
+    routers = []
 
     def addr(t, align: int) -> int:
         if t is None:
@@ -247,9 +310,19 @@ def layer_table(params: ParamDict, cfg: ModelConfig) -> torch.Tensor:
                 raise ValueError(f"decode table: {n} must be float32")
             row.append(addr(p[n], 4))
         row.append(cfg.sliding_window)
+        if "moe_gate_inp" in p:
+            routers.append(_router_rows(p))
+            row.append(addr(routers[-1], 16))
+            for k in EXPERT_KEYS:
+                qt = p[k]
+                row += [addr(getattr(qt, n), 16) for n in ("q", "s", "m")]
+                row += [qt.q[0].nbytes, qt.s[0].nbytes]
+        else:
+            row += [0] * 16
         rows.append(row)
     table = torch.tensor(rows, dtype=torch.int64).to(dev)
     params.__dict__["_layer_table"] = table
+    params.__dict__["_router_rows"] = routers  # the padded routers it points into
     return table
 
 
@@ -264,7 +337,8 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device="cpu") -> ParamDic
     """Convert the JAX package's parameter tree (arrays as numpy, quantized
     weights as its QuantTensor with numpy planes) into the port's
     parameters: stacked (L, ...) arrays and planes become per-layer tensors,
-    keeping dtypes and byte layout."""
+    keeping dtypes and byte layout (stacked experts (L, E, ...) become
+    (E, ...) per layer)."""
 
     def conv(v, i=None):
         if hasattr(v, "fmt"):  # the JAX package's QuantTensor
@@ -274,9 +348,13 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device="cpu") -> ParamDic
                                v.shape, take(v.sd), take(v.md), v.sgroup or 0)
         return _to_torch(v if i is None else v[i], device)
 
+    def conv_layer(i):
+        p = {k: conv(v, i) for k, v in np_params["layers"].items()}
+        if "moe_gate_inp" in p:  # the port's router is f32 (same values)
+            p["moe_gate_inp"] = p["moe_gate_inp"].float()
+        return ParamDict(p)
+
     params = ParamDict({k: conv(np_params[k])
                         for k in ("tok_emb", "out_norm", "lm_head")})
-    params["layers"] = nn.ModuleList(
-        ParamDict({k: conv(v, i) for k, v in np_params["layers"].items()})
-        for i in range(cfg.n_layers))
+    params["layers"] = nn.ModuleList(conv_layer(i) for i in range(cfg.n_layers))
     return params

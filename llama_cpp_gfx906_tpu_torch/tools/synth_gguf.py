@@ -7,12 +7,26 @@ values.  Not for quality metrics.  A few distinct rows per tensor are drawn
 from ``--seed`` and tiled, so the 8B file is written in seconds.
 
 Two quant mixes, with an F16 token embedding in both:
-- Q4_K_M (``8b``, ``3b``, ``small``, ``tiny``), as ``scripts/make_synth_gguf.py``:
-  Q4_K projections, a Q6_K ``attn_v`` and a Q6_K ``output``;
-- Q8_0 (``270m-q8_0``, ``tiny-q8_0``): every projection and the output.
+- Q4_K_M (``8b``, ``3b``, ``small``, ``tiny``, ``mixtral-q4_k_m``,
+  ``tiny-moe``), as ``scripts/make_synth_gguf.py`` and the repo quantizer's
+  Q4_K_M rule: Q4_K projections (experts included), a Q6_K ``attn_v`` and a
+  Q6_K ``output``;
+- Q8_0 (``270m-q8_0``, ``tiny-q8_0``, ``mixtral-q8_0``, ``tiny-moe-q8_0``):
+  every projection and the output.
   ``270m-q8_0`` is the Gemma-3-270M shape that ``bench.py`` decodes (run as
   a llama); its layers hold 6.27 MB of int8 planes and scales, the JAX
   forward's single-launch (K7) shape.
+
+The MoE presets are llama files with ``llama.expert_count`` experts, as
+llama.cpp converts Mixtral: ``mixtral-*`` has the widths of Mistral AI's
+``Mixtral-8x7B-v0.1`` ``config.json`` (hidden 4096, expert FF 14336, 32
+layers, 32/8 heads, 8 experts, 2 per token, vocab 32000, rope theta 1e6);
+``tiny-moe*`` is a 2-layer model for the tests (the narrowest whose nib4c
+projections K6's chunk grid takes) whose expert FF (768) the loader pads to
+1024.  Each layer has an F32 router ``ffn_gate_inp``
+(zero-mean random rows) and stacked experts ``ffn_{gate,up,down}_exps``;
+every expert's rows are drawn from a seed that holds its index, so no two
+experts are alike.
 
 Usage:
     python -m llama_cpp_gfx906_tpu_torch.tools.synth_gguf out.gguf [--preset 8b] [--seed 0]
@@ -36,7 +50,15 @@ PRESETS = {
     "tiny": (2, 256, 2, 1, 128, 512, 2048, "q4_k_m"),
     "270m-q8_0": (18, 640, 4, 1, 256, 2048, 262144, "q8_0"),
     "tiny-q8_0": (2, 256, 2, 1, 128, 512, 2048, "q8_0"),
+    # MoE: F is the expert FF
+    "mixtral-q4_k_m": (32, 4096, 32, 8, 128, 14336, 32000, "q4_k_m"),
+    "mixtral-q8_0": (32, 4096, 32, 8, 128, 14336, 32000, "q8_0"),
+    "tiny-moe": (2, 512, 4, 1, 128, 768, 512, "q4_k_m"),
+    "tiny-moe-q8_0": (2, 512, 4, 1, 128, 768, 512, "q8_0"),
 }
+# (experts, experts per token, rope theta) of the MoE presets
+EXPERTS = {"mixtral-q4_k_m": (8, 2, 1e6), "mixtral-q8_0": (8, 2, 1e6),
+           "tiny-moe": (4, 2, 1e6), "tiny-moe-q8_0": (4, 2, 1e6)}
 DISTINCT_ROWS = 64
 
 
@@ -105,6 +127,7 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
     L, D, H, KVH, DH, F, V, mix = PRESETS[preset]
     L, V = n_layers or L, n_vocab or V
     q8 = mix == "q8_0"
+    E, K_USED, rope_base = EXPERTS.get(preset, (0, 0, 500000.0))
     rng = np.random.default_rng(seed)
     w = GGUFWriter(path, "llama")
     w.add_string("general.name", f"synth-{preset}" + ("" if q8 else "-q4km"))
@@ -117,7 +140,10 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
     w.add_uint32("llama.feed_forward_length", F)
     w.add_uint32("llama.context_length", 8192)
     w.add_float32("llama.attention.layer_norm_rms_epsilon", 1e-5)
-    w.add_float32("llama.rope.freq_base", 500000.0)
+    w.add_float32("llama.rope.freq_base", rope_base)
+    if E:
+        w.add_uint32("llama.expert_count", E)
+        w.add_uint32("llama.expert_used_count", K_USED)
     w.add_uint32("llama.vocab_size", V)
     w.add_string("tokenizer.ggml.model", "llama")
     tokens = ["<s>", "</s>", "<unk>"] + [f"<0x{b:02X}>" for b in range(256)]
@@ -137,6 +163,12 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
         w.add_tensor(name, rows.reshape(-1), ggml_type=qtype,
                      raw_ne=(in_dim, out_dim))
 
+    def add_experts(name, layer, which, out_dim, in_dim):
+        rows = np.concatenate([_ROWS[proj](np.random.default_rng(
+            [seed, layer, which, e]), out_dim, in_dim) for e in range(E)])
+        w.add_tensor(name, rows.reshape(-1), ggml_type=proj,
+                     raw_ne=(in_dim, out_dim, E))
+
     emb = (rng.standard_normal((min(V, DISTINCT_ROWS), D)) * 0.02).astype(np.float16)
     w.add_tensor("token_embd.weight", _tile(emb, V).view(np.uint8).reshape(-1),
                  ggml_type=GGMLType.F16, raw_ne=(D, V))
@@ -149,6 +181,13 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
         add_q(f"blk.{i}.attn_k.weight", KVH * DH, D)
         add_q(f"blk.{i}.attn_v.weight", KVH * DH, D, side)
         add_q(f"blk.{i}.attn_output.weight", D, H * DH)
+        if E:
+            router = rng.standard_normal((E, D)) / np.sqrt(D)
+            w.add_tensor(f"blk.{i}.ffn_gate_inp.weight", router.astype(np.float32))
+            add_experts(f"blk.{i}.ffn_gate_exps.weight", i, 0, F, D)
+            add_experts(f"blk.{i}.ffn_up_exps.weight", i, 1, F, D)
+            add_experts(f"blk.{i}.ffn_down_exps.weight", i, 2, D, F)
+            continue
         add_q(f"blk.{i}.ffn_gate.weight", F, D)
         add_q(f"blk.{i}.ffn_up.weight", F, D)
         add_q(f"blk.{i}.ffn_down.weight", D, F)

@@ -259,4 +259,5 @@ def test_layer_table_addresses():
         assert row[0] == p["wqk_fused"].q.data_ptr()
         assert row[5 + 3] == p["wv"].sd.data_ptr() and row[5 + 2] == 0  # v: no mins
         assert row[20] == p["w_down"].q.data_ptr()
-        assert row[25:] == [p["attn_norm"].data_ptr(), p["ffn_norm"].data_ptr(), 0]
+        assert row[25:28] == [p["attn_norm"].data_ptr(), p["ffn_norm"].data_ptr(), 0]
+        assert row[28:] == [0] * (k6.TABLE_W - 28)  # a dense layer: no MoE words

@@ -462,3 +462,123 @@ def test_batched_engine_card_matches_cpu(cuda_device, kv_dtype):
     else:  # int8 rows may round apart where card and CPU K differ by an ulp
         pairs = [(a, b) for x, y in zip(*outs) for a, b in zip(x, y)]
         assert sum(a == b for a, b in pairs) >= 0.9 * len(pairs)
+
+
+# ---------------------------------------------------------------------------
+# MoE: K8 (routed int8 expert matmul) and K6's MoE branch
+# ---------------------------------------------------------------------------
+
+
+def _experts_on(dev, qtype, E, N, K, seed, g16=False, **pad):
+    raw = np.concatenate([_raw(qtype, N, K, seed + e).reshape(N, -1) for e in range(E)])
+    pack = tq.pack_experts_int8_g16 if g16 else tq.pack_gguf_experts
+    return pack(raw, qtype, (E, N, K), device=dev, **pad)
+
+
+@pytest.mark.parametrize("P", [1, 2, 8, 13])
+@pytest.mark.parametrize("qtype,g16,N,K", [
+    (GGMLType.Q8_0, False, 1024, 4096), (GGMLType.Q8_0, False, 512, 3584),
+    (GGMLType.Q6_K, False, 384, 768), (GGMLType.Q4_K, True, 256, 1280)])  # the last: mins
+def test_rqmm_kernel_matches_plain(cuda_device, qtype, g16, N, K, P):
+    qt = _experts_on(cuda_device, qtype, 8, N, K, 21, g16=g16)
+    assert qt.fmt == "int8" and (qt.m is not None) == g16
+    x = torch.randn((P, K), device=cuda_device).to(torch.bfloat16)
+    idx = torch.randint(0, 8, (P,), dtype=torch.int32, device=cuda_device)
+    before = tq.rqmm_int8.launches
+    got = tq.rqmm_int8(x, qt, idx)
+    ref = tq.rqmm_plain(x, qt, idx)
+    torch.cuda.synchronize()
+    assert tq.rqmm_int8.launches == before + 1
+    assert got.shape == (P, N) and _rel(got, ref) < TOL
+    via = tq.routed_quant_matmul(x, qt, idx.long())  # the dispatch takes K8
+    assert tq.rqmm_int8.launches == before + 2 and _rel(via, ref) < TOL
+
+
+def test_rqmm_replays_with_new_ids(cuda_device):
+    """The expert ids are read on the device: a captured launch replays
+    with the ids written into its buffer after the capture."""
+    qt = _experts_on(cuda_device, GGMLType.Q8_0, 8, 512, 1024, 22)
+    x = torch.randn((4, 1024), device=cuda_device).to(torch.bfloat16)
+    idx = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=cuda_device)
+    tq.rqmm_int8(x, qt, idx)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tq.rqmm_int8(x, qt, idx)
+    idx.copy_(torch.tensor([7, 5, 7, 6], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _rel(out, tq.rqmm_plain(x, qt, idx)) < TOL
+
+
+def _moe_engine(tmp_path, preset, dev):
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+
+    return Engine.from_gguf(write_synth(str(tmp_path / f"{preset}.gguf"), preset, seed=4),
+                            max_seq=512, device=dev)
+
+
+@pytest.mark.parametrize("preset", ["tiny-moe", "tiny-moe-q8_0"])
+@pytest.mark.parametrize("n_past", [0, 37, 300])
+def test_k6_moe_matches_plain(cuda_device, tmp_path, preset, n_past):
+    """K6's MoE branch (nib4c or int8 experts, the FF padded 768 -> 1024)
+    against its plain version from the same state: the hidden state, the
+    cache rows and the chosen expert ids of every layer."""
+    eng = _moe_engine(tmp_path, preset, cuda_device)
+    params, cfg = eng.params, eng.cfg
+    kv0 = _filled_cache(cfg, 1, 512, (n_past,), cuda_device)
+    assert k6._stream_ok(params, cfg, kv0, 1, 1)
+    assert not k6._stream_ok(params, cfg, _filled_cache(cfg, 2, 512, (1, 2), cuda_device), 2, 1)
+    for tok in (3, 101):
+        x = params["tok_emb"][torch.tensor([[tok]], device=cuda_device)]
+        kv, ref_kv = (_filled_cache(cfg, 1, 512, (n_past,), cuda_device) for _ in range(2))
+        before = dict(kernels.counts())
+        got = k6.fused_decode_step_streamed(params, cfg, x, kv)
+        ids = []
+        ref = k6.decode_layers_plain(params, cfg, x, ref_kv, ids_out=ids)
+        torch.cuda.synchronize()
+        now = kernels.counts()
+        assert now["decode_stream"] == before["decode_stream"] + 1
+        assert now["decode_stream_moe"] == before["decode_stream_moe"] + 1
+        assert _rel(got, ref) < TOL
+        assert _rel(kv.k, ref_kv.k) < TOL and _rel(kv.v, ref_kv.v) < TOL
+        assert k6.last_expert_ids(params, kv).tolist() == [i[0].tolist() for i in ids]
+
+
+@pytest.mark.parametrize("preset", ["tiny-moe", "tiny-moe-q8_0"])
+def test_engine_moe_routes_match_cpu(cuda_device, tmp_path, monkeypatch, preset):
+    """tiny-moe on the card: prefill through the dense expert path (K5 per
+    expert for int8 experts), decode through the layer loop (K8 for int8
+    experts, 3 launches a layer; the quantized gather for nib4c ones), then,
+    with its layers declared large, through K6's MoE branch and
+    decode_fused; each within the tolerance of the same steps on the CPU."""
+    card, cpu = (_moe_engine(tmp_path, preset, d) for d in (cuda_device, "cpu"))
+    q8 = preset.endswith("q8_0")
+    assert tllama.decode_route(card.params, card.cfg, card.kv) is None  # tiny: the loop
+    ids = card.tokenizer.tokenize("card against cpu", add_special=True)
+    kernels.set_counts({})
+    a0, b0 = card.prefill(ids), cpu.prefill(ids)
+    assert _rel(torch.from_numpy(a0), torch.from_numpy(b0)) < TOL
+    assert kernels.counts()["qmm_int8"] == (2 + 3 * 4) * 2 * q8  # qkv, o + 3 per expert
+    feed = (5, 77, 300, 12)
+    kernels.set_counts({})
+    for tok in feed:
+        a, b = card.decode_one(tok), cpu.decode_one(tok)
+        assert np.abs(a - b).max() / np.abs(b).max() < TOL
+    c = kernels.counts()
+    assert (c["rqmm_int8"], c["routed_gather"]) == ((24, 0) if q8 else (0, 24))
+    monkeypatch.setattr(tllama, "FUSED_LAYER_BYTES", 0)
+    card.params.__dict__.pop("_decode_routes", None)
+    assert tllama.decode_route(card.params, card.cfg, card.kv) == "k6"
+    before = kernels.counts()["decode_stream_moe"]
+    for tok in feed:
+        a, b = card.decode_one(tok), _decode_logits(cpu, tok, k6.decode_layers_plain)
+        assert np.abs(a - b).max() / np.abs(b).max() < TOL
+    assert kernels.counts()["decode_stream_moe"] == before + 4
+    toks = card.generate("card", n_predict=12, stop_on_eog=False)[1]
+    fused = card.generate_fused("card", n_predict=11, stop_on_eog=False, chunk=5)[1]
+    assert _greedy_consistent(card, "card", fused, toks[:11], TOL)
+    before = kernels.device_counts()
+    card.decode_fused(fused[-1], n_steps=5)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in kernels.device_counts().items()}
+    assert (ran["decode_stream_moe"], ran["gemv_int8"], ran["rqmm_int8"]) == (5, 5, 0)
