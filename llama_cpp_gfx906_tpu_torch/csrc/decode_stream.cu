@@ -7,10 +7,12 @@
 // plain or folded scales and affine mins, a fused q|k|v or split-v (q|k
 // fused, v apart) layout, NORM/NEOX rope, per-layer sliding windows, silu,
 // bf16 or f32 KV, and the MoE FFN (B = 1: router, softmax or sigmoid,
-// top-k, renorm and scale, then only the chosen experts' slices).  K7 is
-// the instantiation with B = 1, int8 weights and plain scales (its own C
-// entry point); its gate picks it.  Not ported yet: the MoE shared expert,
-// qk-norm, post-norms, dual rope bases and gelu.
+// top-k, renorm and scale, then only the chosen experts' slices); and the
+// gemma modes (GEMMA instantiations, K6 and K7): per-head q/k RMS norms
+// before rope, the rope table chosen per layer by its SWA flag, the
+// post-attention and post-FFN norms, gelu (tanh or erf).  K7 is the
+// instantiation with B = 1, int8 weights and plain scales (its own C entry
+// point); its gate picks it.  Not ported yet: the MoE shared expert.
 //
 // Per layer (x: the f32 carry, B rows):
 //   P1  h = rms(x) * attn_norm, bf16;  qkv = h · Wqkv (and h · Wv)
@@ -26,6 +28,20 @@
 // and the next layer's P1 adds x = bf16(x) + bf16(mlp).  A grid-wide
 // barrier ends each phase (7 per layer); every block recomputes the RMS
 // norm it needs instead of waiting on another barrier.
+//
+// The gemma modes keep the 7 barriers:
+//   P2/P3  every attention unit stages its heads' bf16 projections in
+//          shared memory, norms each head (sum of squares over Dh, weighted
+//          by q_norm / k_norm, rounded to bf16) and only then rotates them,
+//          a thread per (d, partner) pair, so no rotation reads an un-normed
+//          element; the K row written to the cache is the normed, rotated
+//          one.  The rope table is the layer's: local (unscaled) on an SWA
+//          layer, global otherwise.
+//   P6     attn = bf16(rms(bf16(o)) * post_attn_norm): every block computes
+//          the row's norm itself from the complete o (after P5's barrier)
+//   P7     y = bf16(bf16(act(g)) * bf16(u)), act silu, gelu-tanh or gelu-erf
+//   P1     the previous layer's mlp = bf16(rms(bf16(mlp)) * post_ffn_norm),
+//          again computed by every block (and so the final output).
 //
 // An MoE layer (MOE, B = 1) replaces P6 and P7 and keeps 7 barriers:
 //   P6  x, h2 as above; every block computes the router logits h2 · Wr
@@ -77,13 +93,15 @@ using lcg::GT_TN;
 constexpr int NT = GT_NT;
 constexpr int NWARP = NT / 32;
 // per layer: 5 projections x 5 planes, 2 norms, window; MoE: the router,
-// then 3 expert tensors x (q, s, m bases, q stride, s stride in bytes)
-constexpr int TABLE_W = 44;
+// then 3 expert tensors x (q, s, m bases, q stride, s stride in bytes);
+// gemma: q_norm, k_norm, post_attn_norm, post_ffn_norm, the SWA flag
+constexpr int TABLE_W = 49;
 constexpr int NPROJ = 8;
 enum { P_QKV = 0, P_V = 1, P_O = 2, P_GU = 3, P_DN = 4, P_EG = 5, P_EU = 6,
        P_ED = 7 };
 constexpr int T_ANORM = 25, T_FNORM = 26, T_WINDOW = 27, T_ROUTER = 28,
-              T_EXP = 29;
+              T_EXP = 29, T_QNORM = 44, T_KNORM = 45, T_PANORM = 46,
+              T_PFNORM = 47, T_SWA = 48;
 constexpr int MAX_E = 256;      // router lanes
 constexpr int MAX_K = 8;        // experts per token
 constexpr int KT = 64;          // keys per attention tile
@@ -106,6 +124,7 @@ struct DecodeArgs {
   void* vc;
   const int* n_past;       // (B,)
   const float* inv_freq;   // (Dh/2,)
+  const float* inv_freq_local;  // (Dh/2,) of the SWA layers (gemma)
   const float* x0;         // (MP, D) the embedded tokens, f32
   float* xin;              // (MP, D) layer input
   float* xmid;             // (MP, D) after the attention residual
@@ -123,6 +142,7 @@ struct DecodeArgs {
   int L, B, D, Hq, Hkv, Dh, F, S, nsplit, split_v, interleaved;
   int gu_len;              // floats of gu_acc (MoE: topk x 2 x expert N)
   int n_exp, topk, gating_sigmoid, wnorm;  // MoE routing
+  int has_qk, has_post, act;  // gemma: qk-norm, post-norms, 0 silu 1 gelu-tanh 2 gelu-erf
   float scale, eps, wscale;
 };
 
@@ -333,6 +353,56 @@ __device__ __forceinline__ float rope_at(const float* v, int d, int Dh,
   return bf16r(ldcg(v + d)) * c + bf16r(ldcg(v + pd)) * sn;
 }
 
+// GEMMA: nh heads of Dh (raw f32 accumulators at src) into dst: the bf16
+// projection, with w (qk-norm) each head's RMS norm weighted by w and
+// rounded to bf16, then rotated by inv at pos; each thread owns both
+// elements of a rotation pair, so a rotation reads only normed values.
+// round_out rounds the rotated values to bf16.  hs: nh floats of scratch.
+__device__ void norm_rope_heads(const float* src, int nh, int Dh, float pos,
+                                const float* inv, int interleaved,
+                                const float* w, float eps, bool round_out,
+                                float* dst, float* hs) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool norm = w != nullptr;
+  for (int i = tid; i < nh * Dh; i += NT) dst[i] = bf16r(ldcg(src + i));
+  __syncthreads();
+  if (norm) {
+    for (int g = warp; g < nh; g += NWARP) {
+      float ss = 0.f;
+      for (int d = lane; d < Dh; d += 32) ss += dst[g * Dh + d] * dst[g * Dh + d];
+      ss = warp_sum(ss);
+      if (lane == 0) hs[g] = rsqrtf(ss / Dh + eps);
+    }
+    __syncthreads();
+  }
+  const int half = Dh / 2;
+  for (int i = tid; i < nh * half; i += NT) {
+    const int g = i / half, j = i % half;
+    float* row = dst + g * Dh;
+    const int d0 = interleaved ? 2 * j : j, d1 = interleaved ? 2 * j + 1 : j + half;
+    float v0 = row[d0], v1 = row[d1];
+    if (norm) {
+      v0 = bf16r(v0 * hs[g] * w[d0]);
+      v1 = bf16r(v1 * hs[g] * w[d1]);
+    }
+    const float ang = pos * inv[j];
+    const float c = cosf(ang), sn = sinf(ang);
+    const float r0 = v0 * c - v1 * sn, r1 = v1 * c + v0 * sn;
+    row[d0] = round_out ? bf16r(r0) : r0;
+    row[d1] = round_out ? bf16r(r1) : r1;
+  }
+  __syncthreads();
+}
+
+// the FFN activation of the gemma modes (act 0 silu, 1 gelu-tanh, 2 erf)
+__device__ __forceinline__ float act_f(float g, int act) {
+  if (act == 1)
+    return g * (0.5f * (1.f + tanhf(0.7978845608028654f *
+                                    (g + 0.044715f * (g * g * g)))));
+  if (act == 2) return g * (erff(g / 1.4142135623730951f) + 1.f) * 0.5f;
+  return g / (1.f + expf(-g));
+}
+
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
   const uint2 w = *reinterpret_cast<const uint2*>(p);
   o[0] = __uint_as_float(w.x << 16); o[1] = __uint_as_float(w.x & 0xFFFF0000u);
@@ -352,9 +422,10 @@ __device__ __forceinline__ void load4(const float* p, float* o) {
 //     part's m slot; split 0 also writes the new K/V row at n_past and the
 //     self term's score;
 //   PV = true (P3): l = sum p and acc = bf16(p) · V into part.
-template <bool PV, typename KV>
+template <bool PV, bool GEMMA, typename KV>
 __device__ void attn_unit(const DecodeArgs& a, int l, int window, int b,
-                          int h, int s, float* smem, float* m_s, float* l_s) {
+                          int h, int s, float* smem, float* m_s, float* l_s,
+                          const long long* tb, const float* inv, float* hs) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int Dh = a.Dh, G = a.Hq / a.Hkv, HD = a.Hkv * Dh, Dq = a.Hq * Dh;
   const int Nqkv = Dq + 2 * HD;
@@ -370,10 +441,16 @@ __device__ void attn_unit(const DecodeArgs& a, int l, int window, int b,
   float* pp = a.part + (((size_t)(b * a.Hkv + h) * a.nsplit + s) * G) * (Dh + 2);
   const size_t stride = (size_t)G * (Dh + 2);  // between splits
 
-  for (int i = tid; i < G * Dh; i += NT) {
-    const int g = i / Dh, d = i % Dh;
-    qs[i] = bf16r(rope_at(qk + (size_t)(h * G + g) * Dh, d, Dh, pos,
-                          a.inv_freq, a.interleaved));
+  if constexpr (GEMMA) {
+    norm_rope_heads(qk + (size_t)h * G * Dh, G, Dh, pos, inv, a.interleaved,
+                    a.has_qk ? reinterpret_cast<const float*>(tb[T_QNORM]) : nullptr,
+                    a.eps, true, qs, hs);
+  } else {
+    for (int i = tid; i < G * Dh; i += NT) {
+      const int g = i / Dh, d = i % Dh;
+      qs[i] = bf16r(rope_at(qk + (size_t)(h * G + g) * Dh, d, Dh, pos,
+                            a.inv_freq, a.interleaved));
+    }
   }
   if (tid < G) {
     float M = lcg::kNegInf;
@@ -386,9 +463,14 @@ __device__ void attn_unit(const DecodeArgs& a, int l, int window, int b,
     l_s[tid] = 0.f;
   }
   if (!PV && s == 0) {  // the new row: into the cache at n_past, self term
+    if constexpr (GEMMA)  // the normed, rotated K row into ks (unrounded)
+      norm_rope_heads(qk + Dq + (size_t)h * Dh, 1, Dh, pos, inv, a.interleaved,
+                      a.has_qk ? reinterpret_cast<const float*>(tb[T_KNORM]) : nullptr,
+                      a.eps, false, ks, hs);
     for (int d = tid; d < Dh; d += NT) {
-      const float kr = rope_at(qk + Dq + (size_t)h * Dh, d, Dh, pos,
-                               a.inv_freq, a.interleaved);
+      const float kr = GEMMA ? ks[d]
+                             : rope_at(qk + Dq + (size_t)h * Dh, d, Dh, pos,
+                                       a.inv_freq, a.interleaved);
       const float vv = bf16r(ldcg(qk + Dq + HD + (size_t)h * Dh + d));
       if (np < a.S) {
         lcg::from_float(kr, kc + (size_t)np * HD + d);
@@ -517,12 +599,14 @@ __device__ void merge_head(const DecodeArgs& a, int b, int qi) {
   }
 }
 
-template <int MP, bool FOLDED, bool NIB_OK, bool MOE, typename KV>
+template <int MP, bool FOLDED, bool NIB_OK, bool MOE, bool GEMMA, typename KV>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ DecodeArgs a) {
-  lcg::count_launch(NIB_OK ? (MOE ? 2 : 1) : 0);  // 0: K7, 1: K6, 2: K6 MoE
+  // K6 1 + bits (1 MoE, 2 gemma), K7 5 + gemma (kernels.py's slots)
+  lcg::count_launch(NIB_OK ? 1 + MOE + 2 * GEMMA : 5 + GEMMA);
   __shared__ __align__(16) float smem[GT_SMEM_FLOATS];
   __shared__ float red[NWARP * MP], rs[MP];
+  __shared__ float rs_post[GEMMA ? MP : 1], hs[GEMMA ? MAX_G : 1];
   __shared__ float m_s[MAX_G], l_s[MAX_G];
   __shared__ float e_red[MOE ? NT : 1], e_lg[MOE ? MAX_E : 1];
   __shared__ float e_w[MAX_K];
@@ -537,12 +621,24 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     const float* anorm = reinterpret_cast<const float*>(tb[T_ANORM]);
     const float* fnorm = reinterpret_cast<const float*>(tb[T_FNORM]);
     const int window = (int)tb[T_WINDOW];
+    const float* inv = (GEMMA && tb[T_SWA]) ? a.inv_freq_local : a.inv_freq;
+    // the previous layer's post-FFN norm (gemma): its weights, every row's scale
+    const float* pf = nullptr;
+    if constexpr (GEMMA) {
+      if (a.has_post && l > 0) {
+        pf = reinterpret_cast<const float*>((tb - TABLE_W)[T_PFNORM]);
+        row_rms<MP>([&](int m, int k) { return bf16r(ldcg(a.dn_acc + (size_t)m * D + k)); },
+                    B, D, a.eps, red, rs_post);
+      }
+    }
 
     // P1: x (the embedding, or the last layer's residual), rms, q|k|v
     auto xsrc = [&](int m, int k) -> float {
       if (l == 0) return a.x0[(size_t)m * D + k];
-      return bf16r(ldcg(a.xmid + (size_t)m * D + k) +
-                   bf16r(ldcg(a.dn_acc + (size_t)m * D + k)));
+      float mb = bf16r(ldcg(a.dn_acc + (size_t)m * D + k));
+      if constexpr (GEMMA)
+        if (pf != nullptr) mb = bf16r(mb * rs_post[m] * pf[k]);
+      return bf16r(ldcg(a.xmid + (size_t)m * D + k) + mb);
     };
     row_rms<MP>(xsrc, B, D, a.eps, red, rs);
     if (blockIdx.x == 0)
@@ -563,15 +659,15 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     for (int u = blockIdx.x; u < nu; u += gridDim.x) {
       __syncthreads();
       const int s = u % a.nsplit, bh = u / a.nsplit;
-      attn_unit<false, KV>(a, l, window, bh / a.Hkv, bh % a.Hkv, s, smem,
-                           m_s, l_s);
+      attn_unit<false, GEMMA, KV>(a, l, window, bh / a.Hkv, bh % a.Hkv, s,
+                                  smem, m_s, l_s, tb, inv, hs);
     }
     grid_sync(a.bar);
     for (int u = blockIdx.x; u < nu; u += gridDim.x) {
       __syncthreads();
       const int s = u % a.nsplit, bh = u / a.nsplit;
-      attn_unit<true, KV>(a, l, window, bh / a.Hkv, bh % a.Hkv, s, smem,
-                          m_s, l_s);
+      attn_unit<true, GEMMA, KV>(a, l, window, bh / a.Hkv, bh % a.Hkv, s,
+                                 smem, m_s, l_s, tb, inv, hs);
     }
     grid_sync(a.bar);
 
@@ -592,9 +688,19 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
 
     // P6: attention residual, rms, gate|up; qkv_acc (read in P4) is free
     zero_grid(a.qkv_acc, MP * Nqkv);
+    const float* pa = nullptr;  // the post-attention norm (gemma)
+    if constexpr (GEMMA) {
+      if (a.has_post) {
+        pa = reinterpret_cast<const float*>(tb[T_PANORM]);
+        row_rms<MP>([&](int m, int k) { return bf16r(ldcg(a.o_acc + (size_t)m * D + k)); },
+                    B, D, a.eps, red, rs_post);
+      }
+    }
     auto asrc = [&](int m, int k) -> float {
-      return bf16r(bf16r(ldcg(a.xin + (size_t)m * D + k)) +
-                   bf16r(ldcg(a.o_acc + (size_t)m * D + k)));
+      float ab = bf16r(ldcg(a.o_acc + (size_t)m * D + k));
+      if constexpr (GEMMA)
+        if (pa != nullptr) ab = bf16r(ab * rs_post[m] * pa[k]);
+      return bf16r(bf16r(ldcg(a.xin + (size_t)m * D + k)) + ab);
     };
     row_rms<MP>(asrc, B, D, a.eps, red, rs);
     if (blockIdx.x == 0)
@@ -650,6 +756,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
         if (m >= B) return 0.f;
         const float g = bf16r(ldcg(a.gu_acc + (size_t)m * 2 * F + k));
         const float u = bf16r(ldcg(a.gu_acc + (size_t)m * 2 * F + F + k));
+        if constexpr (GEMMA) return bf16r(bf16r(act_f(g, a.act)) * u);
         return bf16r(bf16r(g / (1.f + expf(-g))) * u);
       };
       gemv_phase<MP, FOLDED, NIB_OK>(ysrc, a, tb, P_DN, a.dn_acc, -1, nullptr,
@@ -657,11 +764,23 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     }
     grid_sync(a.bar);
   }
-  for (int i = blockIdx.x * NT + threadIdx.x; i < B * D; i += gridDim.x * NT)
-    a.xout[i] = bf16r(ldcg(a.xmid + i) + bf16r(ldcg(a.dn_acc + i)));
+  const float* pf = nullptr;  // the last layer's post-FFN norm (gemma)
+  if constexpr (GEMMA) {
+    if (a.has_post) {
+      pf = reinterpret_cast<const float*>(a.table[(size_t)(a.L - 1) * TABLE_W + T_PFNORM]);
+      row_rms<MP>([&](int m, int k) { return bf16r(ldcg(a.dn_acc + (size_t)m * D + k)); },
+                  B, D, a.eps, red, rs_post);
+    }
+  }
+  for (int i = blockIdx.x * NT + threadIdx.x; i < B * D; i += gridDim.x * NT) {
+    float mb = bf16r(ldcg(a.dn_acc + i));
+    if constexpr (GEMMA)
+      if (pf != nullptr) mb = bf16r(mb * rs_post[i / D] * pf[i % D]);
+    a.xout[i] = bf16r(ldcg(a.xmid + i) + mb);
+  }
 }
 
-template <int MP, bool FOLDED, bool NIB_OK, bool MOE, typename KV>
+template <int MP, bool FOLDED, bool NIB_OK, bool MOE, bool GEMMA, typename KV>
 cudaError_t grid_of(int* grid) {
   static int cached = 0;  // once, so later launches may be graph-captured
   if (cached == 0) {
@@ -671,7 +790,7 @@ cudaError_t grid_of(int* grid) {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &occ, decode_kernel<MP, FOLDED, NIB_OK, MOE, KV>, NT, 0);
+          &occ, decode_kernel<MP, FOLDED, NIB_OK, MOE, GEMMA, KV>, NT, 0);
     if (e != cudaSuccess) return e;
     if (occ < 1) return cudaErrorInvalidConfiguration;
     cached = sms * (occ < 2 ? occ : 2);
@@ -680,10 +799,10 @@ cudaError_t grid_of(int* grid) {
   return cudaSuccess;
 }
 
-template <int MP, bool FOLDED, bool NIB_OK, bool MOE, typename KV>
+template <int MP, bool FOLDED, bool NIB_OK, bool MOE, bool GEMMA, typename KV>
 cudaError_t launch(const DecodeArgs* a, int query_only, int* grid,
                    cudaStream_t st) {
-  cudaError_t e = grid_of<MP, FOLDED, NIB_OK, MOE, KV>(grid);
+  cudaError_t e = grid_of<MP, FOLDED, NIB_OK, MOE, GEMMA, KV>(grid);
   if (e != cudaSuccess || query_only) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(*grid);
@@ -695,27 +814,39 @@ cudaError_t launch(const DecodeArgs* a, int query_only, int* grid,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, decode_kernel<MP, FOLDED, NIB_OK, MOE, KV>, *a);
+  e = cudaLaunchKernelEx(&cfg, decode_kernel<MP, FOLDED, NIB_OK, MOE, GEMMA, KV>, *a);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <bool FOLDED, typename KV>
+template <bool FOLDED, bool GEMMA, typename KV>
 cudaError_t dispatch_mp(int mp, int moe, const DecodeArgs* a, int query_only,
                         int* grid, cudaStream_t st) {
-  if (moe) {  // the kernel routes one token: B = 1
-    if (mp != 1 || a->topk < 1 || a->topk > MAX_K || a->n_exp < a->topk ||
-        a->n_exp > MAX_E || a->D > GT_SMEM_FLOATS)
+  if (moe) {  // the kernel routes one token: B = 1; no gemma mode
+    if (GEMMA || mp != 1 || a->topk < 1 || a->topk > MAX_K ||
+        a->n_exp < a->topk || a->n_exp > MAX_E || a->D > GT_SMEM_FLOATS)
       return cudaErrorInvalidValue;
-    return launch<1, FOLDED, true, true, KV>(a, query_only, grid, st);
+    if constexpr (!GEMMA)
+      return launch<1, FOLDED, true, true, false, KV>(a, query_only, grid, st);
   }
   switch (mp) {
-    case 1: return launch<1, FOLDED, true, false, KV>(a, query_only, grid, st);
-    case 2: return launch<2, FOLDED, true, false, KV>(a, query_only, grid, st);
-    case 4: return launch<4, FOLDED, true, false, KV>(a, query_only, grid, st);
-    case 8: return launch<8, FOLDED, true, false, KV>(a, query_only, grid, st);
+    case 1: return launch<1, FOLDED, true, false, GEMMA, KV>(a, query_only, grid, st);
+    case 2: return launch<2, FOLDED, true, false, GEMMA, KV>(a, query_only, grid, st);
+    case 4: return launch<4, FOLDED, true, false, GEMMA, KV>(a, query_only, grid, st);
+    case 8: return launch<8, FOLDED, true, false, GEMMA, KV>(a, query_only, grid, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename KV>
+cudaError_t dispatch_gemma(int mp, int folded, int moe, int gemma,
+                           const DecodeArgs* a, int query_only, int* grid,
+                           cudaStream_t st) {
+  if (gemma)
+    return folded ? dispatch_mp<true, true, KV>(mp, moe, a, query_only, grid, st)
+                  : dispatch_mp<false, true, KV>(mp, moe, a, query_only, grid, st);
+  return folded ? dispatch_mp<true, false, KV>(mp, moe, a, query_only, grid, st)
+                : dispatch_mp<false, false, KV>(mp, moe, a, query_only, grid, st);
 }
 
 }  // namespace
@@ -723,23 +854,26 @@ cudaError_t dispatch_mp(int mp, int moe, const DecodeArgs* a, int query_only,
 // K6.  mp: the slots padded to 1, 2, 4 or 8 (the buffers' row count);
 // folded != 0: every dense projection carries int8 sub-scales and f32
 // super planes; kv_bf16 != 0: the cache is bf16, else f32; moe != 0: the
-// layers' FFN is routed (mp 1).  query_only != 0 sets *grid to the
-// launch's block count and launches nothing.
+// layers' FFN is routed (mp 1); gemma != 0: the gemma instantiation (not
+// with moe).  query_only != 0 sets *grid to the launch's block count and
+// launches nothing.
 LCG_EXPORT int lcg_decode_stream(const DecodeArgs* a, int mp, int folded,
-                                 int kv_bf16, int moe, int query_only,
-                                 int* grid, void* stream) {
+                                 int kv_bf16, int moe, int gemma,
+                                 int query_only, int* grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_bf16)
-    return folded ? dispatch_mp<true, __nv_bfloat16>(mp, moe, a, query_only, grid, st)
-                  : dispatch_mp<false, __nv_bfloat16>(mp, moe, a, query_only, grid, st);
-  return folded ? dispatch_mp<true, float>(mp, moe, a, query_only, grid, st)
-                : dispatch_mp<false, float>(mp, moe, a, query_only, grid, st);
+    return dispatch_gemma<__nv_bfloat16>(mp, folded, moe, gemma, a, query_only, grid, st);
+  return dispatch_gemma<float>(mp, folded, moe, gemma, a, query_only, grid, st);
 }
 
-// K7: B = 1, fused q|k|v, int8 weights with plain scales.
-LCG_EXPORT int lcg_decode_step(const DecodeArgs* a, int kv_bf16,
+// K7: B = 1, fused q|k|v, int8 weights with plain scales; gemma != 0: the
+// gemma instantiation.
+LCG_EXPORT int lcg_decode_step(const DecodeArgs* a, int kv_bf16, int gemma,
                                int query_only, int* grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return kv_bf16 ? launch<1, false, false, false, __nv_bfloat16>(a, query_only, grid, st)
-                 : launch<1, false, false, false, float>(a, query_only, grid, st);
+  if (gemma)
+    return kv_bf16 ? launch<1, false, false, false, true, __nv_bfloat16>(a, query_only, grid, st)
+                   : launch<1, false, false, false, true, float>(a, query_only, grid, st);
+  return kv_bf16 ? launch<1, false, false, false, false, __nv_bfloat16>(a, query_only, grid, st)
+                 : launch<1, false, false, false, false, float>(a, query_only, grid, st);
 }

@@ -140,10 +140,12 @@ class Keys:
         KEY_LENGTH = "{arch}.attention.key_length"
         LAYERNORM_RMS_EPS = "{arch}.attention.layer_norm_rms_epsilon"
         SLIDING_WINDOW = "{arch}.attention.sliding_window"
+        SCALE = "{arch}.attention.scale"
 
     class Rope:
         DIMENSION_COUNT = "{arch}.rope.dimension_count"
         FREQ_BASE = "{arch}.rope.freq_base"
+        LOCAL_FREQ_BASE = "{arch}.rope.local_freq_base"  # gemma3's SWA layers
         SCALING_TYPE = "{arch}.rope.scaling.type"
         SCALING_FACTOR = "{arch}.rope.scaling.factor"
         SCALING_ORIG_CTX_LEN = "{arch}.rope.scaling.original_context_length"

@@ -112,6 +112,7 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+COUNT_SLOTS = 8  # device count slots per library (csrc/common.cuh kCountSlots)
 # name -> the wrapper function whose ``launches`` attribute counts its kernel
 COUNTERS: dict = {}
 # (library, device count slot) -> the count names one launch there adds to
@@ -175,7 +176,7 @@ def device_counts() -> dict:
         so = _libs.get(lib_name)
         if so is None:
             continue
-        vals = (ctypes.c_ulonglong * 4)()
+        vals = (ctypes.c_ulonglong * COUNT_SLOTS)()
         check(so, so.lcg_device_counts(vals), f"{lib_name}: device counts")
         for (l, s), names in _SLOTS.items():
             if l == lib_name:

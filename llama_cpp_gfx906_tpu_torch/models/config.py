@@ -1,14 +1,19 @@
 """Model hyperparameters read from GGUF metadata.
 
-Port of ``llama_cpp_gfx906_tpu/models/config.py`` for arch ``llama``: only
-the fields that ``models/llama.py`` and ``ops/moe.py`` read.  A llama file
-with ``llama.expert_count`` > 0 is an MoE llama (Mixtral); its routing
-fields take the JAX package's llama defaults (renormalised top-k softmax).
+Port of ``llama_cpp_gfx906_tpu/models/config.py`` for archs ``llama`` and
+``gemma3``: only the fields that ``models/llama.py`` and ``ops/moe.py``
+read.  A llama file with ``llama.expert_count`` > 0 is an MoE llama
+(Mixtral); its routing fields take the JAX package's llama defaults
+(renormalised top-k softmax).  ``gemma3`` takes the JAX package's gemma
+branch: gelu-tanh, the embedding scaled by sqrt(D), per-head q/k RMS norms,
+post-attention and post-FFN norms, NEOX rope, and interleaved sliding
+windows (every 6th layer global) whose layers rotate with a local rope
+base, unscaled.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 from ..gguf.constants import Keys, RopeScalingType
 
@@ -40,8 +45,17 @@ class ModelConfig:
     rope_orig_ctx: int = 0
     rope_low_freq_factor: float = 1.0
     rope_high_freq_factor: float = 4.0
-    sliding_window: int = 0  # every layer windowed when > 0 (mistral style)
+    sliding_window: int = 0  # the window of the SWA layers (swa_layers)
+    swa_pattern: int = 1  # every n-th layer is full attention (iSWA); 1: none
     attn_scale: float = 0.0  # 0 -> 1/sqrt(head_dim)
+    # gemma3: SWA layers rotate with this base (rope scaling off); 0: one base
+    rope_local_base: float = 0.0
+    qk_norm: bool = False  # per-head q/k RMS norms before rope
+    post_attn_norm: bool = False  # RMS norm of the attention output
+    post_ffn_norm: bool = False  # RMS norm of the FFN output
+    embedding_scale: float = 1.0  # gemma multiplies the embedding by sqrt(D)
+    act_fn: str = "silu"  # "silu" | "gelu" / "gelu_tanh" (tanh form) | "gelu_erf"
+    attn_logit_softcap: float = 0.0  # gemma2's; the port refuses it (gates)
     n_experts: int = 0  # > 0: every layer's FFN is routed (ops/moe.py)
     n_experts_used: int = 0
     expert_ff: int = 0
@@ -53,11 +67,46 @@ class ModelConfig:
     moe_topk_softmax: bool = False
     moe_scale_input: bool = False
 
+    @property
+    def swa_layers(self) -> tuple[bool, ...]:
+        """Per-layer sliding-window flags (True: windowed), as JAX
+        ``ModelConfig.swa_layers``: with pattern n, layer il is full
+        attention when (il + 1) % n == 0."""
+        if self.sliding_window <= 0:
+            return (False,) * self.n_layers
+        n = max(self.swa_pattern, 1)
+        if n == 1:
+            return (True,) * self.n_layers
+        return tuple((il + 1) % n != 0 for il in range(self.n_layers))
+
+    @property
+    def layer_windows(self) -> tuple[int, ...]:
+        """Each layer's attention window (0: full attention)."""
+        return tuple(self.sliding_window if w else 0 for w in self.swa_layers)
+
+
+def sub_config(cfg: ModelConfig, first: int, n: int) -> ModelConfig:
+    """The config of layers [first, first + n) run as a stack of their own,
+    each layer keeping its SWA flag (its window and rope table): a pattern
+    that starts at layer 0 reproduces their flags, or this raises."""
+    want = cfg.swa_layers[first:first + n]
+    if not any(want):
+        return replace(cfg, n_layers=n, sliding_window=0)
+    for pattern in range(1, n + 2):
+        sub = replace(cfg, n_layers=n, swa_pattern=pattern)
+        if sub.swa_layers == want:
+            return sub
+    raise ValueError(f"layers {first}..{first + n - 1}: no SWA pattern gives {want}")
+
 
 def config_from_gguf(reader) -> ModelConfig:
     arch = reader.architecture
-    if arch != "llama":
-        raise NotImplementedError(f"arch {arch!r}: the port covers 'llama' only")
+    if arch in ("gemma", "gemma2"):
+        raise NotImplementedError(
+            f"arch {arch!r}: Gemma (v1) and Gemma 2 (attention and final-logit "
+            "softcaps) are not ported; the port covers 'llama' and 'gemma3'")
+    if arch not in ("llama", "gemma3"):
+        raise NotImplementedError(f"arch {arch!r}: the port covers 'llama' and 'gemma3'")
 
     def g(key, default=None):
         v = reader.get(key, arch=arch)
@@ -69,7 +118,7 @@ def config_from_gguf(reader) -> ModelConfig:
     n_vocab = g(Keys.LLM.VOCAB_SIZE)
     if n_vocab is None:
         n_vocab = len(reader.get(Keys.Tokenizer.LIST) or [])
-    return ModelConfig(
+    cfg = ModelConfig(
         arch=arch,
         n_layers=int(g(Keys.LLM.BLOCK_COUNT)),
         n_embd=n_embd,
@@ -97,3 +146,11 @@ def config_from_gguf(reader) -> ModelConfig:
         expert_weights_norm=bool(g(Keys.LLM.EXPERT_WEIGHTS_NORM, True)),
         expert_weights_scale=float(g(Keys.LLM.EXPERT_WEIGHTS_SCALE, 1.0)),
     )
+    if arch == "gemma3":  # JAX models/config.py, the gemma branch
+        cfg = replace(
+            cfg, rope_interleaved=False, act_fn="gelu",
+            embedding_scale=float(n_embd) ** 0.5, post_attn_norm=True,
+            post_ffn_norm=True, qk_norm=True, swa_pattern=6,
+            attn_scale=float(g(Keys.Attention.SCALE, 0.0)),
+            rope_local_base=float(g(Keys.Rope.LOCAL_FREQ_BASE, 10000.0)))
+    return cfg

@@ -1,12 +1,17 @@
 """Llama forward pass (port of ``llama_cpp_gfx906_tpu/models/llama.py``,
-llama and MoE-llama branches).
+llama, MoE-llama and gemma3 branches).
 
 Per layer: pre-norm, the fused q|k|v (or q|k + split v) projection, rope,
 attention over the in-place KV cache, the output projection and residual,
 then pre-norm, the fused gate|up projection with SiLU, the down projection
 and residual; an MoE layer (Mixtral) takes the routed FFN
 (``ops/moe.moe_ffn``) in place of the dense one.  The JAX package's ``lax.scan`` over stacked layers becomes a
-Python loop over per-layer parameters (:func:`layers_forward`).
+Python loop over per-layer parameters (:func:`layers_forward`).  A gemma3
+model (JAX's generalized forward with its gemma flags) scales the embedding
+by sqrt(D) before any route, norms q and k per head before rope, rotates
+its SWA layers with the local base, windows only those, norms the
+attention and FFN outputs before their residual adds, and gates with
+gelu-tanh.
 
 Single-token decode on the card goes through one decode kernel for the
 whole stack where the JAX forward sends it to one on its accelerator: K7
@@ -37,7 +42,7 @@ from ..ops.kv_quant import QuantKV
 from ..ops.moe import moe_ffn
 from ..ops.norms import rms_norm
 from ..ops.quant_matmul import QuantTensor, linear
-from ..ops.rope import apply_rope, inv_freq_for
+from ..ops.rope import apply_rope, layer_inv_freqs
 from .config import ModelConfig
 
 
@@ -122,6 +127,29 @@ def decode_route(params, cfg: ModelConfig, kv: KVCache) -> str | None:
     return routes[key]
 
 
+def _act(g: torch.Tensor, act_fn: str) -> torch.Tensor:
+    """The FFN gate's activation in f32, back in g's dtype (JAX ``_act``)."""
+    gf = g.float()
+    if act_fn in ("gelu", "gelu_tanh"):
+        out = F.gelu(gf, approximate="tanh")
+    elif act_fn == "gelu_erf":
+        out = F.gelu(gf)
+    elif act_fn == "silu":
+        out = F.silu(gf)
+    else:
+        raise NotImplementedError(f"act_fn {act_fn!r} is not ported")
+    return out.to(g.dtype)
+
+
+def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedded tokens (B, T, D), scaled (gemma) in f32 and rounded back
+    to the embedding's dtype, as JAX ``forward`` does before any route."""
+    x = params["tok_emb"][tokens]
+    if cfg.embedding_scale != 1.0:
+        x = (x.float() * cfg.embedding_scale).to(x.dtype)
+    return x
+
+
 def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
                    kv: KVCache) -> torch.Tensor:
     """The per-layer loop: x (B, T, D) through every layer; the T new K/V
@@ -129,7 +157,8 @@ def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
     at logical positions n_shared + n_past + t."""
     B, T = x.shape[:2]
     dev = x.device
-    inv_freq = inv_freq_for(cfg, dev)
+    inv_freqs = layer_inv_freqs(cfg, dev)
+    windows = cfg.layer_windows
     positions = (kv.n_shared + kv.n_past.long()[:, None]
                  + torch.arange(T, device=dev)[None, :])
     scale = cfg.attn_scale or cfg.head_dim ** -0.5
@@ -147,17 +176,23 @@ def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
             v = linear(h, p["wv"])
         else:
             q, k, v = (linear(h, p[n]) for n in ("wq", "wk", "wv"))
-        q = apply_rope(q.reshape(B, T, cfg.n_heads, cfg.head_dim), positions,
-                       inv_freq, cfg.rope_interleaved)
-        k = apply_rope(k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim), positions,
-                       inv_freq, cfg.rope_interleaved)
+        q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
+        k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:  # per head, before rope (gemma3)
+            q = rms_norm(q, p["q_norm"], cfg.rms_eps)
+            k = rms_norm(k, p["k_norm"], cfg.rms_eps)
+        q = apply_rope(q, positions, inv_freqs[li], cfg.rope_interleaved)
+        k = apply_rope(k, positions, inv_freqs[li], cfg.rope_interleaved)
         v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
         shared = {}
         if kv.shared_k is not None:
             shared = dict(shared_k=kv.shared_k[li], shared_v=kv.shared_v[li])
         attn, _, _ = mha_with_cache(q, k, v, kv.k[li], kv.v[li], kv.n_past, scale,
-                                    sliding_window=cfg.sliding_window, **shared)
-        x = x + linear(attn.reshape(B, T, Dq), p["wo"])
+                                    sliding_window=windows[li], **shared)
+        attn = linear(attn.reshape(B, T, Dq), p["wo"])
+        if cfg.post_attn_norm:
+            attn = rms_norm(attn, p["post_attn_norm"], cfg.rms_eps)
+        x = x + attn
         h = rms_norm(x, p["ffn_norm"], cfg.rms_eps)
         if "moe_gate_inp" in p:
             x = x + moe_ffn(h, p["moe_gate_inp"], p["moe_gate"], p["moe_up"],
@@ -168,7 +203,10 @@ def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
             g, u = gu[..., : cfg.n_ff], gu[..., cfg.n_ff:]
         else:
             g, u = linear(h, p["w_gate"]), linear(h, p["w_up"])
-        x = x + linear(F.silu(g.float()).to(g.dtype) * u, p["w_down"])
+        mlp = linear(_act(g, cfg.act_fn) * u, p["w_down"])
+        if cfg.post_ffn_norm:
+            mlp = rms_norm(mlp, p["post_ffn_norm"], cfg.rms_eps)
+        x = x + mlp
     return x
 
 
@@ -179,7 +217,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, kv: KVCache,
     Returns (logits (B, T, V) f32, kv) with the cache advanced by T rows;
     ``last_only`` computes the logits of the last position only (B, 1, V)."""
     T = tokens.shape[1]
-    x = params["tok_emb"][tokens]
+    x = embed(params, cfg, tokens)
     route = decode_route(params, cfg, kv) if T == 1 and x.is_cuda else None
     if route == "k7":
         x = fused_decode_step(params, cfg, x, kv)

@@ -2,10 +2,12 @@
 in one launch.
 
 Port of ``llama_cpp_gfx906_tpu/ops/decode_step.py`` for the dense llama
-modes: the gate (:func:`_fused_ok`, B = 1, fused q|k|v, int8 weights with
-plain scales and no mins) and the entry point (:func:`fused_decode_step`)
-with its plain version.  The kernel is the B = 1, int8, plain-scale
-instantiation of ``csrc/decode_stream.cu`` (C entry ``lcg_decode_step``);
+modes and the gemma modes (qk-norm, post-norms, dual rope bases, gelu): the
+gate (:func:`_fused_ok`, B = 1, fused q|k|v, int8 weights with plain scales
+and no mins) and the entry point (:func:`fused_decode_step`) with its plain
+version.  The kernel is the B = 1, int8, plain-scale instantiation of
+``csrc/decode_stream.cu`` (C entry ``lcg_decode_step``; its gemma flag
+picks the gemma instantiation);
 the contract is K6's (``ops/decode_stream.py``).  The JAX kernel pipelines
 whole per-layer blocks through its on-chip memory, so the JAX forward
 sends it only layers of at most 6 MiB; the port keeps that dispatch
@@ -17,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .decode_stream import decode_layers_plain, launch_decode, uniform_layers
+from .decode_stream import (decode_layers_plain, gemma_mode, gemma_ok, launch_decode,
+                            uniform_layers)
 from .quant_matmul import QuantTensor
 from .rope import rope_frequencies
 
@@ -46,6 +49,8 @@ def _fused_ok(params, cfg, kv, B: int, T: int) -> bool:
     p = layers[0]
     if not all(k in p for k in _KEYS + ("attn_norm", "ffn_norm")):
         return False
+    if "moe_gate_inp" in p or not gemma_ok(p, cfg):
+        return False
     if not uniform_layers(layers, _KEYS):
         return False
     if not all(_int8_qt(p[k]) for k in _KEYS):
@@ -61,14 +66,15 @@ def _fused_ok(params, cfg, kv, B: int, T: int) -> bool:
     return p["wgateup_fused"].shape == (D, 2 * F_)
 
 
-@kernels.counted("decode_step", lib="decode_stream", slot=0)
+@kernels.counted("decode_step", lib="decode_stream", slot=5, modes=("gemma",))
 def fused_decode_step(params, cfg, x: torch.Tensor, kv) -> torch.Tensor:
-    """K7: x (B = 1, 1, D) through every layer, the KV updated in place.
-    On the CPU, the plain version."""
+    """K7: x (B = 1, 1, D) through every layer, the KV updated in place; a
+    gemma stack's launch also counts as ``decode_step_gemma``.  On the CPU,
+    the plain version."""
     if x.device.type == "cpu":
         return fused_decode_step_plain(params, cfg, x, kv)
     out = launch_decode(params, cfg, x, kv, k7=True)
-    fused_decode_step.launches += 1
+    kernels.count(fused_decode_step, gemma_mode(cfg))
     return out
 
 

@@ -1,7 +1,7 @@
 """K6: single-token decode through the whole layer stack in one launch.
 
 Port of ``llama_cpp_gfx906_tpu/ops/decode_stream.py`` for the llama modes,
-dense and MoE: the gates (:func:`_stream_ok`, :func:`_moe_stream_ok`), the
+dense and MoE, and the gemma modes (gemma3): the gates (:func:`_stream_ok`, :func:`_moe_stream_ok`), the
 entry point (:func:`fused_decode_step_streamed`) and its plain version
 (:func:`fused_decode_step_streamed_plain`).  The kernel is
 ``csrc/decode_stream.cu`` (see its header for the design); K7
@@ -9,6 +9,10 @@ entry point (:func:`fused_decode_step_streamed`) and its plain version
 entry points share the launch and the plain layer math defined here.
 An MoE layer (Mixtral) routes inside the kernel: router, top-k and the
 reads of only the chosen experts' slices (B = 1, as the JAX kernel).
+The gemma modes (:func:`gemma_mode`) run the kernel's gemma instantiation:
+per-head q/k RMS norms before rope, the rope table of each layer chosen by
+its SWA flag (local base, unscaled, or the global one), the post-attention
+and post-FFN norms before the residual adds, and gelu in the FFN.
 
 Contract (as the JAX kernel): ``x`` (B, 1, D) is the embedded token of each
 of B <= 8 slots; the result is x after every layer (B, 1, D) in x's dtype;
@@ -16,13 +20,14 @@ each slot's new K/V row is written at its ``n_past`` in ``kv`` in place,
 and ``n_past`` is left for the caller to advance.
 
 The gate accepts and rejects what the JAX gate does for the configurations
-the port can express (llama: no qk-norm, post-norms, dual rope bases or
-gelu; those modes are not ported yet and are refused, as is the MoE
-shared expert), with additions that follow from per-layer parameters or
-the kernel's buffers: a projection must have one format, group and
-super-group across all layers, the cache must be bf16 or f32 (the JAX
-kernel's own scope), and an MoE model needs at most 256 experts and a
-model dim of at most 8192 (the router stages h2 in shared memory).
+the port can express (llama and gemma3; the MoE shared expert is not
+ported and is refused), with additions that follow from per-layer
+parameters or the kernel's instantiations: a projection must have one
+format, group and super-group across all layers, the cache must be bf16
+or f32 (the JAX kernel's own scope), an MoE model needs at most 256
+experts and a model dim of at most 8192 (the router stages h2 in shared
+memory), and an MoE stack takes no gemma mode (no such model exists; the
+kernel's MoE instantiations have none).
 """
 
 from __future__ import annotations
@@ -87,6 +92,8 @@ def _layout(qt) -> tuple:
 
 
 EXPERT_KEYS = ("moe_gate", "moe_up", "moe_down")  # stacked experts, K6 order
+# gemma3's per-layer norm vectors, in the plane table's order
+GEMMA_NORMS = ("q_norm", "k_norm", "post_attn_norm", "post_ffn_norm")
 MAX_EXPERTS = 256   # router lanes the kernel takes
 MAX_MOE_D = 8192    # model dim whose h2 the kernel stages for the router
 
@@ -102,16 +109,49 @@ def proj_keys(layer) -> tuple[str, ...]:
 
 
 def uniform_layers(layers, keys) -> bool:
-    """Every layer holds exactly ``keys`` (plus the norms and an MoE
-    layer's router), each projection with one layout across the layers."""
-    extra = {"moe_gate_inp"} if "moe_gate_inp" in layers[0] else set()
+    """Every layer holds exactly ``keys`` (plus the norms, gemma's among
+    them, and an MoE layer's router), each projection with one layout and
+    each extra tensor with one shape across the layers."""
+    extra = {k for k in ("moe_gate_inp",) + GEMMA_NORMS if k in layers[0]}
     want = set(keys) | {"attn_norm", "ffn_norm"} | extra
     if any(set(p.keys()) != want for p in layers):
         return False
-    if extra and len({tuple(p["moe_gate_inp"].shape) for p in layers}) != 1:
+    if any(len({tuple(p[k].shape) for p in layers}) != 1 for k in extra):
         return False
     return all(len({_layout(p[k]) for p in layers}) == 1
                for k in keys if isinstance(layers[0][k], QuantTensor))
+
+
+ACTS = {"silu": 0, "gelu": 1, "gelu_tanh": 1, "gelu_erf": 2}  # the kernel's act
+
+
+def gemma_ok(p, cfg) -> bool:
+    """The gemma clauses of the JAX gates (K7 ``_fused_ok``, K6
+    ``_stream_ok``): per-head q/k norms of shape (Dh,), post-norms only as
+    a pair, an SWA model with a window, no attention softcap, and an
+    activation the kernel has."""
+    if cfg.qk_norm:
+        if not all(k in p and p[k].ndim == 1 and p[k].shape[0] == cfg.head_dim
+                   for k in ("q_norm", "k_norm")):
+            return False
+    elif "q_norm" in p or "k_norm" in p:
+        return False
+    if cfg.post_attn_norm or cfg.post_ffn_norm:
+        if not ("post_attn_norm" in p and "post_ffn_norm" in p
+                and cfg.post_attn_norm and cfg.post_ffn_norm):
+            return False
+    elif "post_attn_norm" in p or "post_ffn_norm" in p:
+        return False
+    if any(cfg.swa_layers) and cfg.sliding_window <= 0:
+        return False
+    return cfg.attn_logit_softcap <= 0 and cfg.act_fn in ACTS
+
+
+def gemma_mode(cfg) -> bool:
+    """Whether a stack runs the kernels' gemma instantiation: any of qk-norm,
+    post-norms, a second rope base or an activation other than SiLU."""
+    return bool(cfg.qk_norm or cfg.post_attn_norm or cfg.rope_local_base > 0
+                or cfg.act_fn != "silu")
 
 
 def _moe_stream_ok(p, cfg) -> bool:
@@ -172,6 +212,8 @@ def _stream_ok(params, cfg, kv, B: int, T: int) -> bool:
     moe = "moe_gate_inp" in p
     if moe and (B != 1 or not _moe_stream_ok(p, cfg)):
         return False  # the kernel routes one token's experts
+    if not gemma_ok(p, cfg) or (moe and gemma_mode(cfg)):
+        return False
     keys = proj_keys(p)
     if not all(k in p for k in keys + ("attn_norm", "ffn_norm")):
         return False
@@ -248,9 +290,10 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * w.float()
 
 
-def _rope_rows(cfg, n_past: torch.Tensor):
-    """Lane-expanded (B, Dh) cos and signed-sin rows at each slot's n_past."""
-    inv = inv_freq_for(cfg, n_past.device)
+def _rope_rows(cfg, n_past: torch.Tensor, local: bool = False):
+    """Lane-expanded (B, Dh) cos and signed-sin rows at each slot's n_past
+    (with ``local``, of the SWA layers' frequencies)."""
+    inv = inv_freq_for(cfg, n_past.device, local)
     ang = n_past.float()[:, None] * inv
     c, s = torch.cos(ang), torch.sin(ang)
     if cfg.rope_interleaved:
@@ -314,12 +357,22 @@ def moe_ffn_plain(h2: torch.Tensor, p, cfg, ids_out: list | None = None) -> torc
     return mlp
 
 
+def _act_plain(g: torch.Tensor, act_fn: str) -> torch.Tensor:
+    """The kernel's FFN activation of f32 g (JAX ``_act_f32``)."""
+    if act_fn == "silu":
+        return F.silu(g)
+    return F.gelu(g, approximate="tanh" if ACTS[act_fn] == 1 else "none")
+
+
 def decode_layers_plain(params, cfg, x: torch.Tensor, kv,
                         ids_out: list | None = None) -> torch.Tensor:
     """The plain version shared by K6 and K7: x (B, 1, D) -> (B, 1, D) in
     x's dtype, the new K/V rows written at n_past in place.  For an MoE
     stack, each layer's chosen expert ids (B, k) are appended to
-    ``ids_out``."""
+    ``ids_out``.  The gemma modes follow the JAX kernels' rounding points:
+    q and k normed per head from the bf16 projection and rounded to bf16
+    before rope; the attention and FFN outputs rounded to bf16, normed and
+    rounded again before their residual adds; bf16(act(g)) * u."""
     layers = params["layers"]
     keys = proj_keys(layers[0])
     split_v = keys[0] == "wqk_fused"
@@ -328,26 +381,33 @@ def decode_layers_plain(params, cfg, x: torch.Tensor, kv,
     G, Dq, HD = Hq // Hkv, Hq * Dh, Hkv * Dh
     S = kv.k.shape[2]
     scale = cfg.attn_scale or Dh ** -0.5
-    window = cfg.sliding_window
     dev = x.device
     n_past = kv.n_past.long()
-    C, Ss = _rope_rows(cfg, kv.n_past)
+    tables = [_rope_rows(cfg, kv.n_past), _rope_rows(cfg, kv.n_past, local=True)]
+    dual = cfg.rope_local_base > 0
     rows = torch.arange(S, device=dev)[None, :]
-    lo = (n_past - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(n_past)
-    live = (rows >= lo[:, None]) & (rows < n_past[:, None])  # (B, S)
     bidx = torch.arange(B, device=dev)
     eps = cfg.rms_eps
+    post = cfg.post_attn_norm
 
     xc = x.reshape(B, D).float()
     for li, p in enumerate(layers):
+        C, Ss = tables[int(dual and cfg.swa_layers[li])]
+        window = cfg.layer_windows[li]
+        lo = (n_past - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(n_past)
+        live = (rows >= lo[:, None]) & (rows < n_past[:, None])  # (B, S)
         h = _bf16r(_rms(xc, p["attn_norm"], eps))
         qkv = qlinear_plain(h, p[keys[0]])
         if split_v:
             qkv = torch.cat([qkv, qlinear_plain(h, p["wv"])], -1)
         qkv = _bf16r(qkv)
-        q = _rotate(qkv[:, :Dq].reshape(B, Hq, Dh), C, Ss, cfg.rope_interleaved)
-        k = _rotate(qkv[:, Dq:Dq + HD].reshape(B, Hkv, Dh), C, Ss,
-                    cfg.rope_interleaved)
+        q = qkv[:, :Dq].reshape(B, Hq, Dh)
+        k = qkv[:, Dq:Dq + HD].reshape(B, Hkv, Dh)
+        if cfg.qk_norm:
+            q = _bf16r(_rms(q, p["q_norm"], eps))
+            k = _bf16r(_rms(k, p["k_norm"], eps))
+        q = _rotate(q, C, Ss, cfg.rope_interleaved)
+        k = _rotate(k, C, Ss, cfg.rope_interleaved)
         v = qkv[:, Dq + HD:].reshape(B, Hkv, Dh)
         qb = _bf16r(q).reshape(B, Hkv, G, Dh)
         kb = _bf16r(k)
@@ -367,8 +427,10 @@ def decode_layers_plain(params, cfg, x: torch.Tensor, kv,
         kc[bidx, row] = torch.where(ins, k.to(kc.dtype), kc[bidx, row])
         vc[bidx, row] = torch.where(ins, v.to(vc.dtype), vc[bidx, row])
 
-        attn = qlinear_plain(_bf16r(o.reshape(B, Dq)), p["wo"])
-        xc = _bf16r(_bf16r(xc) + _bf16r(attn))
+        attn = _bf16r(qlinear_plain(_bf16r(o.reshape(B, Dq)), p["wo"]))
+        if post:
+            attn = _bf16r(_rms(attn, p["post_attn_norm"], eps))
+        xc = _bf16r(_bf16r(xc) + attn)
         if "moe_gate_inp" in p:
             mlp = moe_ffn_plain(_rms(xc, p["ffn_norm"], eps), p, cfg, ids_out)
             xc = _bf16r(_bf16r(xc) + _bf16r(mlp))
@@ -376,8 +438,11 @@ def decode_layers_plain(params, cfg, x: torch.Tensor, kv,
         h2 = _bf16r(_rms(xc, p["ffn_norm"], eps))
         gu = qlinear_plain(h2, p["wgateup_fused"])
         g, u = _bf16r(gu[:, :F_]), _bf16r(gu[:, F_:])
-        y = _bf16r(_bf16r(F.silu(g)) * u)
-        xc = _bf16r(_bf16r(xc) + _bf16r(qlinear_plain(y, p["w_down"])))
+        y = _bf16r(_bf16r(_act_plain(g, cfg.act_fn)) * u)
+        mlp = _bf16r(qlinear_plain(y, p["w_down"]))
+        if post:
+            mlp = _bf16r(_rms(mlp, p["post_ffn_norm"], eps))
+        xc = _bf16r(_bf16r(xc) + mlp)
     return xc.to(x.dtype).reshape(B, 1, D)
 
 
@@ -388,7 +453,7 @@ def decode_layers_plain(params, cfg, x: torch.Tensor, kv,
 MAX_G = 16          # query heads per KV head the kernel takes
 MAX_QDIM = 4096     # G * Dh
 MAX_SPLIT = 32      # key-range splits per (slot, KV head)
-TABLE_W = 44        # int64 words per layer in the plane table
+TABLE_W = 49        # int64 words per layer in the plane table
 NPROJ = 8           # q|k|v, v, o, gate|up, down, expert gate, up, down
 
 
@@ -401,14 +466,14 @@ class DecodeArgs(ctypes.Structure):
     """Mirrors ``DecodeArgs`` in ``csrc/decode_stream.cu``."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "table", "kc", "vc", "n_past", "inv_freq", "x0", "xin", "xmid",
-        "xout", "qkv_acc", "o_acc", "gu_acc", "dn_acc", "obuf", "part",
+        "table", "kc", "vc", "n_past", "inv_freq", "inv_freq_local", "x0",
+        "xin", "xmid", "xout", "qkv_acc", "o_acc", "gu_acc", "dn_acc", "obuf", "part",
         "selfs", "bar", "eids")]
         + [("proj", ProjDims * NPROJ)]
         + [(n, ctypes.c_int) for n in (
             "L", "B", "D", "Hq", "Hkv", "Dh", "F", "S", "nsplit", "split_v",
             "interleaved", "gu_len", "n_exp", "topk", "gating_sigmoid",
-            "wnorm")]
+            "wnorm", "has_qk", "has_post", "act")]
         + [(n, ctypes.c_float) for n in ("scale", "eps", "wscale")])
 
 
@@ -445,26 +510,27 @@ def _so():
         so.lcg_decode_stream.restype = ctypes.c_int
         so.lcg_decode_stream.argtypes = [
             ctypes.POINTER(DecodeArgs), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
         so.lcg_decode_step.restype = ctypes.c_int
         so.lcg_decode_step.argtypes = [
-            ctypes.POINTER(DecodeArgs), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(DecodeArgs), ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     return so
 
 
 def _call(so, k7: bool, args, mp: int, folded: bool, kv_bf16: bool,
-          moe: bool, query_only: bool, dev) -> int:
+          moe: bool, gemma: bool, query_only: bool, dev) -> int:
     grid = ctypes.c_int(0)
     if k7:
-        err = so.lcg_decode_step(ctypes.byref(args), int(kv_bf16),
+        err = so.lcg_decode_step(ctypes.byref(args), int(kv_bf16), int(gemma),
                                  int(query_only), ctypes.byref(grid),
                                  kernels.stream(dev))
     else:
         err = so.lcg_decode_stream(ctypes.byref(args), mp, int(folded),
-                                   int(kv_bf16), int(moe), int(query_only),
-                                   ctypes.byref(grid), kernels.stream(dev))
+                                   int(kv_bf16), int(moe), int(gemma),
+                                   int(query_only), ctypes.byref(grid),
+                                   kernels.stream(dev))
     kernels.check(so, err, "decode_step" if k7 else "decode_stream")
     return grid.value
 
@@ -502,7 +568,9 @@ def launch_decode(params, cfg, x: torch.Tensor, kv, k7: bool) -> torch.Tensor:
     args = DecodeArgs()
     for name, t in (("table", layer_table(params, cfg)), ("kc", kv.k),
                     ("vc", kv.v), ("n_past", kv.n_past),
-                    ("inv_freq", inv_freq_for(cfg, dev)), ("x0", ws.x0),
+                    ("inv_freq", inv_freq_for(cfg, dev)),
+                    ("inv_freq_local", inv_freq_for(cfg, dev, local=True)),
+                    ("x0", ws.x0),
                     ("xin", ws.xin), ("xmid", ws.xmid), ("xout", ws.xout),
                     ("qkv_acc", ws.qkv_acc), ("o_acc", ws.o_acc),
                     ("gu_acc", ws.gu_acc), ("dn_acc", ws.dn_acc),
@@ -526,19 +594,24 @@ def launch_decode(params, cfg, x: torch.Tensor, kv, k7: bool) -> torch.Tensor:
         args.gating_sigmoid = int(cfg.expert_gating_func == 2)
         args.wnorm = int(cfg.expert_weights_norm)
         args.wscale = float(cfg.expert_weights_scale)
+    gemma = gemma_mode(cfg)
+    if gemma and moe:
+        raise ValueError("decode kernel: an MoE stack takes no gemma mode")
+    args.has_qk, args.has_post = int(cfg.qk_norm), int(cfg.post_attn_norm)
+    args.act = ACTS[cfg.act_fn]
 
     so = _so()
     kv_bf16 = kv.k.dtype == torch.bfloat16
-    gkey = (k7, mp, folded, kv_bf16, moe)
+    gkey = (k7, mp, folded, kv_bf16, moe, gemma)
     grids = params.__dict__.setdefault("_decode_grids", {})
     if gkey not in grids:
-        grids[gkey] = _call(so, k7, args, mp, folded, kv_bf16, moe, True, dev)
+        grids[gkey] = _call(so, k7, args, mp, folded, kv_bf16, moe, gemma, True, dev)
     args.nsplit = max(1, min(MAX_SPLIT, grids[gkey] // (B * Hkv)))
     if kv.n_past.dtype != torch.int32 or kv.n_past.device != dev:
         raise ValueError("decode kernel: n_past must be int32 on the card")
     ws.x0[:B].copy_(x.reshape(B, D))
     ws.acc.zero_()
-    _call(so, k7, args, mp, folded, kv_bf16, moe, False, dev)
+    _call(so, k7, args, mp, folded, kv_bf16, moe, gemma, False, dev)
     return ws.xout[:B].to(x.dtype, copy=True).reshape(B, 1, D)
 
 
@@ -549,15 +622,17 @@ def last_expert_ids(params, kv) -> torch.Tensor:
     return ws.eids.clone()
 
 
-@kernels.counted("decode_stream", lib="decode_stream", slot=1, modes=("moe",))
+@kernels.counted("decode_stream", lib="decode_stream", slot=1, modes=("moe", "gemma"))
 def fused_decode_step_streamed(params, cfg, x: torch.Tensor, kv) -> torch.Tensor:
     """K6: x (B, 1, D) through every layer, the KV updated in place (see the
     module docstring); an MoE stack's launch also counts as
-    ``decode_stream_moe``.  On the CPU, the plain version."""
+    ``decode_stream_moe``, a gemma one as ``decode_stream_gemma``.  On the
+    CPU, the plain version."""
     if x.device.type == "cpu":
         return fused_decode_step_streamed_plain(params, cfg, x, kv)
     out = launch_decode(params, cfg, x, kv, k7=False)
-    kernels.count(fused_decode_step_streamed, "moe_gate_inp" in params["layers"][0])
+    kernels.count(fused_decode_step_streamed, "moe_gate_inp" in params["layers"][0],
+                  gemma_mode(cfg))
     return out
 
 

@@ -1,11 +1,14 @@
 """Rotary position embeddings (port of ``llama_cpp_gfx906_tpu/ops/rope.py``):
 ggml NORM mode (interleaved pairs) and NEOX mode (half split), with linear
-and llama-3 style frequency scaling.  Plain tensor code: elementwise work
-that PyTorch runs as it is.
+and llama-3 style frequency scaling.  A gemma3 model rotates its SWA layers
+with a local base and rope scaling off, its global layers with the (scaled)
+global base (JAX ``models/llama.py`` ``forward``): :func:`layer_inv_freqs`.
+Plain tensor code: elementwise work that PyTorch runs as it is.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -38,18 +41,36 @@ def rope_frequencies(cfg: ModelConfig) -> np.ndarray:
     return inv_freq.astype(np.float32)
 
 
+def local_rope_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config whose frequencies the SWA layers of a dual-base model
+    (``rope_local_base`` > 0) rotate with: the local base, no scaling; the
+    model's own config otherwise."""
+    if cfg.rope_local_base <= 0:
+        return cfg
+    return dataclasses.replace(cfg, rope_base=cfg.rope_local_base,
+                               rope_scaling=RopeScalingType.NONE)
+
+
 _INV_FREQ: dict = {}
 
 
-def inv_freq_for(cfg: ModelConfig, device) -> torch.Tensor:
-    """:func:`rope_frequencies` as a tensor on ``device``, copied there once
-    per (cfg, device) and reused by every forward (a step then has no
-    host-to-device copy and can be captured in a CUDA graph)."""
-    key = (cfg, torch.device(device))
+def inv_freq_for(cfg: ModelConfig, device, local: bool = False) -> torch.Tensor:
+    """:func:`rope_frequencies` as a tensor on ``device`` (of
+    :func:`local_rope_cfg` with ``local``), copied there once per (cfg,
+    device) and reused by every forward (a step then has no host-to-device
+    copy and can be captured in a CUDA graph)."""
+    key = (local_rope_cfg(cfg) if local else cfg, torch.device(device))
     t = _INV_FREQ.get(key)
     if t is None:
-        t = _INV_FREQ[key] = torch.from_numpy(rope_frequencies(cfg)).to(device)
+        t = _INV_FREQ[key] = torch.from_numpy(rope_frequencies(key[0])).to(device)
     return t
+
+
+def layer_inv_freqs(cfg: ModelConfig, device) -> list[torch.Tensor]:
+    """Each layer's inverse frequencies: the local ones on an SWA layer of a
+    dual-base model, the global ones elsewhere."""
+    dual = cfg.rope_local_base > 0
+    return [inv_freq_for(cfg, device, local=dual and swa) for swa in cfg.swa_layers]
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,

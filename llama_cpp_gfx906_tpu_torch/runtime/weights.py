@@ -9,7 +9,10 @@ or :class:`QuantTensor` modules whose planes are byte-identical to the JAX
 package's per-layer slices.  An MoE layer (Mixtral) holds the router
 ``moe_gate_inp`` (D, E) f32 and the stacked experts ``moe_gate``,
 ``moe_up`` (E, D, EF) and ``moe_down`` (E, EF, D) in place of the dense
-FFN.
+FFN.  A gemma3 layer adds the f32 vectors ``q_norm``, ``k_norm`` (Dh,),
+``post_attn_norm`` and ``post_ffn_norm`` (D,); a file without
+``output.weight`` ties the head: ``lm_head`` is ``tok_emb.T`` in the compute
+dtype, as the JAX loader makes it.
 """
 
 from __future__ import annotations
@@ -41,7 +44,11 @@ _LAYER_NAMES = {
     "wk": "attn_k.weight",
     "wv": "attn_v.weight",
     "wo": "attn_output.weight",
+    "q_norm": "attn_q_norm.weight",
+    "k_norm": "attn_k_norm.weight",
+    "post_attn_norm": "post_attention_norm.weight",
     "ffn_norm": "ffn_norm.weight",
+    "post_ffn_norm": "post_ffw_norm.weight",
     "w_gate": "ffn_gate.weight",
     "w_up": "ffn_up.weight",
     "w_down": "ffn_down.weight",
@@ -120,11 +127,12 @@ def load_llama_params(reader, cfg: ModelConfig, dtype=torch.bfloat16,
                       device="cpu") -> ParamDict:
     """Dense load: every tensor dequantized to ``dtype`` (norms stay f32)."""
     t = reader.tensors
+    emb = _dense(t[EMBD], dtype, device)
     params = ParamDict({
-        "tok_emb": _dense(t[EMBD], dtype, device),
+        "tok_emb": emb,
         "out_norm": _dense(t[OUT_NORM], torch.float32, device),
         "lm_head": (_dense(t[OUTPUT], dtype, device, transpose=True)
-                    if OUTPUT in t else _dense(t[EMBD], dtype, device, True)),
+                    if OUTPUT in t else emb.T.contiguous()),
     })
     layers = []
     for infos in _layer_infos(t, cfg):
@@ -172,8 +180,10 @@ def load_llama_params_quantized(reader, cfg: ModelConfig, dtype=torch.bfloat16,
         if qt.N >= 8192 and qt.N % 2048:
             qt = pad_qt_n(qt)
         params["lm_head"] = qt
-    else:
-        params["lm_head"] = _dense(t.get(OUTPUT, t[EMBD]), dtype, device, True)
+    elif OUTPUT in t:
+        params["lm_head"] = _dense(t[OUTPUT], dtype, device, True)
+    else:  # tied: the embedding's values (decoded once), transposed
+        params["lm_head"] = params["tok_emb"].T.contiguous()
 
     names = _layer_infos(t, cfg)
     # one fold decision per model, over the 2-D projections only (stacked
@@ -264,15 +274,26 @@ def _router_rows(p) -> torch.Tensor:
     return gi if Ep == E else torch.nn.functional.pad(gi, (0, Ep - E)).contiguous()
 
 
+def _norm_vec(p, n: str):
+    """Layer p's f32 norm vector ``n``, or None where the layer has none."""
+    if n not in p:
+        return None
+    if p[n].dtype != torch.float32:
+        raise ValueError(f"decode table: {n} must be float32")
+    return p[n]
+
+
 def layer_table(params: ParamDict, cfg: ModelConfig) -> torch.Tensor:
     """The decode kernels' (K6, K7) view of the layer stack: an int64 device
-    table (L, 44) of, per layer, the addresses of the q, s, m, sd, md planes
+    table (L, 49) of, per layer, the addresses of the q, s, m, sd, md planes
     of the projections q|k|v (or q|k), v (split-v only), o, gate|up and down
     (0 where a plane is absent), then the attn_norm and ffn_norm vectors and
-    the layer's sliding window; an MoE layer adds its router (D, Ep) f32
-    and, for the stacked experts gate, up and down, the q, s, m base
-    addresses and the byte strides of one expert's q and s (m) planes, so
-    expert e lies at base + e * stride (0 for a dense layer).  The JAX
+    the layer's sliding window (0 on a global layer); an MoE layer adds its
+    router (D, Ep) f32 and, for the stacked experts gate, up and down, the
+    q, s, m base addresses and the byte strides of one expert's q and s (m)
+    planes, so expert e lies at base + e * stride (0 for a dense layer);
+    last, the addresses of the gemma norms q_norm, k_norm, post_attn_norm
+    and post_ffn_norm (0 where absent) and the layer's SWA flag.  The JAX
     package stacks the layers instead; the port builds this once, holds it
     with the params (whose tensors it points into) and reuses it every
     step.  Planes must be contiguous, 16-byte aligned and on one device;
@@ -280,7 +301,7 @@ def layer_table(params: ParamDict, cfg: ModelConfig) -> torch.Tensor:
     cached = params.__dict__.get("_layer_table")
     if cached is not None:
         return cached
-    from ..ops.decode_stream import EXPERT_KEYS, proj_keys
+    from ..ops.decode_stream import EXPERT_KEYS, GEMMA_NORMS, proj_keys
 
     layers = params["layers"]
     keys = proj_keys(layers[0])
@@ -299,17 +320,15 @@ def layer_table(params: ParamDict, cfg: ModelConfig) -> torch.Tensor:
         return t.data_ptr()
 
     rows = []
-    for p in layers:
+    for li, p in enumerate(layers):
         row = []
         for k in slots:
             qt = p[k] if k else None
             row += [addr(getattr(qt, n) if qt else None, 16)
                     for n in ("q", "s", "m", "sd", "md")]
         for n in ("attn_norm", "ffn_norm"):
-            if p[n].dtype != torch.float32:
-                raise ValueError(f"decode table: {n} must be float32")
-            row.append(addr(p[n], 4))
-        row.append(cfg.sliding_window)
+            row.append(addr(_norm_vec(p, n), 4))
+        row.append(cfg.layer_windows[li])
         if "moe_gate_inp" in p:
             routers.append(_router_rows(p))
             row.append(addr(routers[-1], 16))
@@ -319,6 +338,8 @@ def layer_table(params: ParamDict, cfg: ModelConfig) -> torch.Tensor:
                 row += [qt.q[0].nbytes, qt.s[0].nbytes]
         else:
             row += [0] * 16
+        row += [addr(_norm_vec(p, n), 4) for n in GEMMA_NORMS]
+        row.append(int(cfg.swa_layers[li]))
         rows.append(row)
     table = torch.tensor(rows, dtype=torch.int64).to(dev)
     params.__dict__["_layer_table"] = table

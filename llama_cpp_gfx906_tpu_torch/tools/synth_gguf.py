@@ -1,4 +1,4 @@
-"""Write a structurally valid synthetic llama GGUF at a chosen scale.
+"""Write a structurally valid synthetic llama or gemma3 GGUF at a chosen scale.
 
 For loading and timing the engine where no real checkpoint is at hand:
 block payloads are valid (finite f16 scales, random quants), so the engine
@@ -28,6 +28,26 @@ projections K6's chunk grid takes) whose expert FF (768) the loader pads to
 every expert's rows are drawn from a seed that holds its index, so no two
 experts are alike.
 
+The gemma3 presets write arch ``gemma3`` with the keys and tensors
+llama.cpp's converter writes for it: per-layer ``attn_q_norm``,
+``attn_k_norm`` (Dh), ``post_attention_norm`` and ``post_ffw_norm`` (D)
+beside the llama tensors, norm weights that already carry Gemma's +1, no
+``output.weight`` (the head is tied to ``token_embd``), rms eps 1e-6, rope
+theta 1e6 with a local base of 10000 for the SWA layers, and a chat template
+with Gemma's turn markers (two control tokens).  Every norm vector is drawn
+per layer as 1 + 0.1 N(0, 1), so a swapped or missing norm shows.
+- ``gemma3-4b-q4_k_m``: the widths of Google's ``google/gemma-3-4b-it``
+  ``text_config`` (hidden 2560, intermediate 10240, 34 layers, 8 / 4
+  heads of 256, sliding window 1024, linear rope scaling 8 on the global
+  layers, vocab 262208): Q4_K projections, Q6_K ``attn_v`` and
+  ``token_embd``;
+- ``gemma3-270m-q8_0``: ``google/gemma-3-270m`` (hidden 640, intermediate
+  2048, 18 layers, 4 / 1 heads of 256, window 512, no scaling, vocab
+  262144), Q8_0 everywhere, ``token_embd`` included;
+- ``tiny-gemma3`` (Q4_K_M as the 4B, the narrowest width whose nib4c
+  projections K6's chunk grid takes) and ``tiny-gemma3-q8_0``: 6 layers
+  (one global), window 16, for the tests.
+
 Usage:
     python -m llama_cpp_gfx906_tpu_torch.tools.synth_gguf out.gguf [--preset 8b] [--seed 0]
 """
@@ -55,11 +75,24 @@ PRESETS = {
     "mixtral-q8_0": (32, 4096, 32, 8, 128, 14336, 32000, "q8_0"),
     "tiny-moe": (2, 512, 4, 1, 128, 768, 512, "q4_k_m"),
     "tiny-moe-q8_0": (2, 512, 4, 1, 128, 768, 512, "q8_0"),
+    # gemma3
+    "gemma3-4b-q4_k_m": (34, 2560, 8, 4, 256, 10240, 262208, "q4_k_m"),
+    "gemma3-270m-q8_0": (18, 640, 4, 1, 256, 2048, 262144, "q8_0"),
+    "tiny-gemma3": (6, 512, 2, 1, 256, 1024, 2048, "q4_k_m"),
+    "tiny-gemma3-q8_0": (6, 512, 2, 1, 256, 1024, 2048, "q8_0"),
 }
 # (experts, experts per token, rope theta) of the MoE presets
 EXPERTS = {"mixtral-q4_k_m": (8, 2, 1e6), "mixtral-q8_0": (8, 2, 1e6),
            "tiny-moe": (4, 2, 1e6), "tiny-moe-q8_0": (4, 2, 1e6)}
+# gemma3 presets: (sliding window, linear rope scaling factor of the global
+# layers or None, training context)
+GEMMA3 = {"gemma3-4b-q4_k_m": (1024, 8.0, 131072), "gemma3-270m-q8_0": (512, None, 32768),
+          "tiny-gemma3": (16, 8.0, 8192), "tiny-gemma3-q8_0": (16, None, 8192)}
+GEMMA_TEMPLATE = ("{{ bos_token }}{% for m in messages %}<start_of_turn>{{ m['role'] }}\n"
+                  "{{ m['content'] }}<end_of_turn>\n{% endfor %}"
+                  "{% if add_generation_prompt %}<start_of_turn>model\n{% endif %}")
 DISTINCT_ROWS = 64
+EMBD_DISTINCT_ROWS = 4096
 
 
 def _tile(rows: np.ndarray, n_rows: int) -> np.ndarray:
@@ -76,11 +109,11 @@ def _f16_bytes(v: float) -> np.ndarray:
 # against its plain version through a full-depth stack.
 
 
-def q4k_rows(rng, n_rows: int, K: int) -> np.ndarray:
+def q4k_rows(rng, n_rows: int, K: int, distinct: int = DISTINCT_ROWS) -> np.ndarray:
     """(n_rows, K/256*144) valid Q4_K block bytes: each sub-block's 6-bit
     min equals its scale v and dmin = 7.5 d, so w = d v (q - 7.5)."""
     nb = K // 256
-    n = min(n_rows, DISTINCT_ROWS)
+    n = min(n_rows, distinct)
     d = 1.0 / (36.8 * 4.61 * np.sqrt(K))  # rms of v in 1..63, of q in 0..15
     v = rng.integers(1, 64, (n, nb, 8), dtype=np.uint8)
     lo, hi = v[..., :4], v[..., 4:]
@@ -95,10 +128,10 @@ def q4k_rows(rng, n_rows: int, K: int) -> np.ndarray:
     return _tile(blk.reshape(n, nb * 144), n_rows)
 
 
-def q6k_rows(rng, n_rows: int, K: int) -> np.ndarray:
+def q6k_rows(rng, n_rows: int, K: int, distinct: int = DISTINCT_ROWS) -> np.ndarray:
     """(n_rows, K/256*210) valid Q6_K block bytes."""
     nb = K // 256
-    n = min(n_rows, DISTINCT_ROWS)
+    n = min(n_rows, distinct)
     blk = np.zeros((n, nb, 210), np.uint8)
     blk[:, :, :192] = rng.integers(0, 256, (n, nb, 192), dtype=np.uint8)
     blk[:, :, 192:208] = rng.integers(1, 32, (n, nb, 16), dtype=np.uint8)
@@ -107,10 +140,10 @@ def q6k_rows(rng, n_rows: int, K: int) -> np.ndarray:
     return _tile(blk.reshape(n, nb * 210), n_rows)
 
 
-def q8_0_rows(rng, n_rows: int, K: int) -> np.ndarray:
+def q8_0_rows(rng, n_rows: int, K: int, distinct: int = DISTINCT_ROWS) -> np.ndarray:
     """(n_rows, K/32*34) valid Q8_0 block bytes."""
     nb = K // 32
-    n = min(n_rows, DISTINCT_ROWS)
+    n = min(n_rows, distinct)
     blk = np.zeros((n, nb, 34), np.uint8)
     blk[:, :, 0:2] = _f16_bytes(1.0 / (73.6 * np.sqrt(K)))  # rms of -127..127
     blk[:, :, 2:] = rng.integers(-127, 128, (n, nb, 32)).astype(np.int8).view(np.uint8)
@@ -128,38 +161,55 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
     L, V = n_layers or L, n_vocab or V
     q8 = mix == "q8_0"
     E, K_USED, rope_base = EXPERTS.get(preset, (0, 0, 500000.0))
+    gemma = preset in GEMMA3
+    arch = "gemma3" if gemma else "llama"
     rng = np.random.default_rng(seed)
-    w = GGUFWriter(path, "llama")
+    w = GGUFWriter(path, arch)
     w.add_string("general.name", f"synth-{preset}" + ("" if q8 else "-q4km"))
-    w.add_uint32("llama.block_count", L)
-    w.add_uint32("llama.embedding_length", D)
-    w.add_uint32("llama.attention.head_count", H)
-    w.add_uint32("llama.attention.head_count_kv", KVH)
-    w.add_uint32("llama.attention.key_length", DH)
-    w.add_uint32("llama.attention.value_length", DH)
-    w.add_uint32("llama.feed_forward_length", F)
-    w.add_uint32("llama.context_length", 8192)
-    w.add_float32("llama.attention.layer_norm_rms_epsilon", 1e-5)
-    w.add_float32("llama.rope.freq_base", rope_base)
+    w.add_uint32(f"{arch}.block_count", L)
+    w.add_uint32(f"{arch}.embedding_length", D)
+    w.add_uint32(f"{arch}.attention.head_count", H)
+    w.add_uint32(f"{arch}.attention.head_count_kv", KVH)
+    w.add_uint32(f"{arch}.attention.key_length", DH)
+    w.add_uint32(f"{arch}.attention.value_length", DH)
+    w.add_uint32(f"{arch}.feed_forward_length", F)
+    if gemma:
+        window, scaling, n_ctx = GEMMA3[preset]
+        w.add_uint32("gemma3.context_length", n_ctx)
+        w.add_float32("gemma3.attention.layer_norm_rms_epsilon", 1e-6)
+        w.add_float32("gemma3.rope.freq_base", 1e6)
+        w.add_float32("gemma3.rope.local_freq_base", 10000.0)
+        w.add_uint32("gemma3.attention.sliding_window", window)
+        if scaling:
+            w.add_string("gemma3.rope.scaling.type", "linear")
+            w.add_float32("gemma3.rope.scaling.factor", scaling)
+    else:
+        w.add_uint32("llama.context_length", 8192)
+        w.add_float32("llama.attention.layer_norm_rms_epsilon", 1e-5)
+        w.add_float32("llama.rope.freq_base", rope_base)
     if E:
         w.add_uint32("llama.expert_count", E)
         w.add_uint32("llama.expert_used_count", K_USED)
-    w.add_uint32("llama.vocab_size", V)
+    w.add_uint32(f"{arch}.vocab_size", V)
     w.add_string("tokenizer.ggml.model", "llama")
     tokens = ["<s>", "</s>", "<unk>"] + [f"<0x{b:02X}>" for b in range(256)]
     tokens += [f"tok{i}" for i in range(V - len(tokens))]
+    types = [3, 3, 2] + [6] * 256 + [1] * (V - 259)
+    if gemma:  # the turn markers, as control tokens at the vocab's end
+        tokens[-2:] = ["<start_of_turn>", "<end_of_turn>"]
+        types[-2:] = [3, 3]
+        w.add_string("tokenizer.chat_template", GEMMA_TEMPLATE)
     w.add_array("tokenizer.ggml.tokens", tokens)
     w.add_array("tokenizer.ggml.scores", np.zeros(V, np.float32))
-    w.add_array("tokenizer.ggml.token_type", np.asarray(
-        [3, 3, 2] + [6] * 256 + [1] * (V - 259), np.int32))
+    w.add_array("tokenizer.ggml.token_type", np.asarray(types, np.int32))
     w.add_uint32("tokenizer.ggml.bos_token_id", 0)
     w.add_uint32("tokenizer.ggml.eos_token_id", 1)
 
     proj, side = ((GGMLType.Q8_0, GGMLType.Q8_0) if q8
                   else (GGMLType.Q4_K, GGMLType.Q6_K))
 
-    def add_q(name, out_dim, in_dim, qtype=proj):
-        rows = _ROWS[qtype](rng, out_dim, in_dim)
+    def add_q(name, out_dim, in_dim, qtype=proj, distinct=DISTINCT_ROWS):
+        rows = _ROWS[qtype](rng, out_dim, in_dim, distinct)
         w.add_tensor(name, rows.reshape(-1), ggml_type=qtype,
                      raw_ne=(in_dim, out_dim))
 
@@ -169,14 +219,27 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
         w.add_tensor(name, rows.reshape(-1), ggml_type=proj,
                      raw_ne=(in_dim, out_dim, E))
 
-    emb = (rng.standard_normal((min(V, DISTINCT_ROWS), D)) * 0.02).astype(np.float16)
-    w.add_tensor("token_embd.weight", _tile(emb, V).view(np.uint8).reshape(-1),
-                 ggml_type=GGMLType.F16, raw_ne=(D, V))
+    def norm(n):  # gemma: 1 + 0.1 N(0, 1) per layer; llama: ones
+        return ((1 + 0.1 * rng.standard_normal(n)) if gemma else np.ones(n)).astype(np.float32)
+
+    if gemma:  # tied head: token_embd is the output, in the side type; its
+        # rows are the logits' too, so more of them differ (up to 4096)
+        add_q("token_embd.weight", V, D, side, distinct=EMBD_DISTINCT_ROWS)
+    else:
+        emb = (rng.standard_normal((min(V, DISTINCT_ROWS), D)) * 0.02).astype(np.float16)
+        w.add_tensor("token_embd.weight", _tile(emb, V).view(np.uint8).reshape(-1),
+                     ggml_type=GGMLType.F16, raw_ne=(D, V))
     w.add_tensor("output_norm.weight", np.ones(D, np.float32))
-    add_q("output.weight", V, D, side)
+    if not gemma:
+        add_q("output.weight", V, D, side)
     for i in range(L):
-        w.add_tensor(f"blk.{i}.attn_norm.weight", np.ones(D, np.float32))
-        w.add_tensor(f"blk.{i}.ffn_norm.weight", np.ones(D, np.float32))
+        w.add_tensor(f"blk.{i}.attn_norm.weight", norm(D))
+        w.add_tensor(f"blk.{i}.ffn_norm.weight", norm(D))
+        if gemma:
+            w.add_tensor(f"blk.{i}.attn_q_norm.weight", norm(DH))
+            w.add_tensor(f"blk.{i}.attn_k_norm.weight", norm(DH))
+            w.add_tensor(f"blk.{i}.post_attention_norm.weight", norm(D))
+            w.add_tensor(f"blk.{i}.post_ffw_norm.weight", norm(D))
         add_q(f"blk.{i}.attn_q.weight", H * DH, D)
         add_q(f"blk.{i}.attn_k.weight", KVH * DH, D)
         add_q(f"blk.{i}.attn_v.weight", KVH * DH, D, side)

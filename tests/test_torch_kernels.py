@@ -294,7 +294,8 @@ def _decode_logits(eng, tok, layers_fn):
 
     p, cfg = eng.params, eng.cfg
     with torch.inference_mode():
-        x = layers_fn(p, cfg, p["tok_emb"][torch.tensor([[tok]], device=eng.device)], eng.kv)
+        x = layers_fn(p, cfg, tllama.embed(p, cfg, torch.tensor([[tok]], device=eng.device)),
+                      eng.kv)
         logits = tq.linear(rms_norm(x, p["out_norm"], cfg.rms_eps), p["lm_head"])
     eng.set_n_past(eng.n_past + 1)
     return logits.float()[0, -1].cpu().numpy()
@@ -582,3 +583,109 @@ def test_engine_moe_routes_match_cpu(cuda_device, tmp_path, monkeypatch, preset)
     torch.cuda.synchronize()
     ran = {k: v - before[k] for k, v in kernels.device_counts().items()}
     assert (ran["decode_stream_moe"], ran["gemv_int8"], ran["rqmm_int8"]) == (5, 5, 0)
+
+
+# ---------------------------------------------------------------------------
+# gemma3: the gemma modes of K6 and K7
+# ---------------------------------------------------------------------------
+
+
+def _gemma_engine(tmp_path, preset, dev, n_layers=None, max_seq=256):
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+
+    path = write_synth(str(tmp_path / f"{preset}.gguf"), preset, seed=0,
+                       n_layers=n_layers, n_vocab=512 if n_layers else None)
+    return Engine.from_gguf(path, max_seq=max_seq, device=dev)
+
+
+def _sub_stack(params, cfg, first, n):
+    from llama_cpp_gfx906_tpu_torch.models.config import sub_config
+
+    sub = ParamDict({"layers": torch.nn.ModuleList(list(params["layers"])[first:first + n])})
+    return sub, sub_config(cfg, first, n)
+
+
+@pytest.mark.parametrize("preset,n_layers,route,n_past", [
+    ("tiny-gemma3", None, "k6", (40,)),
+    ("tiny-gemma3", None, "k6", (5, 40, 200, 17)),
+    ("tiny-gemma3-q8_0", None, "k7", (40,)),
+    ("gemma3-4b-q4_k_m", 6, "k6", (3000,)),
+    ("gemma3-4b-q4_k_m", 6, "k6", (700, 3000, 5, 1500)),
+    ("gemma3-270m-q8_0", 6, "k7", (700,))])
+def test_gemma_decode_kernels_match_plain(cuda_device, tmp_path, preset, n_layers, route,
+                                          n_past):
+    """K6's (B 1 and 4) and K7's gemma modes against the plain version on a
+    gemma3 stack of 6 layers (five local, one global): the whole stack, and
+    layers 4 and 5 (one local, one global) as a stack of their own that
+    keeps their SWA flags, with n_past below and above the window; the
+    hidden state and every cache row, from the same state."""
+    max_seq = 256 if n_layers is None else 4096
+    eng = _gemma_engine(tmp_path, preset, cuda_device, n_layers, max_seq)
+    cfg, params = eng.cfg, eng.params
+    assert cfg.swa_layers[:6] == (True,) * 5 + (False,)
+    B = len(n_past)
+    kern = k7.fused_decode_step if route == "k7" else k6.fused_decode_step_streamed
+    gate = k7._fused_ok if route == "k7" else k6._stream_ok
+    x = tllama.embed(params, cfg, torch.arange(B, device=cuda_device)[:, None] * 7 + 3)
+    for sub, sub_cfg in ((params, cfg), _sub_stack(params, cfg, 4, 2)):
+        kv, ref_kv = (_filled_cache(sub_cfg, B, max_seq, n_past, cuda_device)
+                      for _ in range(2))
+        assert gate(sub, sub_cfg, kv, B, 1)
+        before, mode = kern.launches, kern.modes["gemma"].launches
+        got = kern(sub, sub_cfg, x, kv)
+        ref = k6.decode_layers_plain(sub, sub_cfg, x, ref_kv)
+        torch.cuda.synchronize()
+        assert (kern.launches, kern.modes["gemma"].launches) == (before + 1, mode + 1)
+        assert torch.isfinite(got.float()).all() and _rel(got, ref) < TOL
+        assert _rel(kv.k, ref_kv.k) < TOL and _rel(kv.v, ref_kv.v) < TOL
+
+
+@pytest.mark.parametrize("preset,route", [("tiny-gemma3-q8_0", "k7"), ("tiny-gemma3", "k6")])
+def test_engine_gemma_fused_route_matches_cpu(cuda_device, tmp_path, monkeypatch, preset,
+                                              route):
+    """tiny-gemma3 through ``Engine`` on the card: the decode route (the
+    Q4_K_M one by K6, its layers declared large), its logits against the
+    kernel's plain version on the CPU from the same state within 2e-2, and
+    ``decode_fused``: one launch of the decode kernel's gemma mode per
+    token and no head GEMV (the tied head is a dense bf16 product)."""
+    if route == "k6":
+        monkeypatch.setattr(tllama, "FUSED_LAYER_BYTES", 0)
+    card = _gemma_engine(tmp_path, preset, cuda_device)
+    cpu = _gemma_engine(tmp_path, preset, "cpu")
+    assert tllama.decode_route(card.params, card.cfg, card.kv) == route
+    ids = card.tokenizer.tokenize("card against cpu " * 4, add_special=True)
+    assert len(ids) > 16  # past the window
+    card.prefill(ids)
+    cpu.prefill(ids)
+    feed = (5, 77, 300, 12)
+    a = [card.decode_one(tok) for tok in feed]
+    b = [_decode_logits(cpu, tok, k6.decode_layers_plain) for tok in feed]
+    for x, y in zip(a, b):
+        assert np.abs(x - y).max() / np.abs(y).max() < TOL
+    toks = card.generate("card", n_predict=12, stop_on_eog=False)[1]
+    fused = card.generate_fused("card", n_predict=11, stop_on_eog=False, chunk=5)[1]
+    assert _greedy_consistent(card, "card", fused, toks[:11], TOL)
+    before = kernels.device_counts()
+    for _ in range(2):
+        card.decode_fused(fused[-1], n_steps=5)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in kernels.device_counts().items()}
+    name = "decode_step" if route == "k7" else "decode_stream"
+    assert (ran[name], ran[f"{name}_gemma"], ran["gemv_int8"], ran["flash_decode"]) == (
+        10, 10, 0, 0)
+
+
+def test_gemma_decode_kernels_gelu_erf(cuda_device, tmp_path):
+    """The gates admit gelu's erf form (JAX's do): K6 and K7 run it against
+    the plain version on tiny-gemma3-q8_0 with ``act_fn`` "gelu_erf"."""
+    import dataclasses
+
+    eng = _gemma_engine(tmp_path, "tiny-gemma3-q8_0", cuda_device)
+    cfg, params = dataclasses.replace(eng.cfg, act_fn="gelu_erf"), eng.params
+    x = tllama.embed(params, cfg, torch.tensor([[11]], device=cuda_device))
+    for kern in (k6.fused_decode_step_streamed, k7.fused_decode_step):
+        kv, ref_kv = (_filled_cache(cfg, 1, 256, (40,), cuda_device) for _ in range(2))
+        got = kern(params, cfg, x, kv)
+        ref = k6.decode_layers_plain(params, cfg, x, ref_kv)
+        torch.cuda.synchronize()
+        assert _rel(got, ref) < TOL and _rel(kv.k, ref_kv.k) < TOL

@@ -310,8 +310,10 @@ def test_counted_modes_name_counts_and_device_slots():
         2: ("flash_decode", "flash_decode_shared"),
         3: ("flash_decode", "flash_decode_int8_shared")}
     assert kernels._SLOTS["flash_attention", 1] == ("flash_attention", "flash_attention_int8")
-    assert kernels._SLOTS["decode_stream", 0] == ("decode_step",)
+    assert kernels._SLOTS["decode_stream", 5] == ("decode_step",)
+    assert kernels._SLOTS["decode_stream", 6] == ("decode_step", "decode_step_gemma")
     assert kernels._SLOTS["decode_stream", 1] == ("decode_stream",)
+    assert kernels._SLOTS["decode_stream", 3] == ("decode_stream", "decode_stream_gemma")
     saved = kernels.counts()
     try:
         for flags in ((True, False), (False, True), (True, True), (False, False)):
@@ -342,7 +344,7 @@ def test_device_counts_name_each_slot(monkeypatch):
 
     monkeypatch.setattr(kernels, "_libs", {"flash_decode": Lib([5, 2, 3, 1]),
                                            "flash_attention": Lib([4, 6]),
-                                           "decode_stream": Lib([7, 9])})
+                                           "decode_stream": Lib([0, 9, 0, 0, 0, 7])})
     got = {k: v for k, v in kernels.device_counts().items() if v}
     assert got == dict(flash_decode=11, flash_decode_int8=2, flash_decode_shared=3,
                        flash_decode_int8_shared=1, flash_attention=10,
