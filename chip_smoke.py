@@ -5,8 +5,12 @@ Phases, each printing JSON lines:
   0. the card (nvidia-smi name and power limit) and the kernel build, with
      what ``-Xptxas -v`` reports per kernel;
   1. each kernel against its plain PyTorch version at the shapes of the main
-     paths, with its time, its bound and a PyTorch yardstick: K1-K4 at the
-     8B Q4_K_M shapes, K5 at the 270M Q8_0 prefill shapes, K6 on two
+     paths, launched twice on the same inputs (the same bits: every split-K
+     sum adds in a fixed order), with its time, its bound and a PyTorch
+     yardstick (the cases K1/K2, K8, K6 and K7 share with
+     ``tools/kernel_times.py``): K1-K4 at the 8B Q4_K_M shapes, K3/K4 also
+     at the Qwen group sizes G 7 and G 8 (decode and ragged prefill chunks,
+     bf16 and int8 caches), K5 at the 270M Q8_0 prefill shapes, K6 on two
      full-width 8B layers (B 1 and 8), K7 on the 18 layers of the 270M Q8_0
      shape, K8 at the Mixtral Q8_0 expert shapes (one token's 2 pairs and 4
      slots' 8), K6's MoE branch on two full-width Mixtral layers (nib4c and
@@ -14,7 +18,10 @@ Phases, each printing JSON lines:
      full-width Gemma-3-4B Q4_K_M layers (five local, one global; B 1 and
      4), K7 on the 18 layers of Gemma-3-270M Q8_0, each over the whole
      stack, the first two layers and each layer alone (keeping its SWA
-     flag), at n_past 700 and 3000 (above both windows);
+     flag), at n_past 700 and 3000 (above both windows); K6's qwen modes
+     on two full-width layers each: qk-norm without post-norms (Qwen3-8B,
+     B 1 and 4), MoE with qk-norm (Qwen3-30B-A3B), the shared expert with
+     and without its gate (Qwen1.5-MoE-A2.7B without its biases);
   2. the 8B Q4_K_M model end to end (synthetic weights from a seed, full
      width and depth): ``Engine.from_gguf``, a greedy ``generate`` (decode
      through K6), the per-layer loop called as a function (K1-K4), and a
@@ -56,7 +63,22 @@ Phases, each printing JSON lines:
      then ``BatchedEngine`` in this process held against single slots;
  10. ``gemma3_270m_q8_0``: Gemma-3-270M Q8_0 at full depth: decode through
      K7's gemma mode, prefill through K5;
- 11. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
+ 11. ``qwen3_8b``: Qwen3-8B Q4_K_M at full width and depth, a ragged
+     1,499-token prefill, ``generate`` and ``decode_fused`` through K6's
+     qk-norm mode, K6 against plain at full depth, the fused route against
+     its plain version and the loop;
+ 12. ``qwen3_8b_serve``: the server on it, bf16 then q8, 8 ragged requests,
+     each prefill chunk's launches from its own T; ``BatchedEngine`` held
+     against single slots;
+ 13. ``qwen3moe_30b_a3b``: Qwen3-30B-A3B Q4_K_M at full depth through K6's
+     MoE branch with qk-norm, each layer's experts beside the plain
+     version's;
+ 14. ``qwen2_7b`` and ``qwen2moe_a2_7b``: Qwen2.5-7B Q4_K_M and
+     Qwen1.5-MoE-A2.7B Q8_0 at 4 layers with their q/k/v biases, through
+     the per-layer loop (K1, K2, K3, K8), held against the CPU's plain
+     loop; then the bias-free qwen2moe stack through ``decode_fused`` (K6's
+     shared-expert mode);
+ 15. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
      and held-out perplexity, through ``Engine`` and, all prompts at once,
      through ``BatchedEngine`` with an f32 and a q8 cache.
 Kernel launch counts are set to 0 before each path and read after it.  A
@@ -76,8 +98,11 @@ unless some are named) in each copy's
 ``csrc/decode_stream.cu``, builds the copies, and prints the errors that
 ``decode_errors`` reads for each (K6 on two 8B layers and on two Mixtral
 Q4_K_M layers, K7 on the 18 layers of the 270M shape, K6's gemma mode on 6
-Gemma-3-4B layers, K7's on the 18 of Gemma-3-270M; B = 1, n_past 700),
-the unmodified source first.
+Gemma-3-4B layers, K7's on the 18 of Gemma-3-270M, K6's qwen modes on 2
+layers each of Qwen3-8B, Qwen3-30B-A3B and bias-free Qwen1.5-MoE; B = 1,
+n_past 700), the unmodified source first; the ``moe_qk_norm_skipped`` copy
+also runs the ``qwen3moe_30b_a3b`` phase's 8-step comparison at full
+depth, with its one-ulp control.
 """
 
 from __future__ import annotations
@@ -109,15 +134,11 @@ FAULTS = {
     # the current token's value left out of its own attention output
     "no_self_value": ("o += ws * bf16r(ldcg(vrow + d));", ""),
     # every layer but the last loses its MLP residual
-    "no_mlp_residual": (
-        "return bf16r(ldcg(a.xmid + (size_t)m * D + k) +\n"
-        "                   bf16r(ldcg(a.dn_acc + (size_t)m * D + k)));",
-        "return bf16r(ldcg(a.xmid + (size_t)m * D + k));"),
+    "no_mlp_residual": ("return bf16r(ldcg(a.xmid + (size_t)m * D + k) + mb);",
+                        "return bf16r(ldcg(a.xmid + (size_t)m * D + k));"),
     # attention reads one live row too few
     "one_row_short": ("const int live = min(np, a.S);",
                       "const int live = min(np - 1, a.S);"),
-    # the MoE router drops each token's best expert: the second best takes
-    # its place (and the third the second's)
     # gemma: q and k rotated without their per-head RMS norms
     "no_qk_norm": ("  const bool norm = w != nullptr;", "  const bool norm = false;"),
     # gemma: each post-norm weighted by the other's vector
@@ -125,11 +146,22 @@ FAULTS = {
                            "T_PANORM = 47,\n              T_PFNORM = 46"),
     # gemma: every layer rotates with the local (SWA) rope table
     "one_rope_base": ("(GEMMA && tb[T_SWA]) ? a.inv_freq_local", "GEMMA ? a.inv_freq_local"),
+    # the MoE router drops each token's best expert: the second best takes
+    # its place (and the third the second's)
     "wrong_expert": ("    float wsum = 0.f;\n",
                      "    float wsum = 0.f;\n    {\n      int b0 = 0;\n"
                      "      for (int i = 1; i < E; ++i)\n"
                      "        if (lg[i] > lg[b0]) b0 = i;\n"
                      "      lg[b0] = lcg::kNegInf;\n    }\n"),
+    # qwen2moe: the shared expert's down partial sums scaled by 0
+    "shexp_dropped": ("nsplit, u, smem,\n                                        e_sig);",
+                      "nsplit, u, smem,\n                                        0.f);"),
+    # qwen2moe: the shared expert taken ungated
+    "shexp_gate_ignored": ("e_sig = sgi != nullptr ? 1.f / (1.f + expf(-t)) : 1.f;",
+                           "e_sig = 1.f;"),
+    # qwen3moe: an MoE stack dispatched to the instantiation without qk-norm
+    "moe_qk_norm_skipped": ("return launch<1, FOLDED, true, true, GEMMA, KV>",
+                            "return launch<1, FOLDED, true, true, false, KV>"),
 }
 
 KERNEL_INFO = {
@@ -155,7 +187,18 @@ KERNEL_INFO = {
                             "llama_cpp_gfx906_tpu/ops/decode_stream.py:519"),
     "decode_step_gemma": ("llama_cpp_gfx906_tpu_torch/csrc/decode_stream.cu",
                           "llama_cpp_gfx906_tpu/ops/decode_step.py:167"),
+    "decode_stream_qk_norm": ("llama_cpp_gfx906_tpu_torch/csrc/decode_stream.cu",
+                              "llama_cpp_gfx906_tpu/ops/decode_stream.py:519"),
+    "decode_stream_moe_qk_norm": ("llama_cpp_gfx906_tpu_torch/csrc/decode_stream.cu",
+                                  "llama_cpp_gfx906_tpu/ops/decode_stream.py:676"),
+    "decode_stream_shexp": ("llama_cpp_gfx906_tpu_torch/csrc/decode_stream.cu",
+                            "llama_cpp_gfx906_tpu/ops/decode_stream.py:683"),
 }
+# the count a summary entry reads where its name is not a count of its own:
+# qwen3's qk-norm is K6's gemma instantiation with has_post 0; qwen3moe's
+# MoE with qk-norm its MoE + gemma instantiation
+COUNT_NAME = {"decode_stream_qk_norm": "decode_stream_gemma",
+              "decode_stream_moe_qk_norm": "decode_stream_moe_gemma"}
 # the K3 / K4 modes of the serve path: the same kernels, counted apart
 for _mode in ("int8", "shared", "int8_shared"):
     KERNEL_INFO[f"flash_decode_{_mode}"] = KERNEL_INFO["flash_decode"]
@@ -172,17 +215,52 @@ KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
                "flash_decode_int8_shared": "8b_serve_q8_shared",
                "flash_decode_shared": "8b_serve_bf16_shared",
                "decode_stream_moe": "mixtral_q4km", "rqmm_int8": "mixtral_q8_0_serve",
-               "decode_stream_gemma": "gemma3_4b", "decode_step_gemma": "gemma3_270m_q8_0"}
+               "decode_stream_gemma": "gemma3_4b", "decode_step_gemma": "gemma3_270m_q8_0",
+               "decode_stream_qk_norm": "qwen3_8b",
+               "decode_stream_moe_qk_norm": "qwen3moe_30b_a3b",
+               "decode_stream_shexp": "qwen2moe_shexp"}
 SERVE_PROMPT_LENS = (256, 384, 512, 640, 768, 896, 1024, 320)
-# the serve path's launches per 4-slot decode step and per prefill chunk (of
-# 64 or more tokens: K4 and the dequant matmul, the head's GEMV on its last row)
+# the serve path's launches per 4-slot decode step
 SERVE_PER_STEP = {"q8": {"flash_decode_int8": 32, "flash_decode": 32, "gemv_nib4c": 128,
                          "gemv_int8": 33, "decode_stream": 0},
                   "bf16": {"decode_stream": 1, "gemv_int8": 1, "gemv_nib4c": 0,
                            "flash_decode": 0}}
-SERVE_PER_CHUNK = {"q8": {"flash_attention": 32, "flash_attention_int8": 32, "gemv_int8": 1},
-                   "bf16": {"flash_attention": 32, "flash_attention_int8": 0,
-                            "gemv_int8": 1}}
+N_CHUNK = 256  # the server's prefill chunk: a prompt of n tokens prefills in
+# chunks of 256 and a last one of n % 256
+# per served model, a prefill chunk of T tokens launches, on each of its L
+# layers, the attention kernel T takes (K3 when G * T <= 128, else K4; each
+# also in its int8 mode on a q8 cache) and, for T <= 8, the GEMVs of the
+# layer's projections (K2 per nib4c one, K1 per int8 one), else K5 per
+# plain-scale int8 one (nib4c and folded ones take the dequant matmul);
+# then the head's K1 on the chunk's last row where the head is quantized
+SERVE_CHUNK = {"8b": dict(L=32, G=4, gemv={"gemv_nib4c": 4, "gemv_int8": 1}, k5=0, head=1),
+               "gemma3_4b": dict(L=34, G=2, gemv={"gemv_nib4c": 4, "gemv_int8": 1}, k5=1,
+                                 head=0),
+               "qwen3_8b": dict(L=36, G=4, gemv={"gemv_nib4c": 4, "gemv_int8": 1}, k5=0,
+                                head=1)}
+CHUNK_KERNELS = ("flash_decode", "flash_decode_int8", "flash_attention",
+                 "flash_attention_int8", "gemv_nib4c", "gemv_int8", "qmm_int8")
+
+
+def chunk_launches(model: str, kind: str, T: int) -> dict:
+    """The launches of one prefill chunk of T tokens (``SERVE_CHUNK``)."""
+    m = SERVE_CHUNK[model]
+    out = dict.fromkeys(CHUNK_KERNELS, 0)
+    attn = "flash_decode" if m["G"] * T <= 128 else "flash_attention"
+    out[attn] = m["L"]
+    if kind == "q8":
+        out[f"{attn}_int8"] = m["L"]
+    if T <= 8:
+        for k, n in m["gemv"].items():
+            out[k] += n * m["L"]
+    else:
+        out["qmm_int8"] = m["k5"] * m["L"]
+    out["gemv_int8"] += m["head"]
+    return out
+
+
+def prompt_chunks(n: int) -> list[int]:
+    return [N_CHUNK] * (n // N_CHUNK) + ([n % N_CHUNK] if n % N_CHUNK else [])
 SYSTEM_LEN = 512  # the shared system prompt of the serve path's shared runs
 MIXTRAL_Q8_LAYERS = 4  # the mixtral_q8_0 phase's cut depth (of 32)
 # its batched decode step at 4 slots (bf16 cache: the per-layer loop, K6
@@ -198,8 +276,8 @@ MIXTRAL_PER_CHUNK = {"qmm_int8": (2 + 3 * 8) * MIXTRAL_Q8_LAYERS,
                      "flash_attention": MIXTRAL_Q8_LAYERS, "gemv_int8": 1,
                      "rqmm_int8": 0, "flash_decode": 0, "decode_stream": 0}
 GEMMA_PROMPT_TOKENS = 1500  # the gemma3_4b prefill: past the 1,024 window
-# multiples of 128: no prefill chunk of G * T <= 128 (G = 2), which K3 would take
-GEMMA_SERVE_LENS = (256, 512, 768, 1024, 1280, 1536, 384, 1152)
+# ragged: last chunks of 3 (GEMVs, K3), 36 (K5, K3) and 133-244 tokens (K4)
+GEMMA_SERVE_LENS = (256, 500, 1060, 1024, 1283, 1536, 390, 1157)
 G4B = 34  # Gemma-3-4B layers
 # its served decode step at 4 slots, q8 cache: per layer K2 on q|k, o,
 # gate|up and down, K1 on the Q6_K attn_v, K3-int8; bf16: one K6 (gemma
@@ -210,10 +288,20 @@ GEMMA_PER_STEP = {"q8": {"flash_decode_int8": G4B, "flash_decode": G4B, "gemv_ni
                          "gemv_int8": G4B, "decode_stream": 0},
                   "bf16": {"decode_stream": 1, "decode_stream_gemma": 1, "gemv_int8": 0,
                            "gemv_nib4c": 0, "flash_decode": 0}}
-GEMMA_PER_CHUNK = {"q8": {"flash_attention": G4B, "flash_attention_int8": G4B,
-                          "qmm_int8": G4B, "gemv_int8": 0},
-                   "bf16": {"flash_attention": G4B, "flash_attention_int8": 0,
-                            "qmm_int8": G4B, "gemv_int8": 0}}
+QWEN3_L = 36  # Qwen3-8B layers
+QWEN3_PROMPT_TOKENS = 1499  # the qwen3_8b prefill (ragged)
+# ragged: last chunks of 5 (GEMVs, K3), 25 and 20 (K3), 188-208 tokens (K4)
+QWEN3_SERVE_LENS = (256, 517, 700, 1049, 1300, 1536, 390, 2000)
+# its served decode step at 4 slots, q8 cache: per layer K2 on q|k, o,
+# gate|up and down, K1 on the Q6_K attn_v, K3-int8, and the head's K1;
+# bf16: one K6 (its gemma instantiation: qk-norm) and the head's K1
+QWEN3_PER_STEP = {"q8": {"flash_decode_int8": QWEN3_L, "flash_decode": QWEN3_L,
+                         "gemv_nib4c": 4 * QWEN3_L, "gemv_int8": QWEN3_L + 1,
+                         "decode_stream": 0},
+                  "bf16": {"decode_stream": 1, "decode_stream_gemma": 1, "gemv_int8": 1,
+                           "gemv_nib4c": 0, "flash_decode": 0}}
+QWEN2_LAYERS = 4  # the qwen2_7b and qwen2moe_a2_7b phases' cut depths (of 28, 24)
+QWEN3MOE_LAYERS = 48  # the qwen3moe_30b_a3b phase's depth (of 48)
 
 
 FAILURES: list[str] = []
@@ -243,37 +331,10 @@ def run_phase(name: str, fn, *args):
 
 
 def device_ms(fn, torch, flush, n: int = 10) -> float:
-    """Device time per call of ``fn``, without the host's launch overhead:
-    n calls, each after an L2 flush (the decode path finds its weights
-    cold), are captured in a CUDA graph and replayed; a graph of the n
-    flushes alone is timed the same way and subtracted.  Median of 3
-    replays, by CUDA events."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    graphs = []
-    for with_fn in (True, False):
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(n):
-                flush.zero_()
-                if with_fn:
-                    fn()
-        graphs.append(g)
-    times = []
-    for g in graphs:
-        reps = []
-        for _ in range(3):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            g.replay()
-            e1.record()
-            e1.synchronize()
-            reps.append(e0.elapsed_time(e1))
-        times.append(sorted(reps)[1])
-    del graphs
-    return (times[0] - times[1]) / n
+    """Device time per call of ``fn`` (``tools/kernel_times.device_ms``)."""
+    from llama_cpp_gfx906_tpu_torch.tools.kernel_times import device_ms as timed
+
+    return timed(fn, torch, flush, n)
 
 
 def bound(nbytes: float, flops: float, flop_s: float = BF16_FLOP_S) -> tuple[float, str]:
@@ -290,6 +351,17 @@ def check(name: str, got, ref, torch, tol: float = TOL) -> tuple[float, float]:
     if not rel <= tol:
         fail(f"{name}: max error / max|plain| = {rel} > {tol}")
     return abs_err, rel
+
+
+def bit_identical(name: str, a, b, torch) -> bool:
+    """Two launches on the same inputs: their outputs hold the same bits
+    (the split-K sums add in a fixed order)."""
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, b))
+    if not same:
+        fail(f"{name}: two launches on the same inputs differ by "
+             f"{float((a.float() - b.float()).abs().max())}")
+    return same
 
 
 def kernel_counts(reset: bool = False) -> dict:
@@ -324,7 +396,8 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
     from llama_cpp_gfx906_tpu_torch.ops.attention import attend
     from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode
-    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4k_rows, q6k_rows, q8_0_rows
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q8_0_rows
     import numpy as np
 
     dev = torch.device("cuda")
@@ -343,23 +416,14 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
 
     # K1 / K2: folded Q6_K int8 (head, attn_v) and folded Q4_K nib4c
-    gemvs = [("gemv_int8", "lm_head 4096x129024", GGMLType.Q6_K, 4096, 128256, True),
-             ("gemv_int8", "attn_v 4096x1024", GGMLType.Q6_K, 4096, 1024, False),
-             ("gemv_nib4c", "attn_qk 4096x5120", GGMLType.Q4_K, 4096, 5120, False),
-             ("gemv_nib4c", "attn_output 4096x4096", GGMLType.Q4_K, 4096, 4096, False),
-             ("gemv_nib4c", "ffn_gate_up 4096x28672", GGMLType.Q4_K, 4096, 28672, False),
-             ("gemv_nib4c", "ffn_down 14336x4096", GGMLType.Q4_K, 14336, 4096, False)]
-    for name, case, gtype, K, N, pad in gemvs:
-        rows = (q6k_rows if gtype == GGMLType.Q6_K else q4k_rows)(rng, N, K)
-        qt = qmm.pack_gguf_tensor(rows.reshape(-1), gtype, (N, K),
-                                  fold_scales=True, device=dev)
-        if pad:
-            qt = qmm.pad_qt_n(qt)
+    for name, case, gtype, K, N, pad in kt.GEMV_CASES:
+        qt = kt.gemv_weights(rng, gtype, K, N, pad, dev)
         x = torch.randn((1, K), generator=g, device=dev).to(torch.bfloat16)
         kern = getattr(qmm, name)
         got = kern(x, qt)
         ref = qmm.gemv_plain(x, qt)
         err = check(f"{name} {case}", got, ref, torch)
+        same = bit_identical(f"{name} {case}", got, kern(x, qt), torch)
         w = qmm.dequantize_qt(qt, torch.bfloat16)
         nbytes = sum(t.numel() * t.element_size()
                      for t in (qt.q, qt.s, qt.m, qt.sd, qt.md, x) if t is not None)
@@ -367,7 +431,9 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
         record(name, case, err, device_ms(lambda: kern(x, qt), torch, flush),
                device_ms(lambda: qmm.gemv_plain(x, qt), torch, flush),
                nbytes, 2 * K * N,
-               device_ms(lambda: torch.matmul(x, w), torch, flush))
+               device_ms(lambda: torch.matmul(x, w), torch, flush), bit_identical=same,
+               splits=qmm.gemv_splits(qt, torch.cuda.get_device_properties(
+                   dev).multi_processor_count))
         del w, qt
 
     # K3: decode attention over an 8192-row bf16 cache, GQA 32/8, D = 128
@@ -423,6 +489,7 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
     del kc, vc
     torch.cuda.empty_cache()
     kv_mode_cases(torch, dev, g, flush, record)
+    gqa_cases(torch, dev, torch.Generator(device=dev).manual_seed(7), flush, record)
 
     # K5: the 270M Q8_0 prefill projections at the smoke prompt's 676 rows
     M = 676
@@ -442,101 +509,42 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
                2 * M * K * N, device_ms(lambda: torch.matmul(x, w), torch, flush))
         del w, qt
 
-    # K6 on two full-width 8B Q4_K_M layers, K7 on the 18 layers of the
-    # 270M Q8_0 shape: the whole decode step against its plain version, the
-    # per-layer loop's device time for the same step beside it
-    from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
-    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
-    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
-    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
-
-    # K7's whole 18-layer stack is reported, not held to TOL: at that depth
-    # these random weights carry one bf16 rounding that the kernel and the
-    # plain version take differently to a few percent of the output (each
-    # case reports ``one_ulp_spread``, the plain version's own such move)
-    for name, preset, L, batches, whole in (("decode_stream", "8b", 2, (1, 8), True),
-                                            ("decode_step", "270m-q8_0", None, (1,), False)):
-        path = write_synth(str(tmp / f"{preset}-kernel.gguf"), preset, seed=0,
-                           n_layers=L, n_vocab=512)
-        eng = Engine.from_gguf(path, max_seq=4096)
-        kern, plain = ((k6.fused_decode_step_streamed, k6.fused_decode_step_streamed_plain)
-                       if name == "decode_stream"
-                       else (k7.fused_decode_step, k7.fused_decode_step_plain))
-        for B in batches:
-            for n_past in (700, 3000):
-                decode_case(torch, eng, name, kern, plain, B, n_past, g, flush,
-                            record, whole)
-        del eng
-        torch.cuda.empty_cache()
-    gemma_kernel_cases(torch, g, flush, record, tmp)
-    moe_kernel_cases(torch, dev, g, flush, record, tmp)
+    # the cases draw from g in this order: the llama and gemma decode cases,
+    # K8's, then the Mixtral and qwen decode cases
+    llama_gemma = [c for c in kt.DECODE_CASES if c[1].startswith(("8b", "270m", "gemma"))]
+    decode_cases(torch, g, flush, record, tmp, llama_gemma)
+    expert_cases(torch, dev, g, flush, record)
+    decode_cases(torch, g, flush, record, tmp,
+                 [c for c in kt.DECODE_CASES if c not in llama_gemma])
     del flush
 
 
-def gemma_kernel_cases(torch, g, flush, record, tmp: Path) -> None:
-    """The gemma modes: K6 on a 6-layer cut of Gemma-3-4B Q4_K_M (layers
-    0-4 local, 5 global; B 1 and 4), K7 on the 18 layers of Gemma-3-270M
-    Q8_0 (every 6th global), each against the plain version over the whole
-    stack, the first two layers and each layer alone (its SWA flag kept),
-    at n_past 700 and 3000: 3000 is above both windows (1024, 512)."""
-    from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
-    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
-    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
-    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
-
-    for name, preset, L, batches in (("decode_stream_gemma", "gemma3-4b-q4_k_m", 6, (1, 4)),
-                                     ("decode_step_gemma", "gemma3-270m-q8_0", None, (1,))):
-        path = write_synth(str(tmp / f"{preset}-kernel.gguf"), preset, seed=0,
-                           n_layers=L, n_vocab=512)
-        eng = Engine.from_gguf(path, max_seq=4096)
-        if not any(eng.cfg.swa_layers) or all(eng.cfg.swa_layers):
-            raise AssertionError(f"{name}: the stack lacks a local or a global layer")
-        kern = (k6.fused_decode_step_streamed if name == "decode_stream_gemma"
-                else k7.fused_decode_step)
-        for B in batches:
-            for n_past in (700, 3000):
-                decode_case(torch, eng, name, kern, k6.decode_layers_plain, B, n_past, g,
-                            flush, record, True)
-        del eng
-        torch.cuda.empty_cache()
-
-
-def moe_kernel_cases(torch, dev, g, flush, record, tmp: Path) -> None:
-    """K8 at the Mixtral Q8_0 expert shapes (8 experts; gate 4096 x 14336 and
-    down 14336 x 4096) for one token's 2 pairs and 4 slots' 8 (two distinct
-    experts per token), and once with mins (Q4_K experts unified to
-    int8/g16); K6's MoE branch on two full-width Mixtral layers with nib4c
-    (Q4_K_M) and int8 (Q8_0) experts, B = 1, held as the dense K6 is held.
-    K8's bound counts each distinct expert's slice once
-    (``bound_ms_every_pair``: every pair's); its library yardstick is a
-    gather of pre-dequantized bf16 experts and ``torch.bmm``."""
+def expert_cases(torch, dev, g, flush, record) -> None:
+    """K8 at the Mixtral expert shapes (``kernel_times.EXPERT_CASES``: 8
+    experts; gate 4096 x 14336 and down 14336 x 4096 for one token's 2
+    pairs and 4 slots' 8, two distinct experts per token; once with mins,
+    Q4_K experts unified to int8/g16).  K8's bound counts each distinct
+    expert's slice once (``bound_ms_every_pair``: every pair's); its
+    library yardstick is a gather of pre-dequantized bf16 experts and
+    ``torch.bmm``."""
     import numpy as np
 
-    from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
-    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
-    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
-    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4k_rows, q8_0_rows, write_synth
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
 
-    E = 8
     rng = np.random.default_rng(5)
-    cases = (("gate 4096x14336", GGMLType.Q8_0, 14336, 4096, (2, 8)),
-             ("down 14336x4096", GGMLType.Q8_0, 4096, 14336, (2, 8)),
-             ("gate 4096x14336 with mins", GGMLType.Q4_K, 14336, 4096, (2,)))
-    for case, gtype, N, K, pairs in cases:
-        rows = q8_0_rows if gtype == GGMLType.Q8_0 else q4k_rows
-        raw = np.concatenate([rows(np.random.default_rng([5, e]), N, K) for e in range(E)])
-        pack = qmm.pack_gguf_experts if gtype == GGMLType.Q8_0 else qmm.pack_experts_int8_g16
-        qt = pack(raw.reshape(-1), gtype, (E, N, K), device=dev)
-        del raw
+    for case, gtype, N, K, pairs in kt.EXPERT_CASES:
+        qt = kt.expert_weights(gtype, N, K, dev)
         wb = qmm.dequantize_qt_experts(qt, torch.bfloat16)
         one = sum(t[0].numel() * t.element_size() for t in (qt.q, qt.s, qt.m) if t is not None)
         for P in pairs:
-            ids = np.concatenate([rng.choice(E, 2, replace=False) for _ in range(P // 2)])
+            ids = kt.pair_ids(rng, P)
             idx = torch.tensor(ids, dtype=torch.int32, device=dev)
             x = torch.randn((P, K), generator=g, device=dev).to(torch.bfloat16)
-            err = check(f"rqmm_int8 {case} P={P}", qmm.rqmm_int8(x, qt, idx),
-                        qmm.rqmm_plain(x, qt, idx), torch)
+            got = qmm.rqmm_int8(x, qt, idx)
+            err = check(f"rqmm_int8 {case} P={P}", got, qmm.rqmm_plain(x, qt, idx), torch)
+            same = bit_identical(f"rqmm_int8 {case} P={P}", got, qmm.rqmm_int8(x, qt, idx),
+                                 torch)
             io = P * K * 2 + P * N * 4
             lib = lambda: torch.bmm(x[:, None, :], wb[idx.long()])  # noqa: E731
             record("rqmm_int8", f"{case} P={P}", err,
@@ -545,21 +553,75 @@ def moe_kernel_cases(torch, dev, g, flush, record, tmp: Path) -> None:
                    len(set(ids.tolist())) * one + io, 2 * P * K * N,
                    device_ms(lib, torch, flush), distinct_experts=len(set(ids.tolist())),
                    bound_ms_every_pair=bound(P * one + io, 2 * P * K * N)[0],
-                   library="gather of pre-dequantized bf16 experts + torch.bmm")
+                   library="gather of pre-dequantized bf16 experts + torch.bmm",
+                   bit_identical=same)
         del qt, wb
         torch.cuda.empty_cache()
 
-    for preset in ("mixtral-q4_k_m", "mixtral-q8_0"):
-        path = write_synth(str(tmp / f"{preset}-kernel.gguf"), preset, seed=0,
-                           n_layers=2, n_vocab=512)
-        eng = Engine.from_gguf(path, max_seq=4096)
-        for n_past in (700, 3000):
-            decode_case(torch, eng, "decode_stream_moe", k6.fused_decode_step_streamed,
-                        k6.fused_decode_step_streamed_plain, 1, n_past, g, flush,
-                        record, True, expert_format=eng.params["layers"][0]["moe_gate"].fmt)
-        del eng
+
+def decode_cases(torch, g, flush, record, tmp: Path, cases) -> None:
+    """K6 and K7 in every mode (``cases`` of ``kernel_times.DECODE_CASES``), each
+    against the plain version at n_past 700 and 3000, with the per-layer
+    loop's device time for the same step beside it: K6 on two full-width
+    8B Q4_K_M layers (B 1 and 8); K7 on the 18 layers of the 270M Q8_0
+    shape; the gemma modes, K6 on a 6-layer cut of Gemma-3-4B Q4_K_M
+    (layers 0-4 local, 5 global; B 1 and 4) and K7 on the 18 layers of
+    Gemma-3-270M Q8_0 (every 6th global; 3000 is above both windows, 1024
+    and 512); K6's MoE branch on two full-width Mixtral layers with nib4c
+    (Q4_K_M) and int8 (Q8_0) experts; K6's qwen modes on two full-width
+    layers each: qk-norm without post-norms on Qwen3-8B Q4_K_M (B 1 and
+    4), MoE with qk-norm on Qwen3-30B-A3B Q4_K_M (128 experts, top 8), and
+    the shared expert on Qwen1.5-MoE-A2.7B Q8_0 with its q/k/v biases left
+    out (the stack K6's gate takes), with its sigmoid gate and without it.
+    Every case is held over the first two layers and each layer alone (its
+    SWA flag kept), an MoE stack's expert ids beside the plain version's.
+    K7's 18-layer llama stack is reported, not held whole: at that depth
+    these random weights carry one bf16 rounding that the kernel and the
+    plain version take differently to a few percent of the output (each
+    case reports ``one_ulp_spread``, the plain version's own such move)."""
+    from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+
+    for name, preset, L, batches, synth in cases:
+        eng, path = kt.decode_engine(str(tmp), preset, L, **synth)
+        if "gemma" in name and (not any(eng.cfg.swa_layers) or all(eng.cfg.swa_layers)):
+            raise AssertionError(f"{name}: the stack lacks a local or a global layer")
+        kern = (k7.fused_decode_step if name.startswith("decode_step")
+                else k6.fused_decode_step_streamed)
+        stacks = [(eng, {})]
+        if name == "decode_stream_shexp":
+            stacks = [(eng, dict(shexp_gate="gate")),
+                      (without_shexp_gate(torch, eng), dict(shexp_gate="no gate"))]
+        for stack, extra in stacks:
+            if "moe_gate_inp" in stack.params["layers"][0]:
+                extra = dict(extra, expert_format=stack.params["layers"][0]["moe_gate"].fmt)
+            for B in batches:
+                for n_past in (700, 3000):
+                    decode_case(torch, stack, name, kern, k6.decode_layers_plain, B, n_past,
+                                g, flush, record, name != "decode_step", **extra)
+        del eng, stacks
         Path(path).unlink()
         torch.cuda.empty_cache()
+
+
+class _Stack:
+    """What ``decode_case`` reads of an engine: params, cfg, max_seq, device."""
+
+    def __init__(self, params, cfg, max_seq, device):
+        self.params, self.cfg, self.max_seq, self.device = params, cfg, max_seq, device
+
+
+def without_shexp_gate(torch, eng) -> _Stack:
+    """The engine's stack with every layer's shared-expert gate vector left
+    out (the same planes): K6's shared expert ungated."""
+    from llama_cpp_gfx906_tpu_torch.runtime.weights import ParamDict
+
+    layers = [ParamDict({k: p[k] for k in p.keys() if k != "shexp_gate_inp"})
+              for p in eng.params["layers"]]
+    params = ParamDict({k: eng.params[k] for k in ("tok_emb", "out_norm", "lm_head")})
+    params["layers"] = torch.nn.ModuleList(layers)
+    return _Stack(params, eng.cfg, eng.max_seq, eng.device)
 
 
 def kv_mode_cases(torch, dev, g, flush, record) -> None:
@@ -677,6 +739,63 @@ def kv_mode_cases(torch, dev, g, flush, record) -> None:
         torch.cuda.empty_cache()
 
 
+def gqa_cases(torch, dev, g, flush, record) -> None:
+    """K3 and K4 at the Qwen group sizes, Dh 128, one slot of 4096 rows,
+    bf16 and int8 caches: Qwen2.5-7B's 28/4 (G 7) and Qwen3-30B-A3B's 32/4
+    (G 8).  K3 decodes one token at n_past 700 and 3000; K4 takes the
+    ragged prefill chunks those phases run: 101 tokens at n_past 0, and a
+    300-token prompt's 256 at 0 then its 44-token tail at 256 (G·T > 128:
+    K4).  Bytes count each live row once (int8: with its two 4-byte
+    scales); the library yardstick is SDPA on rows dequantized to bf16
+    beforehand."""
+    import torch.nn.functional as F
+
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import (flash_attention,
+                                                              flash_attention_plain)
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import dequantize_rows, quantize_rows
+
+    S, D, bf = 4096, 128, torch.bfloat16
+    scale = D ** -0.5
+    for shape, Hq, Hkv in (("G7 28/4", 28, 4), ("G8 32/4", 32, 4)):
+        kb = torch.randn((1, S, Hkv, D), generator=g, device=dev).to(bf)
+        vb = torch.randn((1, S, Hkv, D), generator=g, device=dev).to(bf)
+        kq, vq = quantize_rows(kb.float()), quantize_rows(vb.float())
+        kd, vd = dequantize_rows(kq, bf), dequantize_rows(vq, bf)
+        for kind, row in (("bf16", Hkv * 2 * D * 2), ("int8", Hkv * (2 * D + 2 * 4))):
+            i8 = kind == "int8"
+            for T, n_past in ((1, 700), (1, 3000), (101, 0), (256, 0), (44, 256)):
+                q = torch.randn((1, T, Hq, D), generator=g, device=dev).to(bf)
+                npast = torch.tensor([n_past], dtype=torch.int32, device=dev)
+                if T == 1:
+                    name, kern, plain = "flash_decode", flash_decode, flash_decode_plain
+                    args, kw = (q, kq, vq, npast, scale) if i8 else (q, kb, vb, npast, scale), {}
+                else:
+                    name, kern, plain = ("flash_attention", flash_attention,
+                                         flash_attention_plain)
+                    args = (q, kq.q, vq.q, npast, scale) if i8 else (q, kb, vb, npast, scale)
+                    kw = dict(k_scales=kq.s[..., 0], v_scales=vq.s[..., 0]) if i8 else {}
+                name += "_int8" if i8 else ""
+                case = f"{shape} {kind} T={T} n_past={n_past}"
+                err = check(f"{name} {case}", kern(*args, **kw), plain(*args, **kw), torch)
+                n_keys = n_past + T
+                pairs = T * n_past + T * (T + 1) // 2  # causal (query, key) pairs
+                kl = (kd if i8 else kb)[:, :n_keys].transpose(1, 2).contiguous()
+                vl = (vd if i8 else vb)[:, :n_keys].transpose(1, 2).contiguous()
+                qs = q.transpose(1, 2).contiguous()
+                mask = (torch.arange(n_keys, device=dev)[None, :]
+                        <= n_past + torch.arange(T, device=dev)[:, None])
+                record(name, case, err, device_ms(lambda: kern(*args, **kw), torch, flush),
+                       device_ms(lambda: plain(*args, **kw), torch, flush),
+                       2 * q.numel() * 2 + n_keys * row, 4 * Hq * pairs * D,
+                       device_ms(lambda: F.scaled_dot_product_attention(
+                           qs, kl, vl, attn_mask=mask, scale=scale, enable_gqa=True),
+                           torch, flush), library="SDPA on pre-dequantized bf16"
+                       if i8 else "SDPA")
+        del kb, vb, kq, vq, kd, vd
+        torch.cuda.empty_cache()
+
+
 def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
     """A decode kernel against its plain version from one state: x for the
     tokens ``toks`` (B, 1) and caches of random rows (seed 11) filled to
@@ -686,9 +805,17 @@ def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
     the hand-off between layers), and the worst of each layer run alone, as
     a one-layer stack on the same planes, fed the kernel's own output of
     the layer before (``per_layer``; each sub-stack keeps its layers' SWA
-    flags, ``sub_config``); depth amplifies neither of the two last.  ``one_ulp_spread`` is
+    flags, ``sub_config``); depth amplifies neither of the two last; for an
+    MoE stack, the layers where a layer alone chose another set of experts
+    than the plain version from the same input (``per_layer_expert_sets_differ``:
+    none, unless a router holds an exact tie) and another order of the same
+    set (``per_layer_expert_order_differs``: a near-tie between two chosen
+    experts, which changes only the order of the sum).  ``one_ulp_spread`` is
     the plain version's own output moved by one bf16 ulp on x's largest
-    element: how far depth carries a single rounding.  For an MoE stack (B = 1),
+    element: how far depth carries a single rounding; for an MoE stack of at
+    most two layers, ``plain_cpu_vs_plain`` is the plain version on the CPU
+    from the same state (the same rounding points, other summation orders)
+    against the card's.  For an MoE stack (B = 1),
     ``expert_ids_kernel`` and ``expert_ids_plain`` are the experts each
     layer chose, as the kernel wrote them and as the plain version chose
     them: a router near-tie shows as a differing id.  Returns the errors, x
@@ -723,8 +850,17 @@ def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
                for c in caches[:2]]
         return sub, sub_config(cfg, first, n), kvs
 
+    layer_ids = ([], [])  # each layer alone: the experts K6 and plain chose
+
     def stack_err(sub, sub_cfg, kvs, xin):
-        a, b = kern(sub, sub_cfg, xin, kvs[0]), plain(sub, sub_cfg, xin, kvs[1])
+        a = kern(sub, sub_cfg, xin, kvs[0])
+        if moe and sub_cfg.n_layers == 1:
+            ids = []
+            b = k6.decode_layers_plain(sub, sub_cfg, xin, kvs[1], ids_out=ids)
+            layer_ids[0].append(k6.last_expert_ids(sub, kvs[0])[0].tolist())
+            layer_ids[1].append(ids[0][0].tolist())
+        else:
+            b = plain(sub, sub_cfg, xin, kvs[1])
         (ka, va), (kb, vb) = rows(kvs[0]), rows(kvs[1])
         return max(rel(a, b), rel(ka, kb), rel(va, vb)), a
 
@@ -748,6 +884,21 @@ def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
             err, xl = stack_err(*sub_stack(li, 1), xl)
             worst = max(worst, err)
         errs["per_layer"] = worst
+        if moe:  # a layer alone on the same input: the same experts (as a set)
+            errs["per_layer_expert_sets_differ"] = [
+                (li, a, b) for li, (a, b) in enumerate(zip(*layer_ids)) if sorted(a) != sorted(b)]
+            errs["per_layer_expert_order_differs"] = [
+                li for li, (a, b) in enumerate(zip(*layer_ids)) if a != b]
+        if moe and cfg.n_layers <= 2:  # the plain version in another valid order
+            import copy
+
+            cpu = ParamDict({"layers": torch.nn.ModuleList(
+                copy.deepcopy(lp).cpu() for lp in params["layers"])})
+            kvc = KVCache(k=caches[2].k.cpu(), v=caches[2].v.cpu(),
+                          n_past=caches[2].n_past.cpu())
+            errs["plain_cpu_vs_plain"] = rel(k6.decode_layers_plain(cpu, cfg, x.cpu(), kvc),
+                                             ref.cpu())
+            del cpu, kvc
         x1 = x.clone().reshape(-1)
         i = int(x1.float().abs().argmax())  # a nonzero element moves by an ulp
         x1[i] = (x1[i].float() * (1 + 2 ** -7)).to(x.dtype)
@@ -773,14 +924,24 @@ def decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record,
         raise AssertionError(f"{name}: the gate refuses B={B}")
     toks = torch.randint(0, cfg.n_vocab, (B, 1), generator=g, device=eng.device)
     errs, x, caches = decode_errors(torch, eng, kern, plain, B, n_past, toks)
+    with torch.inference_mode():  # n_past stays: the same step twice
+        first = kern(params, cfg, x, caches[0])
+        krow = caches[0].k[:, :, n_past].clone()
+        same = bit_identical(f"{name} B={B} n_past={n_past}", first,
+                             kern(params, cfg, x, caches[0]), torch)
+        same = same and bit_identical(f"{name} B={B} n_past={n_past} K rows", krow,
+                                      caches[0].k[:, :, n_past], torch)
     case = f"L={cfg.n_layers} B={B} n_past={n_past}" + "".join(
-        f" {v} experts" for v in extra.values())
+        f" {v} experts" if k == "expert_format" else f" {v}" for k, v in extra.items())
     if not errs["finite"]:
         fail(f"{name} {case}: non-finite kernel output")
     for what in ("first_two_layers", "per_layer") + (
             ("x", "k_rows", "v_rows") if whole_stack else ()):
         if not errs[what] <= TOL:
             fail(f"{name} {case} {what}: max error / max|plain| = {errs[what]} > {TOL}")
+    if errs.get("per_layer_expert_sets_differ"):
+        fail(f"{name} {case}: a layer alone chose other experts than the plain version: "
+             f"{errs['per_layer_expert_sets_differ']}")
     with torch.inference_mode():
         ms = device_ms(lambda: kern(params, cfg, x, caches[0]), torch, flush)
         plain_ms = device_ms(lambda: plain(params, cfg, x, caches[1]), torch, flush)
@@ -796,7 +957,7 @@ def decode_case(torch, eng, name, kern, plain, B, n_past, g, flush, record,
     record(name, case, (errs["x_abs"], errs["x"]), ms, plain_ms, nbytes, flops, None,
            flop_s=F32_FLOP_S, per_layer_loop_ms=loop_ms,
            errors={k: v for k, v in errs.items() if k not in ("x_abs", "finite")},
-           whole_stack_checked=whole_stack, **extra)
+           whole_stack_checked=whole_stack, bit_identical=same, **extra)
     del caches
 
 
@@ -822,7 +983,8 @@ def weight_bytes_macs(params, expert_ids=None) -> tuple[int, int]:
                 macs += q.K * q.N
         nbytes += sum(p[n].numel() * p[n].element_size()
                       for n in ("attn_norm", "ffn_norm", "moe_gate_inp", "q_norm",
-                                "k_norm", "post_attn_norm", "post_ffn_norm") if n in p)
+                                "k_norm", "post_attn_norm", "post_ffn_norm",
+                                "shexp_gate_inp") if n in p)
     return nbytes, macs
 
 
@@ -904,7 +1066,8 @@ def prompt_ids(eng, n_words: int = 110) -> list[int]:
 
 
 def compare_routes(torch, eng, ids, tol: float, enforce_loop: bool,
-                   steps: int = 8, kernel_tol: float = TOL) -> dict:
+                   steps: int = 8, kernel_tol: float = TOL,
+                   ulp_control: bool = False) -> dict:
     """``steps`` decode steps from the same state three ways, each fed the
     fused route's greedy tokens and read through the same head: the fused
     route (``forward``: one K6/K7 launch), the decode kernel's plain version
@@ -916,7 +1079,10 @@ def compare_routes(torch, eng, ids, tol: float, enforce_loop: bool,
     K7 sits beyond 2e-2 of its loop there (the fused route's f32 carry and
     bf16-rounded int8 weights against the loop's roundings, amplified by
     depth; tests/test_torch_decode_step.py::
-    test_k7_loop_gap_matches_jax_reference holds the port to that gap)."""
+    test_k7_loop_gap_matches_jax_reference holds the port to that gap).
+    With ``ulp_control``, the plain version again with its first step's x
+    moved by one bf16 ulp on its largest element (``plain_one_ulp_vs_plain``:
+    how far the steps carry one rounding)."""
     import numpy as np
 
     from llama_cpp_gfx906_tpu_torch.ops.decode_stream import decode_layers_plain
@@ -940,6 +1106,20 @@ def compare_routes(torch, eng, ids, tol: float, enforce_loop: bool,
     plain = [loop_logits(torch, eng, t, decode_layers_plain) for t in fed]
     rewind()
     loop = [loop_logits(torch, eng, t) for t in fed]
+    nudged = []
+    if ulp_control:
+        rewind()
+
+        def plain_nudged(p, cfg, x, kv):
+            if not nudged:
+                x1 = x.clone().reshape(-1)
+                i = int(x1.float().abs().argmax())
+                x1[i] = (x1[i].float() * (1 + 2 ** -7)).to(x.dtype)
+                x = x1.reshape(x.shape)
+            return decode_layers_plain(p, cfg, x, kv)
+
+        for t in fed:
+            nudged.append(loop_logits(torch, eng, t, plain_nudged))
     del k0, v0
 
     def stats(xs, ys):
@@ -951,6 +1131,8 @@ def compare_routes(torch, eng, ids, tol: float, enforce_loop: bool,
 
     out = dict(steps=steps, tol=tol, kernel_vs_plain=stats(fused, plain),
                fused_vs_loop=stats(fused, loop), plain_vs_loop=stats(plain, loop))
+    if nudged:
+        out["plain_one_ulp_vs_plain"] = stats(nudged, plain)
     if not all(np.isfinite(a).all() for a in fused):
         fail("fused route: non-finite logits")
     if not out["kernel_vs_plain"]["max_rel"] <= kernel_tol:
@@ -1130,13 +1312,15 @@ def post_all(base: str, bodies: list[dict]) -> list[dict]:
 
 def serve_http_run(torch, path: str, kind: str, rng, vocab: int, tmp: Path,
                    lens=SERVE_PROMPT_LENS, per_step=SERVE_PER_STEP,
-                   per_chunk=SERVE_PER_CHUNK, name: str = "8b_serve") -> dict:
+                   model: str = "8b", name: str = "8b_serve") -> dict:
     """The server as a user starts it, with 4 slots of 4096 tokens and a
     ``kind`` cache: two warm requests (other prompts, so no prefix cache
     hit flatters the times), then 8 timed requests of ``lens`` prompt
     tokens at once.  The server's /metrics before and after them give the
     run's tokens, times, decode steps, prefill chunks and the kernels'
-    device launch counts, held to ``per_step`` and ``per_chunk``."""
+    device launch counts, held to ``per_step`` per decode step and, per
+    prefill chunk, to what its own length launches (``chunk_launches`` of
+    ``model``)."""
     import numpy as np
 
     log_path = tmp / f"server-{name}-{kind}.log"
@@ -1174,8 +1358,11 @@ def serve_http_run(torch, path: str, kind: str, rng, vocab: int, tmp: Path,
     launches = {m.group(1): int(v) for k, v in d.items()
                 if (m := re.fullmatch(r'kernel_launches_total\{kernel="(\w+)"\}', k))}
     steps, chunks = int(d["decode_steps_total"]), int(d["prefill_chunks_total"])
-    want = {k: per_step[kind].get(k, 0) * steps + per_chunk[kind].get(k, 0) * chunks
-            for k in {*per_step[kind], *per_chunk[kind]}}
+    chunk_ts = [t for n in lens for t in prompt_chunks(n)]
+    want = {k: per_step[kind].get(k, 0) * steps for k in {*per_step[kind], *CHUNK_KERNELS}}
+    for t in chunk_ts:
+        for k, v in chunk_launches(model, kind, t).items():
+            want[k] += v
     n_out = sum(r.get("completion_tokens", 0) for r in results)
     ttft = [r["ttft_ms"] for r in results if r.get("ttft_ms") is not None]
     out = dict(
@@ -1203,9 +1390,10 @@ def serve_http_run(torch, path: str, kind: str, rng, vocab: int, tmp: Path,
             d["prompt_tokens_total"] != out["prompt_tokens"]:
         fail(f"{name} {kind}: /metrics {d} does not add up to the responses "
              f"({n_out} tokens, {out['prompt_tokens']} prompt tokens)")
-    if not steps or any(launches.get(k) != v for k, v in want.items()):
+    if not steps or chunks != len(chunk_ts) or any(launches.get(k) != v
+                                                   for k, v in want.items()):
         fail(f"{name} {kind}: the server launched {launches} in {steps} decode steps "
-             f"and {chunks} prefill chunks, want {want}")
+             f"and {chunks} prefill chunks (want {len(chunk_ts)}: {chunk_ts}), want {want}")
     return out
 
 
@@ -1571,14 +1759,13 @@ def phase_gemma3_4b(torch, paths: dict, tmp: Path):
     for what in ("first_two_layers", "per_layer"):
         if not full[what] <= TOL:
             fail(f"gemma3_4b: K6 at full depth, {what} {full[what]} > {TOL}")
-    # Over 8 steps through all 34 layers the kernel's summation order moves
-    # its logits from the plain version's by 1.5-1.6e-2 from run to run
-    # (the post-norms carry a rounding through depth): held at the Q4_K_M
-    # bound.  The fused route against the loop is reported: at 34 layers
-    # the JAX package's own K6 sits beyond the Q4_K_M check from its scan
+    # Over 8 steps through all 34 layers the kernel against its plain
+    # version (the sums now in a fixed order: the same reading every run).
+    # The fused route against the loop is reported: at 34 layers the JAX
+    # package's own K6 sits beyond the Q4_K_M check from its scan
     # (tests/test_torch_gemma3.py::test_gemma_loop_gap_matches_jax_reference
     # holds the port to that gap)
-    cmp = compare_routes(torch, eng, ids, TOL_Q4KM, enforce_loop=False, kernel_tol=TOL_Q4KM)
+    cmp = compare_routes(torch, eng, ids, TOL_Q4KM, enforce_loop=False)
     emit(phase="gemma3_4b", synth_write_s=t_write, gguf_bytes=path.stat().st_size,
          load_s=t_load, prompt_tokens=len(ids), prefill_s=prefill_s,
          prefill_tok_s=len(ids) / prefill_s, prefill_launches=prefill_launches,
@@ -1604,7 +1791,7 @@ def phase_gemma3_4b_serve(torch, paths: dict, tmp: Path, eng) -> None:
     rng = np.random.default_rng(5)
     for kind in ("bf16", "q8"):
         out = serve_http_run(torch, str(path), kind, rng, V - 2, tmp, lens=GEMMA_SERVE_LENS,
-                             per_step=GEMMA_PER_STEP, per_chunk=GEMMA_PER_CHUNK,
+                             per_step=GEMMA_PER_STEP, model="gemma3_4b",
                              name="gemma3_4b_serve")
         paths[f"gemma3_4b_serve_http_{kind}"] = out["launches"]
         emit(phase="gemma3_4b_serve_http", **out)
@@ -1621,12 +1808,11 @@ def phase_gemma3_4b_serve(torch, paths: dict, tmp: Path, eng) -> None:
                                              for n in lens], rng)
         emit(phase="gemma3_4b_serve_engine", kind=kind, kv_bytes=be.kv.nbytes,
              n_past=lens, batched_vs_single=held)
-        # 8 steps through 34 layers: 1.1-2.0e-2 from run to run (the
-        # summation order's rounding carried through depth), so the Q4_K_M
-        # bound; a slot's wrong row or position moves it by O(1)
-        if not held["worst_rel"] <= TOL_Q4KM:
+        # 8 steps through 34 layers, the sums in a fixed order: one reading
+        # per build; a slot's wrong row or position moves it by O(1)
+        if not held["worst_rel"] <= TOL:
             fail(f"gemma3_4b_serve {kind}: batched vs single-slot logits "
-                 f"{held['worst_rel']} > {TOL_Q4KM}")
+                 f"{held['worst_rel']} > {TOL}")
         del be
 
 
@@ -1810,6 +1996,334 @@ def phase_mixtral_q8_0(torch, paths: dict, tmp: Path) -> None:
     path.unlink()
     torch.cuda.empty_cache()
 
+def single_stream(torch, name: str, eng, n_prompt: int, kernel: str, mode: str,
+                  paths: dict) -> tuple:
+    """A ragged prefill, then a greedy ``generate`` of 32 tokens through the
+    decode kernel's ``mode``, one launch per token; the phase's launches."""
+    ids = prompt_ids(eng, 300)[:n_prompt]
+    eng.reset()
+    kernel_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = kernel_counts()
+    kernel_counts(reset=True)
+    _, toks = eng.generate(eng.tokenizer.detokenize(ids), n_predict=32, stop_on_eog=False)
+    torch.cuda.synchronize()
+    paths[name] = launches = kernel_counts()
+    logits = eng.decode_one(toks[-1])
+    if len(toks) != 32 or not all(0 <= t < eng.cfg.n_vocab for t in toks):
+        raise AssertionError(f"{name}: bad generated tokens {toks}")
+    if logits.shape != (eng.cfg.n_vocab,) or not bool(
+            torch.isfinite(torch.from_numpy(logits)).all()):
+        raise AssertionError(f"{name}: logits of the wrong shape or not finite")
+    if (launches[kernel], launches[mode]) != (32, 32) or launches["gemv_nib4c"] \
+            or launches["flash_decode"] or launches["rqmm_int8"]:
+        raise AssertionError(f"{name}: decode went elsewhere than {mode}: {launches}")
+    return ids, dict(prompt_tokens=len(ids), prefill_s=prefill_s,
+                     prefill_tok_s=len(ids) / prefill_s, prefill_launches=prefill_launches,
+                     generate_perf=eng.perf.summary(), generate_launches=launches)
+
+
+def phase_qwen3_8b(torch, paths: dict, tmp: Path):
+    """Qwen3-8B Q4_K_M at full width and depth: synth write, load, a ragged
+    1,499-token prefill (K4; the folded projections take the dequant
+    matmul), ``generate`` and ``decode_fused`` through K6's qk-norm mode
+    (its gemma instantiation with no post-norms: one launch per token, and
+    the Q6_K head's K1), K6 against its plain version at full depth from one
+    state (the first two layers and each layer alone held to TOL), and 8
+    steps of the fused route against its plain version (TOL) and the
+    per-layer loop (TOL_Q4KM)."""
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = tmp / "synth-qwen3-8b-q4km.gguf"
+    t0 = time.perf_counter()
+    write_synth(str(path), "qwen3-8b-q4_k_m", seed=0)
+    t_write = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine.from_gguf(str(path), max_seq=8192)
+    t_load = time.perf_counter() - t0
+    mem_weights = torch.cuda.memory_allocated()
+    cfg = eng.cfg
+    if not (cfg.qk_norm and not cfg.post_attn_norm and cfg.act_fn == "silu"):
+        raise AssertionError(f"qwen3_8b: not qwen3's modes: {cfg}")
+    route = decode_route(eng.params, cfg, eng.kv)
+    if route != "k6":
+        raise AssertionError(f"qwen3_8b: decode route {route}, want k6")
+    ids, single = single_stream(torch, "qwen3_8b", eng, QWEN3_PROMPT_TOKENS, "decode_stream",
+                                "decode_stream_gemma", paths)
+    if single["prefill_launches"]["flash_attention"] != QWEN3_L:
+        raise AssertionError(f"qwen3_8b: prefill launches {single['prefill_launches']}")
+    out = fused_run(torch, eng, ids, "decode_stream",
+                    want={"decode_stream": 1.0, "decode_stream_gemma": 1.0, "gemv_int8": 1.0,
+                          "gemv_nib4c": 0.0, "flash_decode": 0.0})
+    full, _, caches = decode_errors(torch, eng, k6.fused_decode_step_streamed,
+                                    k6.decode_layers_plain, 1, 3000,
+                                    torch.tensor([[7]], device=eng.device))
+    del caches
+    torch.cuda.empty_cache()
+    for what in ("first_two_layers", "per_layer"):
+        if not full[what] <= TOL:
+            fail(f"qwen3_8b: K6 at full depth, {what} {full[what]} > {TOL}")
+    cmp = compare_routes(torch, eng, ids, TOL_Q4KM, enforce_loop=True)
+    nbytes, macs = weight_bytes_macs(eng.params)
+    emit(phase="qwen3_8b", synth_write_s=t_write, gguf_bytes=path.stat().st_size,
+         load_s=t_load, route=route, **single, weights_and_cache_bytes=mem_weights,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         layer_weight_bytes=nbytes / cfg.n_layers,
+         k6_bound_ms_per_token=bound(nbytes, 2 * macs)[0], **out,
+         full_depth_vs_plain={k: v for k, v in full.items() if k != "finite"},
+         layer_loop_comparison=cmp)
+    return eng
+
+
+def phase_qwen3_8b_serve(torch, paths: dict, tmp: Path, eng) -> None:
+    """The server on Qwen3-8B Q4_K_M at 4 slots x 4096, bf16 (K6's qk-norm
+    mode at B 4) then q8 (the loop), 8 ragged requests, launches per step
+    and per chunk (each chunk's own T) from /metrics; then
+    ``BatchedEngine`` on the single-stream engine's weights, 4 slots at
+    n_past 256-3000, held against each slot alone with either cache."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.runtime.batch_engine import BatchedEngine
+
+    path = tmp / "synth-qwen3-8b-q4km.gguf"
+    V = eng.cfg.n_vocab
+    rng = np.random.default_rng(6)
+    for kind in ("bf16", "q8"):
+        out = serve_http_run(torch, str(path), kind, rng, V, tmp, lens=QWEN3_SERVE_LENS,
+                             per_step=QWEN3_PER_STEP, model="qwen3_8b",
+                             name="qwen3_8b_serve")
+        paths[f"qwen3_8b_serve_http_{kind}"] = out["launches"]
+        emit(phase="qwen3_8b_serve_http", **out)
+    for kind in ("bf16", "q8"):
+        torch.cuda.empty_cache()
+        be = BatchedEngine(eng.cfg, eng.params, eng.tokenizer, n_slots=4, max_seq=4096,
+                           kv_cache_dtype="q8" if kind == "q8" else torch.bfloat16,
+                           device=eng.device)
+        be.warmup()
+        if be._step.graph is None:
+            fail(f"qwen3_8b_serve {kind}: the decode step was not captured")
+        lens = (256, 700, 1500, 3000)
+        held = batched_vs_single(torch, be, [[int(t) for t in rng.integers(3, V, n)]
+                                             for n in lens], rng)
+        emit(phase="qwen3_8b_serve_engine", kind=kind, kv_bytes=be.kv.nbytes, n_past=lens,
+             batched_vs_single=held)
+        if not held["worst_rel"] <= TOL:
+            fail(f"qwen3_8b_serve {kind}: batched vs single-slot logits "
+                 f"{held['worst_rel']} > {TOL}")
+        del be
+
+
+def phase_qwen3moe(torch, paths: dict, tmp: Path) -> None:
+    """Qwen3-30B-A3B Q4_K_M at full width (``QWEN3MOE_LAYERS`` layers; 128
+    nib4c experts of 768 padded to 1024, top 8 renormalised): load, a
+    greedy ``generate`` and ``decode_fused`` through K6's MoE branch with
+    qk-norm (one launch per token), K6 against its plain version at full
+    depth from one state (the first two layers and each layer alone held to
+    TOL, each layer alone choosing the plain version's experts; the whole
+    stack's ids reported: a near-tie's order swap there moves every later
+    layer), and the fused route against its plain version over 8 steps
+    (TOL_Q4KM: the stack's own one-ulp spread is ~0.6); against the loop
+    reported (the loop's router reads the bf16 h, K6's the f32 h2: over 48
+    layers x 128 experts a near-tie the two break apart is expected,
+    ROADMAP reference-side fact 6)."""
+    import os
+
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = tmp / "synth-qwen3moe-q4km.gguf"
+    t0 = time.perf_counter()
+    write_synth(str(path), "qwen3moe-30b-a3b-q4_k_m", seed=0, n_layers=QWEN3MOE_LAYERS)
+    t_write = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine.from_gguf(str(path), max_seq=8192)
+    t_load = time.perf_counter() - t0
+    mem_weights = torch.cuda.memory_allocated()
+    route = decode_route(eng.params, eng.cfg, eng.kv)
+    if route != "k6":
+        raise AssertionError(f"qwen3moe_30b_a3b: decode route {route}, want k6")
+    ids, single = single_stream(torch, "qwen3moe_30b_a3b", eng, 300, "decode_stream",
+                                "decode_stream_moe_gemma", paths)
+    chosen = k6.last_expert_ids(eng.params, eng.kv).tolist()
+    nbytes, macs = weight_bytes_macs(eng.params, chosen)
+    head = eng.params["lm_head"]
+    nbytes += sum(t.numel() * t.element_size() for t in (head.q, head.s, head.m, head.sd,
+                                                         head.md) if t is not None)
+    fused = fused_run(torch, eng, ids, "decode_stream",
+                      want={"decode_stream": 1.0, "decode_stream_moe_gemma": 1.0,
+                            "gemv_int8": 1.0, "gemv_nib4c": 0.0, "flash_decode": 0.0,
+                            "rqmm_int8": 0.0})
+    full, _, caches = decode_errors(torch, eng, k6.fused_decode_step_streamed,
+                                    k6.decode_layers_plain, 1, 3000,
+                                    torch.tensor([[7]], device=eng.device))
+    del caches
+    torch.cuda.empty_cache()
+    if full["per_layer_expert_sets_differ"]:
+        fail(f"qwen3moe_30b_a3b: a layer alone chose other experts than the plain version: "
+             f"{full['per_layer_expert_sets_differ']}")
+    for what in ("first_two_layers", "per_layer"):
+        if not full[what] <= TOL:
+            fail(f"qwen3moe_30b_a3b: K6 at full depth, {what} {full[what]} > {TOL}")
+    # 8 steps through 48 layers of 128 random experts: one bf16 ulp on x
+    # moves the plain version's own output by ~0.6 at full depth
+    # (``one_ulp_spread``), so the fused route is held to its plain version
+    # at the Q4_K_M bound, beside the plain version's own 8-step spread
+    # from one ulp (``plain_one_ulp_vs_plain``); each layer alone is held to
+    # TOL above
+    cmp = qwen3moe_routes(torch, eng, ids)
+    emit(phase="qwen3moe_30b_a3b", layers=eng.cfg.n_layers, synth_write_s=t_write,
+         gguf_bytes=os.path.getsize(path), load_s=t_load, route=route, **single,
+         weights_and_cache_bytes=mem_weights,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         active_weight_bytes_per_token=nbytes, weight_macs_per_token=macs,
+         bound_ms_per_token=bound(nbytes, 2 * macs)[0], expert_ids_last_step=chosen,
+         full_depth_vs_plain={k: v for k, v in full.items() if k != "finite"},
+         **fused, layer_loop_comparison=cmp)
+    del eng
+    path.unlink()
+    torch.cuda.empty_cache()
+
+
+def qwen3moe_routes(torch, eng, ids) -> dict:
+    """Qwen3-30B-A3B's 8 fused steps against its plain version (held at
+    TOL_Q4KM) and the per-layer loop (reported), with the one-ulp control."""
+    return compare_routes(torch, eng, ids, TOL_Q4KM, enforce_loop=False,
+                          kernel_tol=TOL_Q4KM, ulp_control=True)
+
+
+def loop_vs_cpu(torch, name: str, path: str, n_prompt: int, per_token: dict,
+                paths: dict, steps: int = 4) -> dict:
+    """A stack the decode kernels' gates refuse, through the per-layer loop
+    on the card and on the CPU (the plain versions), from the same ragged
+    prompt: the prefill and ``steps`` decode steps fed the card's greedy
+    tokens, held with the Q4_K_M check (allclose at TOL_Q4KM); the card's
+    decode launches per token held to ``per_token``."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
+    from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
+    from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+
+    card = Engine.from_gguf(path, max_seq=4096)
+    if decode_route(card.params, card.cfg, card.kv) is not None or \
+            k6._stream_ok(card.params, card.cfg, card.kv, 1, 1) or \
+            k7._fused_ok(card.params, card.cfg, card.kv, 1, 1):
+        raise AssertionError(f"{name}: a decode kernel's gate takes the biased stack")
+    ids = prompt_ids(card, 300)[:n_prompt]
+    kernel_counts(reset=True)
+    a = [card.prefill(ids)]
+    torch.cuda.synchronize()
+    prefill_launches = kernel_counts()
+    kernel_counts(reset=True)
+    fed = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fed.append(int(np.argmax(a[-1])))
+        a.append(card.decode_one(fed[-1]))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    paths[name] = launches = kernel_counts()
+    want = {k: v * steps for k, v in per_token.items()}
+    if any(launches.get(k) != v for k, v in want.items()):
+        fail(f"{name}: decode launched {launches} in {steps} tokens, want {want}")
+    del card
+    torch.cuda.empty_cache()
+    cpu = Engine.from_gguf(path, max_seq=4096, device="cpu")
+    b = [cpu.prefill(ids)] + [cpu.decode_one(t) for t in fed]
+    ratio = max(float((np.abs(x - y) / (TOL_Q4KM + TOL_Q4KM * np.abs(y))).max())
+                for x, y in zip(a, b))
+    rel = [float(np.abs(x - y).max() / np.abs(y).max()) for x, y in zip(a, b)]
+    if not all(np.isfinite(x).all() for x in a) or not ratio <= 1:
+        fail(f"{name}: the card's loop vs the CPU's: max rel {rel}, allclose ratio {ratio} "
+             f"at {TOL_Q4KM}")
+    return dict(prompt_tokens=len(ids), prefill_launches=prefill_launches,
+                decode_launches=launches, decode_tok_s=steps / decode_s,
+                card_vs_cpu_rel=rel, card_vs_cpu_allclose_ratio=ratio)
+
+
+def phase_qwen2_7b(torch, paths: dict, tmp: Path) -> None:
+    """Qwen2.5-7B Q4_K_M at full width, ``QWEN2_LAYERS`` of 28 layers: q/k/v
+    biases (K6 and K7 refuse them, as JAX's gates do), so decode is the
+    per-layer loop: per layer K1 on the fused q|k|v (its nib4c q and k
+    repacked to int8 beside the Q6_K v, as the JAX loader fuses a biased
+    stack), K2 on o, gate|up and down, K3 at G 7; plus the head's K1.
+    Prefill of 101 tokens: K4 at G 7.  Held against the CPU's plain loop."""
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = str(tmp / "synth-qwen2-7b-q4km.gguf")
+    t0 = time.perf_counter()
+    write_synth(path, "qwen2-7b-q4_k_m", seed=0, n_layers=QWEN2_LAYERS)
+    t_write = time.perf_counter() - t0
+    L = QWEN2_LAYERS
+    out = loop_vs_cpu(torch, "qwen2_7b", path, 101,
+                      {"gemv_int8": L + 1, "gemv_nib4c": 3 * L, "flash_decode": L,
+                       "decode_stream": 0, "decode_step": 0}, paths)
+    if out["prefill_launches"]["flash_attention"] != L:
+        fail(f"qwen2_7b: prefill launches {out['prefill_launches']}")
+    emit(phase="qwen2_7b", layers=L, synth_write_s=t_write, **out)
+    Path(path).unlink()
+
+
+def phase_qwen2moe(torch, paths: dict, tmp: Path) -> None:
+    """Qwen1.5-MoE-A2.7B Q8_0 at full width, ``QWEN2_LAYERS`` of 24 layers,
+    with its q/k/v biases: the decode kernels' gates refuse it (as JAX's
+    do), so decode is the loop: per layer K1 on q|k|v, o and the shared
+    expert's gate|up and down, K8 on the 4 chosen experts' gate, up and
+    down (3 launches), K3; plus the head's K1; held against the CPU's plain
+    loop.  Then the same widths without the biases, 2 layers, through
+    ``decode_fused``: K6's shared-expert mode, once per token."""
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = str(tmp / "synth-qwen2moe-q8_0.gguf")
+    t0 = time.perf_counter()
+    write_synth(path, "qwen2moe-a2.7b-q8_0", seed=0, n_layers=QWEN2_LAYERS)
+    t_write = time.perf_counter() - t0
+    L = QWEN2_LAYERS
+    out = loop_vs_cpu(torch, "qwen2moe_a2_7b", path, 101,
+                      {"gemv_int8": 4 * L + 1, "rqmm_int8": 3 * L, "flash_decode": L,
+                       "gemv_nib4c": 0, "decode_stream": 0, "decode_step": 0}, paths)
+    Path(path).unlink()
+    path = str(tmp / "synth-qwen2moe-q8_0-nobias.gguf")
+    write_synth(path, "qwen2moe-a2.7b-q8_0", seed=0, n_layers=2, attn_bias=False)
+    eng = Engine.from_gguf(path, max_seq=4096)
+    route = decode_route(eng.params, eng.cfg, eng.kv)
+    if route != "k6":
+        raise AssertionError(f"qwen2moe without biases: decode route {route}, want k6")
+    ids = prompt_ids(eng)[:301]
+    kernel_counts(reset=True)
+    _, toks = eng.generate(eng.tokenizer.detokenize(ids), n_predict=16, stop_on_eog=False)
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    if (launches["decode_stream_moe"], launches["decode_stream_shexp"]) != (16, 16):
+        raise AssertionError(f"qwen2moe without biases: decode went elsewhere than K6's "
+                             f"shared-expert mode: {launches}")
+    fused = fused_run(torch, eng, ids, "decode_stream",
+                      want={"decode_stream": 1.0, "decode_stream_moe": 1.0,
+                            "decode_stream_shexp": 1.0, "gemv_int8": 1.0, "rqmm_int8": 0.0,
+                            "flash_decode": 0.0})
+    paths["qwen2moe_shexp"] = fused["launches"]
+    emit(phase="qwen2moe_a2_7b", layers=L, synth_write_s=t_write, **out,
+         shexp_route=route, shexp_generate_launches=launches, shexp_fused=fused)
+    del eng
+    Path(path).unlink()
+    torch.cuda.empty_cache()
+
 
 def phase_tinydoc(torch, paths: dict) -> None:
     import numpy as np
@@ -1949,24 +2463,29 @@ def decode_errors_of_copy(torch, fault: str) -> None:
     from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
     from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
     from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
     from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
 
     with tempfile.TemporaryDirectory() as tmp:
-        for name, preset, L, kern in (
-                ("decode_stream", "8b", 2, k6.fused_decode_step_streamed),
-                ("decode_stream_moe", "mixtral-q4_k_m", 2, k6.fused_decode_step_streamed),
-                ("decode_step", "270m-q8_0", None, k7.fused_decode_step),
-                ("decode_stream_gemma", "gemma3-4b-q4_k_m", 6, k6.fused_decode_step_streamed),
-                ("decode_step_gemma", "gemma3-270m-q8_0", None, k7.fused_decode_step)):
-            eng = Engine.from_gguf(write_synth(f"{tmp}/{preset}.gguf", preset, seed=0,
-                                               n_layers=L, n_vocab=512), max_seq=4096)
+        for name, preset, L, _, synth in kt.DECODE_CASES:
+            eng, path = kt.decode_engine(tmp, preset, L, **synth)
+            kern = (k7.fused_decode_step if name.startswith("decode_step")
+                    else k6.fused_decode_step_streamed)
             toks = torch.tensor([[7]], device=eng.device)
             errs, _, _ = decode_errors(torch, eng, kern, k6.decode_layers_plain, 1,
                                        700, toks)
             emit(phase="planted_fault", fault=fault, kernel=name,
                  layers=eng.cfg.n_layers, rel_err=errs, tol=TOL)
             del eng
+            Path(path).unlink()
             torch.cuda.empty_cache()
+        if fault == "moe_qk_norm_skipped":  # the qwen3moe phase's 8-step hold
+            path = write_synth(f"{tmp}/qwen3moe.gguf", "qwen3moe-30b-a3b-q4_k_m", seed=0,
+                               n_layers=QWEN3MOE_LAYERS)
+            eng = Engine.from_gguf(path, max_seq=8192)
+            emit(phase="planted_fault", fault=fault, kernel="decode_stream_moe_qk_norm",
+                 layers=eng.cfg.n_layers, eight_steps=qwen3moe_routes(
+                     torch, eng, prompt_ids(eng, 300)[:300]))
 
 
 def main() -> None:
@@ -2017,10 +2536,20 @@ def main() -> None:
         del eng
         torch.cuda.empty_cache()
         run_phase("gemma3_270m_q8_0", phase_gemma3_270m, torch, paths, tmp)
+        torch.cuda.empty_cache()
+        eng = run_phase("qwen3_8b", phase_qwen3_8b, torch, paths, tmp)
+        if eng is not None:
+            run_phase("qwen3_8b_serve", phase_qwen3_8b_serve, torch, paths, tmp, eng)
+        del eng
+        torch.cuda.empty_cache()
+        run_phase("qwen3moe_30b_a3b", phase_qwen3moe, torch, paths, tmp)
+        run_phase("qwen2_7b", phase_qwen2_7b, torch, paths, tmp)
+        run_phase("qwen2moe_a2_7b", phase_qwen2moe, torch, paths, tmp)
     run_phase("tinydoc", phase_tinydoc, torch, paths)
     run_phase("tinydoc_batched", phase_tinydoc_batched, torch, paths)
 
-    idle = [k for k, p in KERNEL_PATH.items() if not paths.get(p, {}).get(k)]
+    idle = [k for k, p in KERNEL_PATH.items()
+            if not paths.get(p, {}).get(COUNT_NAME.get(k, k))]
     if idle:
         fail(f"kernels never launched on their path: {idle}")
     if FAILURES:
@@ -2034,13 +2563,15 @@ def main() -> None:
             "flash_decode_shared": "8b B=4", "flash_decode_int8_shared": "8b B=4",
             "flash_attention_int8": "8b T=256 n_past=700",
             "rqmm_int8": "gate 4096x14336 P=2", "decode_stream_moe": "n_past=3000 nib4c",
-            "decode_stream_gemma": "B=1 n_past=3000", "decode_step_gemma": "B=1 n_past=3000"}
+            "decode_stream_gemma": "B=1 n_past=3000", "decode_step_gemma": "B=1 n_past=3000",
+            "decode_stream_qk_norm": "B=1 n_past=3000",
+            "decode_stream_moe_qk_norm": "n_past=3000", "decode_stream_shexp": "n_past=3000 gate"}
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = next(r for r in results[name] if pick[name] in r["case"])
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=paths[KERNEL_PATH[name]][name],
+            launches=paths[KERNEL_PATH[name]][COUNT_NAME.get(name, name)],
             max_abs_err=max(x["max_abs_err"] for x in results[name]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))

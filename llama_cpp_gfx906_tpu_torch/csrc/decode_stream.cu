@@ -7,12 +7,16 @@
 // plain or folded scales and affine mins, a fused q|k|v or split-v (q|k
 // fused, v apart) layout, NORM/NEOX rope, per-layer sliding windows, silu,
 // bf16 or f32 KV, and the MoE FFN (B = 1: router, softmax or sigmoid,
-// top-k, renorm and scale, then only the chosen experts' slices); and the
+// top-k, renorm and scale, then only the chosen experts' slices, with an
+// optional always-on shared expert and its sigmoid gate, qwen2moe); and the
 // gemma modes (GEMMA instantiations, K6 and K7): per-head q/k RMS norms
 // before rope, the rope table chosen per layer by its SWA flag, the
-// post-attention and post-FFN norms, gelu (tanh or erf).  K7 is the
-// instantiation with B = 1, int8 weights and plain scales (its own C entry
-// point); its gate picks it.  Not ported yet: the MoE shared expert.
+// post-attention and post-FFN norms, gelu (tanh or erf).  The GEMMA flags
+// are runtime switches, so qk-norm alone (qwen3: no post-norms, silu, one
+// rope table) is the gemma instantiation with has_post = 0, and an MoE
+// stack with qk-norm (qwen3moe) the instantiation with MOE and GEMMA.  K7
+// is the instantiation with B = 1, int8 weights and plain scales (its own C
+// entry point); its gate picks it.
 //
 // Per layer (x: the f32 carry, B rows):
 //   P1  h = rms(x) * attn_norm, bf16;  qkv = h · Wqkv (and h · Wv)
@@ -52,10 +56,19 @@
 //       k x 2 x their tiles, expert e's planes at base + e * stride)
 //   P7  per expert j: y = bf16(bf16(silu(g)) * bf16(u)) from the f32 gate
 //       and up; mlp += w_j * (y · Wdown_j), each unit's partial sums scaled
-//       by w_j before their atomicAdd
+//       by w_j before the tile's ordered sum (tile_store)
 // Expert planes are int8 or nib4c with plain f32 scales (never folded,
 // while the dense projections may be).  Block 0 writes the chosen ids to
 // eids (L, k), so a check can tell a router near-tie from a fault.
+// The shared expert (has_shexp; its planes in the dense gate|up and down
+// slots of the table, as the JAX kernel streams it through the dense
+// windows) adds no barrier: P6 runs its gate|up units after the chosen
+// experts' (into gu_acc after their rows), every block computing the
+// optional gate sigmoid(h2 · shexp_gate_inp) itself from the f32 h2 it
+// staged for the router; P7 runs its down units before the experts' and
+// scales their partial sums by that gate:
+//   mlp = shexp_down(bf16(bf16(silu(bf16(g))) * bf16(u))) * gate
+//         + sum_j w_j * expert_down_j.
 //
 // Bound on the card: the weight bytes of every layer plus the live KV, read
 // once per step (B <= 8 rows ride the same weight stream).  Design:
@@ -64,7 +77,13 @@
 //     and takes its per-layer planes from a device table built at load
 //     time, so a step can be captured in a CUDA graph;
 //   - GEMVs: work units (128-column tile x K segment) of K1/K2's tile
-//     (gemv_tile.cuh) spread over all blocks, partial sums by atomicAdd;
+//     (gemv_tile.cuh) spread over all blocks; each unit stores its
+//     segment's partial sums to scratch (gpart) and the last unit of a
+//     column tile to arrive (counters gcnt, zero at rest) adds them in
+//     segment order into the accumulator before the phase's barrier: the
+//     same bits from launch to launch, and readers read one final value
+//     (the MoE down projections share one order: shared expert, then
+//     expert 0, 1, ... each scaled by its weight);
 //   - attention: each slot's live rows are split over blocks (split-K), so
 //     B = 1 still fills the card (K3 gets one block per KV head); two
 //     passes over the keys (P2, P3) make every split round p against the
@@ -94,14 +113,15 @@ constexpr int NT = GT_NT;
 constexpr int NWARP = NT / 32;
 // per layer: 5 projections x 5 planes, 2 norms, window; MoE: the router,
 // then 3 expert tensors x (q, s, m bases, q stride, s stride in bytes);
-// gemma: q_norm, k_norm, post_attn_norm, post_ffn_norm, the SWA flag
-constexpr int TABLE_W = 49;
+// gemma: q_norm, k_norm, post_attn_norm, post_ffn_norm, the SWA flag; the
+// shared expert's gate vector (f32, D; 0 without one)
+constexpr int TABLE_W = 50;
 constexpr int NPROJ = 8;
 enum { P_QKV = 0, P_V = 1, P_O = 2, P_GU = 3, P_DN = 4, P_EG = 5, P_EU = 6,
        P_ED = 7 };
 constexpr int T_ANORM = 25, T_FNORM = 26, T_WINDOW = 27, T_ROUTER = 28,
               T_EXP = 29, T_QNORM = 44, T_KNORM = 45, T_PANORM = 46,
-              T_PFNORM = 47, T_SWA = 48;
+              T_PFNORM = 47, T_SWA = 48, T_SGI = 49;
 constexpr int MAX_E = 256;      // router lanes
 constexpr int MAX_K = 8;        // experts per token
 constexpr int KT = 64;          // keys per attention tile
@@ -129,20 +149,22 @@ struct DecodeArgs {
   float* xin;              // (MP, D) layer input
   float* xmid;             // (MP, D) after the attention residual
   float* xout;             // (MP, D) result
-  float* qkv_acc;          // (MP, Nqkv) GEMV accumulators, zeroed by the
-  float* o_acc;            // (MP, D)    caller before the launch
-  float* gu_acc;           // (MP, 2F)
+  float* qkv_acc;          // (MP, Nqkv) GEMV results
+  float* o_acc;            // (MP, D)
+  float* gu_acc;           // (MP, 2F); MoE: k x (gate, up) x EF, then 2 Fs
   float* dn_acc;           // (MP, D)
   float* obuf;             // (MP, Hq*Dh) attention output, bf16-valued
   float* part;             // (B, Hkv, nsplit, G, Dh + 2) split partials
   float* selfs;            // (B, Hq) self-term scores
   unsigned* bar;           // barrier count and generation, zero at rest
   int* eids;               // (L, topk) the chosen experts (MoE)
+  float* gpart;            // GEMV partial sums by segment (scratch)
+  unsigned* gcnt;          // GEMV column-tile arrival counters, zero at rest
   ProjDims proj[NPROJ];
   int L, B, D, Hq, Hkv, Dh, F, S, nsplit, split_v, interleaved;
-  int gu_len;              // floats of gu_acc (MoE: topk x 2 x expert N)
   int n_exp, topk, gating_sigmoid, wnorm;  // MoE routing
   int has_qk, has_post, act;  // gemma: qk-norm, post-norms, 0 silu 1 gelu-tanh 2 gelu-erf
+  int Fs, has_shexp;       // MoE: the shared expert's FF width, and whether it exists
   float scale, eps, wscale;
 };
 
@@ -164,11 +186,6 @@ __device__ __forceinline__ void grid_sync(unsigned* bar) {
     __threadfence();
   }
   __syncthreads();
-}
-
-__device__ __forceinline__ void zero_grid(float* p, int n) {
-  for (int i = blockIdx.x * NT + threadIdx.x; i < n; i += gridDim.x * NT)
-    p[i] = 0.f;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -213,51 +230,66 @@ __device__ __forceinline__ void row_rms(SRC src, int B, int D, float eps,
   __syncthreads();
 }
 
+__device__ __forceinline__ int gemv_tiles(const ProjDims& p) {
+  return (p.N + GT_TN - 1) / GT_TN;
+}
+__device__ __forceinline__ int gemv_splits(const ProjDims& p) {
+  return (p.nib ? p.K / 2 : p.K) / p.seg;
+}
 __device__ __forceinline__ int gemv_units(const ProjDims& p) {
-  const int rows = p.nib ? p.K / 2 : p.K;
-  return ((p.N + GT_TN - 1) / GT_TN) * (rows / p.seg);
+  return gemv_tiles(p) * gemv_splits(p);
 }
 
-// unit u of projection p (planes: q, s, m, sd, md addresses) into out
+// unit u of projection p (planes: q, s, m, sd, md addresses): its column
+// tile's sums go to out (row stride out_ld) through the scratch at
+// a.gpart + poff and the counters at a.gcnt + coff, the unit's segment as
+// split s0 + segment of the tile's nsplit, scaled by oscale
 template <int MP, bool FOLDED, bool NIB_OK, class XF>
-__device__ __forceinline__ void gemv_unit(XF xf, const ProjDims& p,
+__device__ __forceinline__ void gemv_unit(XF xf, const DecodeArgs& a,
+                                          const ProjDims& p,
                                           const long long* planes, float* out,
-                                          int out_ld, int u, float* smem,
-                                          float oscale = 1.f) {
+                                          int out_ld, size_t poff, int coff,
+                                          int s0, int nsplit, int u,
+                                          float* smem, float oscale = 1.f) {
   const int8_t* q = reinterpret_cast<const int8_t*>(planes[0]);
   const void* s = reinterpret_cast<const void*>(planes[1]);
   const void* mn = reinterpret_cast<const void*>(planes[2]);
   const float* sd = reinterpret_cast<const float*>(planes[3]);
   const float* md = reinterpret_cast<const float*>(planes[4]);
-  const int ntn = (p.N + GT_TN - 1) / GT_TN;
+  const int ntn = gemv_tiles(p), tn = u % ntn, tk = u / ntn;
   const int sg = FOLDED ? p.sgroup : 1;
+  const lcg::TileOut o{out, out_ld, a.gpart + poff, (size_t)MP * p.N,
+                       a.gcnt + coff + tn, s0 + tk, nsplit, oscale};
   if (NIB_OK && p.nib)
-    lcg::gemv_tile<MP, true, FOLDED, false>(xf, q, s, mn, sd, md, out, out_ld,
-                                            p.K, p.N, p.group, sg, p.ck, p.seg,
-                                            u % ntn, u / ntn, smem, oscale);
+    lcg::gemv_tile<MP, true, FOLDED, false>(xf, q, s, mn, sd, md, o, p.K, p.N,
+                                            p.group, sg, p.ck, p.seg, tn, tk, 1,
+                                            smem);
   else
-    lcg::gemv_tile<MP, false, FOLDED, true>(xf, q, s, mn, sd, md, out, out_ld,
-                                            p.K, p.N, p.group, sg, p.ck, p.seg,
-                                            u % ntn, u / ntn, smem, oscale);
+    lcg::gemv_tile<MP, false, FOLDED, true>(xf, q, s, mn, sd, md, o, p.K, p.N,
+                                            p.group, sg, p.ck, p.seg, tn, tk, 1,
+                                            smem);
 }
 
 // every unit of one projection (and of a second one, when given) over the
-// grid
+// grid, each projection with its own scratch and counters
 template <int MP, bool FOLDED, bool NIB_OK, class XF>
 __device__ __forceinline__ void gemv_phase(XF xf, const DecodeArgs& a,
                                            const long long* tb, int p0,
                                            float* out0, int p1, float* out1,
                                            int out_ld, float* smem) {
-  const int n0 = gemv_units(a.proj[p0]);
+  const ProjDims& d0 = a.proj[p0];
+  const int n0 = gemv_units(d0);
   const int n1 = p1 >= 0 ? gemv_units(a.proj[p1]) : 0;
+  const size_t poff1 = (size_t)gemv_splits(d0) * MP * d0.N;
   for (int u = blockIdx.x; u < n0 + n1; u += gridDim.x) {
     __syncthreads();  // the previous unit's reduction still reads smem
     if (u < n0)
-      gemv_unit<MP, FOLDED, NIB_OK>(xf, a.proj[p0], tb + 5 * p0, out0, out_ld,
-                                    u, smem);
+      gemv_unit<MP, FOLDED, NIB_OK>(xf, a, d0, tb + 5 * p0, out0, out_ld, 0, 0,
+                                    0, gemv_splits(d0), u, smem);
     else
-      gemv_unit<MP, FOLDED, NIB_OK>(xf, a.proj[p1], tb + 5 * p1, out1, out_ld,
-                                    u - n0, smem);
+      gemv_unit<MP, FOLDED, NIB_OK>(xf, a, a.proj[p1], tb + 5 * p1, out1,
+                                    out_ld, poff1, gemv_tiles(d0), 0,
+                                    gemv_splits(a.proj[p1]), u - n0, smem);
   }
 }
 
@@ -602,8 +634,10 @@ __device__ void merge_head(const DecodeArgs& a, int b, int qi) {
 template <int MP, bool FOLDED, bool NIB_OK, bool MOE, bool GEMMA, typename KV>
 __global__ void __launch_bounds__(NT, 1)
 decode_kernel(const __grid_constant__ DecodeArgs a) {
-  // K6 1 + bits (1 MoE, 2 gemma), K7 5 + gemma (kernels.py's slots)
+  // K6 1 + bits (1 MoE, 2 gemma), K7 5 + gemma; a shared expert also 7
+  // (kernels.py's slots)
   lcg::count_launch(NIB_OK ? 1 + MOE + 2 * GEMMA : 5 + GEMMA);
+  if (MOE && a.has_shexp) lcg::count_launch(7);
   __shared__ __align__(16) float smem[GT_SMEM_FLOATS];
   __shared__ float red[NWARP * MP], rs[MP];
   __shared__ float rs_post[GEMMA ? MP : 1], hs[GEMMA ? MAX_G : 1];
@@ -611,6 +645,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
   __shared__ float e_red[MOE ? NT : 1], e_lg[MOE ? MAX_E : 1];
   __shared__ float e_w[MAX_K];
   __shared__ int e_id[MAX_K];
+  __shared__ float e_sig;  // the shared expert's gate (MoE)
   const int B = a.B, D = a.D, F = a.F;
   const int Dq = a.Hq * a.Dh, HD = a.Hkv * a.Dh;
   const int Nqkv = Dq + 2 * HD;
@@ -652,9 +687,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     grid_sync(a.bar);
 
     // P2, P3: the attention partials in two passes (maxima, then p and
-    // P·V); the accumulators of P5 and P6 are free
-    zero_grid(a.o_acc, MP * D);
-    zero_grid(a.gu_acc, a.gu_len);
+    // P·V)
     const int nu = B * a.Hkv * a.nsplit;
     for (int u = blockIdx.x; u < nu; u += gridDim.x) {
       __syncthreads();
@@ -671,8 +704,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     }
     grid_sync(a.bar);
 
-    // P4: merge; dn_acc (read in P1) is free
-    zero_grid(a.dn_acc, MP * D);
+    // P4: merge
     for (int u = blockIdx.x * NWARP + warp; u < B * a.Hq;
          u += gridDim.x * NWARP)
       merge_head(a, u / a.Hq, u % a.Hq);
@@ -686,8 +718,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
                                    smem);
     grid_sync(a.bar);
 
-    // P6: attention residual, rms, gate|up; qkv_acc (read in P4) is free
-    zero_grid(a.qkv_acc, MP * Nqkv);
+    // P6: attention residual, rms, gate|up
     const float* pa = nullptr;  // the post-attention norm (gemma)
     if constexpr (GEMMA) {
       if (a.has_post) {
@@ -710,21 +741,49 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     };
     if constexpr (MOE) {
       // the router and top-k in every block, then the chosen experts' gate
-      // and up: expert j's gate row at gu_acc + 2j EF, its up row after it
+      // and up: expert j's gate row at gu_acc + 2j EF, its up row after it;
+      // then the shared expert's gate|up row after the experts'
       moe_route(a, l, reinterpret_cast<const float*>(tb[T_ROUTER]),
                 [&](int k) { return asrc(0, k) * rs[0] * fnorm[k]; }, smem,
                 e_red, e_lg, e_id, e_w);
-      const int EF = a.proj[P_EG].N;
-      const int ug = gemv_units(a.proj[P_EG]), uu = gemv_units(a.proj[P_EU]);
-      for (int u = blockIdx.x; u < a.topk * (ug + uu); u += gridDim.x) {
+      if (a.has_shexp) {  // its gate from the f32 h2 the router staged
+        const float* sgi = reinterpret_cast<const float*>(tb[T_SGI]);
+        float v = 0.f;
+        if (sgi != nullptr)
+          for (int k = threadIdx.x; k < D; k += NT) v = fmaf(smem[k], sgi[k], v);
+        v = warp_sum(v);
+        if (threadIdx.x % 32 == 0) e_red[warp] = v;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          float t = 0.f;
+          for (int w = 0; w < NWARP; ++w) t += e_red[w];
+          e_sig = sgi != nullptr ? 1.f / (1.f + expf(-t)) : 1.f;
+        }
+        __syncthreads();
+      }
+      const ProjDims& pe = a.proj[P_EG];
+      const int EF = pe.N, spE = gemv_splits(pe), tE = gemv_tiles(pe);
+      const int ug = gemv_units(pe), uu = gemv_units(a.proj[P_EU]);
+      const int ne = a.topk * (ug + uu);
+      const int ns = a.has_shexp ? gemv_units(a.proj[P_GU]) : 0;
+      for (int u = blockIdx.x; u < ne + ns; u += gridDim.x) {
         __syncthreads();  // smem: the router's h2, or the last unit
-        const int j = u / (ug + uu), r = u % (ug + uu);
-        const int up = r >= ug;
-        long long planes[5];
-        expert_planes(tb, up, e_id[j], planes);
-        gemv_unit<MP, false, NIB_OK>(h2src, a.proj[P_EG + up], planes,
-                                     a.gu_acc + (size_t)(2 * j + up) * EF, EF,
-                                     up ? r - ug : r, smem);
+        if (u < ne) {
+          const int j = u / (ug + uu), r = u % (ug + uu);
+          const int up = r >= ug, slot = 2 * j + up;
+          long long planes[5];
+          expert_planes(tb, up, e_id[j], planes);
+          gemv_unit<MP, false, NIB_OK>(h2src, a, a.proj[P_EG + up], planes,
+                                       a.gu_acc + (size_t)slot * EF, EF,
+                                       (size_t)slot * spE * EF, slot * tE, 0,
+                                       spE, up ? r - ug : r, smem);
+        } else {
+          gemv_unit<MP, FOLDED, NIB_OK>(
+              h2src, a, a.proj[P_GU], tb + 5 * P_GU,
+              a.gu_acc + (size_t)2 * a.topk * EF, 2 * a.Fs,
+              (size_t)2 * a.topk * spE * EF, 2 * a.topk * tE, 0,
+              gemv_splits(a.proj[P_GU]), u - ne, smem);
+        }
       }
     } else {
       gemv_phase<MP, FOLDED, NIB_OK>(h2src, a, tb, P_GU, a.gu_acc, -1,
@@ -732,24 +791,42 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     }
     grid_sync(a.bar);
 
-    // P7: silu(gate) * up, down projection (MoE: per chosen expert, its
-    // partial sums weighted by the expert's routing weight)
+    // P7: act(gate) * up, down projection (MoE: the shared expert's, then
+    // each chosen expert's, its partial sums weighted by the expert's
+    // routing weight, all in one ordered sum per column tile)
     if constexpr (MOE) {
       const int EF = a.proj[P_EG].N;
-      const int ud = gemv_units(a.proj[P_ED]);
-      for (int u = blockIdx.x; u < a.topk * ud; u += gridDim.x) {
+      const ProjDims& pd = a.proj[P_ED];
+      const int ud = gemv_units(pd), spD = gemv_splits(pd);
+      const int nsd = a.has_shexp ? gemv_units(a.proj[P_DN]) : 0;
+      const int spS = a.has_shexp ? gemv_splits(a.proj[P_DN]) : 0;
+      const int nsplit = spS + a.topk * spD;
+      for (int u = blockIdx.x; u < nsd + a.topk * ud; u += gridDim.x) {
         __syncthreads();
-        const int j = u / ud;
+        if (u < nsd) {
+          const float* gs = a.gu_acc + (size_t)2 * a.topk * EF;
+          auto ysrc = [&](int m, int k) -> float {
+            if (m >= B) return 0.f;
+            const float g = bf16r(ldcg(gs + k)), v = bf16r(ldcg(gs + a.Fs + k));
+            return bf16r(bf16r(act_f(g, a.act)) * v);
+          };
+          gemv_unit<MP, FOLDED, NIB_OK>(ysrc, a, a.proj[P_DN], tb + 5 * P_DN,
+                                        a.dn_acc, D, 0, 0, 0, nsplit, u, smem,
+                                        e_sig);
+          continue;
+        }
+        const int v0 = u - nsd, j = v0 / ud;
         const float* gr = a.gu_acc + (size_t)2 * j * EF;
         auto ysrc = [&](int m, int k) -> float {
           if (m >= B) return 0.f;
           const float g = ldcg(gr + k), v = bf16r(ldcg(gr + EF + k));
-          return bf16r(bf16r(g / (1.f + expf(-g))) * v);
+          return bf16r(bf16r(act_f(g, a.act)) * v);
         };
         long long planes[5];
         expert_planes(tb, 2, e_id[j], planes);
-        gemv_unit<MP, false, NIB_OK>(ysrc, a.proj[P_ED], planes, a.dn_acc, D,
-                                     u % ud, smem, e_w[j]);
+        gemv_unit<MP, false, NIB_OK>(ysrc, a, pd, planes, a.dn_acc, D, 0, 0,
+                                     spS + j * spD, nsplit, v0 % ud, smem,
+                                     e_w[j]);
       }
     } else {
       auto ysrc = [&](int m, int k) -> float {
@@ -822,13 +899,13 @@ cudaError_t launch(const DecodeArgs* a, int query_only, int* grid,
 template <bool FOLDED, bool GEMMA, typename KV>
 cudaError_t dispatch_mp(int mp, int moe, const DecodeArgs* a, int query_only,
                         int* grid, cudaStream_t st) {
-  if (moe) {  // the kernel routes one token: B = 1; no gemma mode
-    if (GEMMA || mp != 1 || a->topk < 1 || a->topk > MAX_K ||
-        a->n_exp < a->topk || a->n_exp > MAX_E || a->D > GT_SMEM_FLOATS)
+  if (moe) {  // the kernel routes one token: B = 1
+    if (mp != 1 || a->topk < 1 || a->topk > MAX_K || a->n_exp < a->topk ||
+        a->n_exp > MAX_E || a->D > GT_SMEM_FLOATS)
       return cudaErrorInvalidValue;
-    if constexpr (!GEMMA)
-      return launch<1, FOLDED, true, true, false, KV>(a, query_only, grid, st);
+    return launch<1, FOLDED, true, true, GEMMA, KV>(a, query_only, grid, st);
   }
+  if (a->has_shexp) return cudaErrorInvalidValue;  // a shared expert is MoE
   switch (mp) {
     case 1: return launch<1, FOLDED, true, false, GEMMA, KV>(a, query_only, grid, st);
     case 2: return launch<2, FOLDED, true, false, GEMMA, KV>(a, query_only, grid, st);
@@ -854,8 +931,9 @@ cudaError_t dispatch_gemma(int mp, int folded, int moe, int gemma,
 // K6.  mp: the slots padded to 1, 2, 4 or 8 (the buffers' row count);
 // folded != 0: every dense projection carries int8 sub-scales and f32
 // super planes; kv_bf16 != 0: the cache is bf16, else f32; moe != 0: the
-// layers' FFN is routed (mp 1); gemma != 0: the gemma instantiation (not
-// with moe).  query_only != 0 sets *grid to the launch's block count and
+// layers' FFN is routed (mp 1), with a shared expert where has_shexp;
+// gemma != 0: the gemma instantiation (qk-norm and the gemma flags, with
+// or without moe).  query_only != 0 sets *grid to the launch's block count and
 // launches nothing.
 LCG_EXPORT int lcg_decode_stream(const DecodeArgs* a, int mp, int folded,
                                  int kv_bf16, int moe, int gemma,

@@ -18,8 +18,10 @@
 // the flops are P * 2 * K * Np, far below the byte time.  Design:
 //   - one block per (pair, 128-column tile, K split); the split is chosen
 //     so that the grid holds about two blocks per SM (the down projection
-//     has few column tiles), partial sums meet by atomicAdd into the
-//     zeroed output;
+//     has few column tiles); each block stores its split's partial sums to
+//     scratch and the last block of a (pair, tile) to arrive adds them in
+//     split order (gemv_tile.cuh tile_store), so the result is the same
+//     from launch to launch;
 //   - a block walks its K range in 256-row chunks: each thread issues its
 //     8 rows' 16-byte loads of 16 adjacent columns first, then the block
 //     stages the chunk's x slice and scale/min rows in shared memory, so
@@ -27,8 +29,7 @@
 //   - a thread's 8 rows lie inside one quant group: one scale and min
 //     vector per chunk; int8 bytes become floats by a byte permute (exact);
 //     w = q * s - m is rounded without contraction, then to bf16;
-//   - partial sums meet by shuffles and shared memory, one atomicAdd per
-//     output per block.
+//   - partial sums meet by shuffles and shared memory, then tile_store.
 // Pairs that share an expert stream its slice once each (grouping them is
 // later work).
 
@@ -48,7 +49,8 @@ constexpr int MAX_GROWS = KC / 16;  // scale rows per chunk (g >= 16)
 __global__ void __launch_bounds__(NT) rqmm_int8_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
     const float* __restrict__ s, const float* __restrict__ m,
-    const int* __restrict__ idx, float* __restrict__ out, int K, int Np,
+    const int* __restrict__ idx, float* __restrict__ out,
+    float* __restrict__ part, unsigned* __restrict__ cnt, int K, int Np,
     int group, int E, int chunks_per_split) {
   lcg::count_launch(0);
   __shared__ __align__(16) float xs[KC];
@@ -56,16 +58,17 @@ __global__ void __launch_bounds__(NT) rqmm_int8_kernel(
   __shared__ __align__(16) float ms[MAX_GROWS * TN];
   const int tile = blockIdx.x, p = blockIdx.y, split = blockIdx.z;
   const int e = idx[p];
-  if (e < 0 || e >= E) return;  // the same for the whole block
+  const bool valid = e >= 0 && e < E;  // else the pair's output is 0
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int col0 = tile * TN + tx * COLS;
   const int nchunks = (K + KC - 1) / KC;
   const int c0 = split * chunks_per_split;
-  const int c1 = min(nchunks, c0 + chunks_per_split);
+  const int c1 = valid ? min(nchunks, c0 + chunks_per_split) : c0;
   const int ngroups = K / group;
-  const int8_t* qe = q + (size_t)e * K * Np;
-  const float* se = s + (size_t)e * ngroups * Np;
-  const float* me = m != nullptr ? m + (size_t)e * ngroups * Np : nullptr;
+  const int ev = valid ? e : 0;
+  const int8_t* qe = q + (size_t)ev * K * Np;
+  const float* se = s + (size_t)ev * ngroups * Np;
+  const float* me = m != nullptr ? m + (size_t)ev * ngroups * Np : nullptr;
   const __nv_bfloat16* xp = x + (size_t)p * K;
   const int r0 = ty * RPT;  // this thread's first row in a chunk
 
@@ -125,7 +128,7 @@ __global__ void __launch_bounds__(NT) rqmm_int8_kernel(
   }
 
   // reduce over ty: lanes 8 and 16 apart share tx inside a warp, then the
-  // 8 warps meet in shared memory (ss is free); one atomicAdd per output
+  // 8 warps meet in shared memory (ss is free), in a fixed order
 #pragma unroll
   for (int c = 0; c < COLS; ++c) {
     float v = acc[c];
@@ -139,45 +142,52 @@ __global__ void __launch_bounds__(NT) rqmm_int8_kernel(
     for (int c = 0; c < COLS; ++c) ss[warp * TN + lane * COLS + c] = acc[c];
   }
   __syncthreads();
-  if (tid < TN) {
+  const size_t row = (size_t)p * Np;
+  const lcg::TileOut o{out + row, Np, part + row, (size_t)gridDim.y * Np,
+                       cnt + (size_t)p * gridDim.x + tile, split, (int)gridDim.z, 1.f};
+  lcg::tile_store<1>(o, Np, tile * TN, TN, [&](int, int c) {
     float v = 0.f;
 #pragma unroll
-    for (int w8 = 0; w8 < NT / 32; ++w8) v += ss[w8 * TN + tid];
-    atomicAdd(out + (size_t)p * Np + tile * TN + tid, v);
-  }
+    for (int w8 = 0; w8 < NT / 32; ++w8) v += ss[w8 * TN + c];
+    return v;
+  });
 }
 
 static_assert((NT / 32) * TN <= MAX_GROWS * TN, "reduction fits in ss");
 
 }  // namespace
 
-// K8.  x bf16 (P, K); q int8 (E, K, Np); s, m f32 (E, K/group, Np), m may
-// be null; idx int32 (P,) on the device; out f32 (P, Np), zeroed by the
-// caller.  Np % 128 == 0, K % 16 == 0, group 16 or 32.
-LCG_EXPORT int lcg_rqmm_int8(const void* x, const void* q, const void* s,
-                             const void* m, const void* idx, void* out, int P,
-                             int K, int Np, int group, int E, void* stream) {
-  if (Np % TN || K % 16 || (group != 16 && group != 32) || P < 1)
-    return cudaErrorInvalidValue;
-  static int sms = 0;  // once, so later launches may be graph-captured
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-  }
+// The K split of one launch: about two blocks per SM over the pairs' tiles
+// (sms: the card's multiprocessor count), whole 256-row chunks per split.
+LCG_EXPORT int lcg_rqmm_splits(int P, int K, int Np, int sms) {
   const int tiles = Np / TN, nchunks = (K + KC - 1) / KC;
   const int want = (2 * sms + tiles * P - 1) / (tiles * P);
   int splits = want < nchunks ? want : nchunks;
   if (splits < 1) splits = 1;
   const int per = (nchunks + splits - 1) / splits;
-  splits = (nchunks + per - 1) / per;
+  return (nchunks + per - 1) / per;
+}
+
+// K8.  x bf16 (P, K); q int8 (E, K, Np); s, m f32 (E, K/group, Np), m may
+// be null; idx int32 (P,) on the device; out f32 (P, Np); part f32 scratch
+// (splits, P, Np), splits from lcg_rqmm_splits; cnt one uint32 per (pair,
+// 128-column tile), zero (the kernel leaves it zero).  Np % 128 == 0,
+// K % 16 == 0, group 16 or 32.
+LCG_EXPORT int lcg_rqmm_int8(const void* x, const void* q, const void* s,
+                             const void* m, const void* idx, void* out,
+                             void* part, void* cnt, int P, int K, int Np,
+                             int group, int E, int splits, void* stream) {
+  if (Np % TN || K % 16 || (group != 16 && group != 32) || P < 1 || splits < 1)
+    return cudaErrorInvalidValue;
+  const int tiles = Np / TN, nchunks = (K + KC - 1) / KC;
+  const int per = (nchunks + splits - 1) / splits;
+  if ((nchunks + per - 1) / per != splits) return cudaErrorInvalidValue;
   rqmm_int8_kernel<<<dim3(tiles, P, splits), NT, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
       static_cast<const float*>(s), static_cast<const float*>(m),
-      static_cast<const int*>(idx), static_cast<float*>(out), K, Np, group, E,
+      static_cast<const int*>(idx), static_cast<float*>(out),
+      static_cast<float*>(part), static_cast<unsigned*>(cnt), K, Np, group, E,
       per);
   return cudaGetLastError();
 }

@@ -129,6 +129,7 @@ class Keys:
         EXPERT_COUNT = "{arch}.expert_count"
         EXPERT_USED_COUNT = "{arch}.expert_used_count"
         EXPERT_FEED_FORWARD_LENGTH = "{arch}.expert_feed_forward_length"
+        EXPERT_SHARED_FEED_FORWARD_LENGTH = "{arch}.expert_shared_feed_forward_length"
         EXPERT_WEIGHTS_SCALE = "{arch}.expert_weights_scale"
         EXPERT_WEIGHTS_NORM = "{arch}.expert_weights_norm"
         EXPERT_GATING_FUNC = "{arch}.expert_gating_func"

@@ -102,6 +102,30 @@ def check(so: ctypes.CDLL, err: int, what: str) -> None:
                            f"{so.lcg_error_string(err).decode()}")
 
 
+TILE_COUNTERS = 1 << 16  # the split-K kernels' arrival counters per device
+_tile_counters: dict = {}
+
+
+def tile_counters(device, n: int):
+    """A buffer of at least ``n`` int32 arrival counters for the column
+    tiles of a split-K launch on ``device`` (K1/K2, K8), zero at rest: the
+    last block of a tile resets its counter, so one buffer per device
+    serves every launch on its stream and every graph captured there.  It
+    is made at the first call, which a graph capture must not be (the
+    engines warm a step up eagerly before they capture it)."""
+    import torch
+
+    buf = _tile_counters.get(device)
+    if buf is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("split-K counters: launch once before a graph capture")
+        buf = _tile_counters[device] = torch.zeros(TILE_COUNTERS, dtype=torch.int32,
+                                                   device=device)
+    if n > buf.numel():
+        raise ValueError(f"split-K counters: {n} tiles > {buf.numel()}")
+    return buf
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
@@ -146,6 +170,13 @@ def counted(name: str, lib: str | None = None, slot: int = 0,
         return fn
 
     return deco
+
+
+def mode_count(name: str, lib: str, slot: int) -> _ModeCount:
+    """Register ``name``, the count of a mode that a kernel's launch runs
+    beside the flags its wrapper's :func:`counted` names (device slot
+    ``slot``); :func:`count` it where that launch is counted."""
+    return counted(name, lib, slot)(_ModeCount())
 
 
 def count(fn, *flags: bool) -> None:

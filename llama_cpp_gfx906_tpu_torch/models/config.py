@@ -1,14 +1,21 @@
 """Model hyperparameters read from GGUF metadata.
 
-Port of ``llama_cpp_gfx906_tpu/models/config.py`` for archs ``llama`` and
-``gemma3``: only the fields that ``models/llama.py`` and ``ops/moe.py``
-read.  A llama file with ``llama.expert_count`` > 0 is an MoE llama
-(Mixtral); its routing fields take the JAX package's llama defaults
-(renormalised top-k softmax).  ``gemma3`` takes the JAX package's gemma
-branch: gelu-tanh, the embedding scaled by sqrt(D), per-head q/k RMS norms,
-post-attention and post-FFN norms, NEOX rope, and interleaved sliding
-windows (every 6th layer global) whose layers rotate with a local rope
-base, unscaled.
+Port of ``llama_cpp_gfx906_tpu/models/config.py`` for archs ``llama`` (and
+its aliases ``llama2``, ``llama3``, ``mistral``, ``mixtral``,
+``tinyllama``), ``gemma3`` and the qwen families: only the fields that
+``models/llama.py`` and ``ops/moe.py`` read.  A file with
+``{arch}.expert_count`` > 0 is an MoE model (Mixtral, qwen2moe, qwen3moe);
+its routing fields take the JAX package's defaults (softmax, top-k
+renormalised unless ``{arch}.expert_weights_norm`` says otherwise).
+``qwen2`` and ``qwen2moe`` add q/k/v biases and NEOX rope, ``qwen3`` and
+``qwen3moe`` per-head q/k RMS norms and NEOX rope (JAX
+``models/config.py:225-226, 237-238``); qwen2moe's shared expert takes its
+width from its tensors, as the JAX loader does (the file's
+``{arch}.expert_shared_feed_forward_length`` says the same).  ``gemma3``
+takes the JAX package's gemma branch: gelu-tanh, the embedding scaled by
+sqrt(D), per-head q/k RMS norms, post-attention and post-FFN norms, NEOX
+rope, and interleaved sliding windows (every 6th layer global) whose
+layers rotate with a local rope base, unscaled.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ class ModelConfig:
     # refuses them until those families are ported
     moe_topk_softmax: bool = False
     moe_scale_input: bool = False
+    attn_bias: bool = False  # q/k/v biases (qwen2, qwen2moe)
 
     @property
     def swa_layers(self) -> tuple[bool, ...]:
@@ -99,14 +107,21 @@ def sub_config(cfg: ModelConfig, first: int, n: int) -> ModelConfig:
     raise ValueError(f"layers {first}..{first + n - 1}: no SWA pattern gives {want}")
 
 
+# the archs the port loads: the llama graph under its names, gemma3, qwen
+LLAMA_ARCHS = ("llama", "llama2", "llama3", "mistral", "mixtral", "tinyllama")
+QWEN_ARCHS = ("qwen2", "qwen2moe", "qwen3", "qwen3moe")
+ARCHS = LLAMA_ARCHS + ("gemma3",) + QWEN_ARCHS
+
+
 def config_from_gguf(reader) -> ModelConfig:
     arch = reader.architecture
+    covers = "the port covers " + ", ".join(repr(a) for a in ARCHS)
     if arch in ("gemma", "gemma2"):
         raise NotImplementedError(
             f"arch {arch!r}: Gemma (v1) and Gemma 2 (attention and final-logit "
-            "softcaps) are not ported; the port covers 'llama' and 'gemma3'")
-    if arch not in ("llama", "gemma3"):
-        raise NotImplementedError(f"arch {arch!r}: the port covers 'llama' and 'gemma3'")
+            f"softcaps) are not ported; {covers}")
+    if arch not in ARCHS:
+        raise NotImplementedError(f"arch {arch!r}: {covers}")
 
     def g(key, default=None):
         v = reader.get(key, arch=arch)
@@ -141,11 +156,16 @@ def config_from_gguf(reader) -> ModelConfig:
         n_experts=int(g(Keys.LLM.EXPERT_COUNT, 0)),
         n_experts_used=int(g(Keys.LLM.EXPERT_USED_COUNT, 0)),
         expert_ff=int(g(Keys.LLM.EXPERT_FEED_FORWARD_LENGTH, 0)),
-        # mixtral renormalises the selected expert probabilities; the JAX
-        # package reads no gating function for llama (softmax)
+        # mixtral and qwen3moe renormalise the selected expert probabilities
+        # (the key absent: true, as the JAX package reads it); the JAX
+        # package reads no gating function for these archs (softmax)
         expert_weights_norm=bool(g(Keys.LLM.EXPERT_WEIGHTS_NORM, True)),
         expert_weights_scale=float(g(Keys.LLM.EXPERT_WEIGHTS_SCALE, 1.0)),
     )
+    if arch in ("qwen2", "qwen2moe"):  # JAX models/config.py:225-226
+        cfg = replace(cfg, attn_bias=True, rope_interleaved=False)
+    elif arch in ("qwen3", "qwen3moe"):  # :237-238
+        cfg = replace(cfg, qk_norm=True, rope_interleaved=False)
     if arch == "gemma3":  # JAX models/config.py, the gemma branch
         cfg = replace(
             cfg, rope_interleaved=False, act_fn="gelu",

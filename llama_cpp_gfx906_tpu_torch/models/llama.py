@@ -1,5 +1,5 @@
 """Llama forward pass (port of ``llama_cpp_gfx906_tpu/models/llama.py``,
-llama, MoE-llama and gemma3 branches).
+llama, MoE-llama, gemma3 and qwen branches).
 
 Per layer: pre-norm, the fused q|k|v (or q|k + split v) projection, rope,
 attention over the in-place KV cache, the output projection and residual,
@@ -11,7 +11,10 @@ model (JAX's generalized forward with its gemma flags) scales the embedding
 by sqrt(D) before any route, norms q and k per head before rope, rotates
 its SWA layers with the local base, windows only those, norms the
 attention and FFN outputs before their residual adds, and gates with
-gelu-tanh.
+gelu-tanh.  The qwen families ride the same loop: qwen2 adds its q/k/v
+biases after the projection, qwen3 norms q and k per head (one rope base,
+no post-norms), and a qwen2moe layer adds its always-on shared expert,
+scaled by a sigmoid gate, to the routed FFN (:func:`shared_expert`).
 
 Single-token decode on the card goes through one decode kernel for the
 whole stack where the JAX forward sends it to one on its accelerator: K7
@@ -141,6 +144,24 @@ def _act(g: torch.Tensor, act_fn: str) -> torch.Tensor:
     return out.to(g.dtype)
 
 
+def shared_expert(h: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """The always-on shared expert of an MoE layer (qwen2moe; JAX
+    ``models/llama.py:387-403``): act(g) * u through its down projection,
+    times sigmoid(h · shexp_gate_inp) where the layer has that vector;
+    gate|up fused or apart.  h (B, T, D) -> (B, T, D) in h's dtype."""
+    if "shexp_gateup_fused" in p:
+        gu = linear(h, p["shexp_gateup_fused"])
+        Fs = gu.shape[-1] // 2
+        g, u = gu[..., :Fs], gu[..., Fs:]
+    else:
+        g, u = linear(h, p["shexp_gate"]), linear(h, p["shexp_up"])
+    out = linear(_act(g, cfg.act_fn) * u, p["shexp_down"])
+    if "shexp_gate_inp" in p:
+        gate = torch.sigmoid((h @ p["shexp_gate_inp"].to(h.dtype)).float())
+        out = out * gate.to(out.dtype)
+    return out
+
+
 def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """The embedded tokens (B, T, D), scaled (gemma) in f32 and rounded back
     to the embedding's dtype, as JAX ``forward`` does before any route."""
@@ -168,6 +189,8 @@ def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
         h = rms_norm(x, p["attn_norm"], cfg.rms_eps)
         if "wqkv_fused" in p:
             qkv = linear(h, p["wqkv_fused"])
+            if "bqkv_fused" in p:  # qwen2: q/k/v biases
+                qkv = qkv + p["bqkv_fused"]
             q, k, v = qkv[..., :Dq], qkv[..., Dq:Dq + Dkv], qkv[..., Dq + Dkv:]
         elif "wqk_fused" in p:
             # q|k fused, v apart (Q4_K_M: a Q6_K attn_v beside Q4_K q/k)
@@ -176,9 +199,11 @@ def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
             v = linear(h, p["wv"])
         else:
             q, k, v = (linear(h, p[n]) for n in ("wq", "wk", "wv"))
+            if "bq" in p:
+                q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
         q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
         k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-        if cfg.qk_norm:  # per head, before rope (gemma3)
+        if cfg.qk_norm:  # per head, before rope (gemma3, qwen3)
             q = rms_norm(q, p["q_norm"], cfg.rms_eps)
             k = rms_norm(k, p["k_norm"], cfg.rms_eps)
         q = apply_rope(q, positions, inv_freqs[li], cfg.rope_interleaved)
@@ -195,15 +220,17 @@ def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
         x = x + attn
         h = rms_norm(x, p["ffn_norm"], cfg.rms_eps)
         if "moe_gate_inp" in p:
-            x = x + moe_ffn(h, p["moe_gate_inp"], p["moe_gate"], p["moe_up"],
-                            p["moe_down"], cfg)
-            continue
-        if "wgateup_fused" in p:
-            gu = linear(h, p["wgateup_fused"])
-            g, u = gu[..., : cfg.n_ff], gu[..., cfg.n_ff:]
+            mlp = moe_ffn(h, p["moe_gate_inp"], p["moe_gate"], p["moe_up"],
+                          p["moe_down"], cfg)
+            if "shexp_gateup_fused" in p or "shexp_gate" in p:
+                mlp = mlp + shared_expert(h, p, cfg)
         else:
-            g, u = linear(h, p["w_gate"]), linear(h, p["w_up"])
-        mlp = linear(_act(g, cfg.act_fn) * u, p["w_down"])
+            if "wgateup_fused" in p:
+                gu = linear(h, p["wgateup_fused"])
+                g, u = gu[..., : cfg.n_ff], gu[..., cfg.n_ff:]
+            else:
+                g, u = linear(h, p["w_gate"]), linear(h, p["w_up"])
+            mlp = linear(_act(g, cfg.act_fn) * u, p["w_down"])
         if cfg.post_ffn_norm:
             mlp = rms_norm(mlp, p["post_ffn_norm"], cfg.rms_eps)
         x = x + mlp

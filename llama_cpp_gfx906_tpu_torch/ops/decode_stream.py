@@ -1,18 +1,22 @@
 """K6: single-token decode through the whole layer stack in one launch.
 
 Port of ``llama_cpp_gfx906_tpu/ops/decode_stream.py`` for the llama modes,
-dense and MoE, and the gemma modes (gemma3): the gates (:func:`_stream_ok`, :func:`_moe_stream_ok`), the
-entry point (:func:`fused_decode_step_streamed`) and its plain version
+dense and MoE, and the gemma modes (gemma3, and qwen3's qk-norm): the gates
+(:func:`_stream_ok`, :func:`_moe_stream_ok`), the entry point
+(:func:`fused_decode_step_streamed`) and its plain version
 (:func:`fused_decode_step_streamed_plain`).  The kernel is
 ``csrc/decode_stream.cu`` (see its header for the design); K7
 (``ops/decode_step.py``) is an instantiation of the same source, and both
 entry points share the launch and the plain layer math defined here.
-An MoE layer (Mixtral) routes inside the kernel: router, top-k and the
-reads of only the chosen experts' slices (B = 1, as the JAX kernel).
-The gemma modes (:func:`gemma_mode`) run the kernel's gemma instantiation:
-per-head q/k RMS norms before rope, the rope table of each layer chosen by
-its SWA flag (local base, unscaled, or the global one), the post-attention
-and post-FFN norms before the residual adds, and gelu in the FFN.
+An MoE layer (Mixtral, qwen3moe) routes inside the kernel: router, top-k
+and the reads of only the chosen experts' slices (B = 1, as the JAX
+kernel), plus an always-on shared expert with an optional sigmoid gate
+where the layer has one (a bias-free qwen2moe).  The gemma modes
+(:func:`gemma_mode`) run the kernel's gemma instantiation: per-head q/k RMS
+norms before rope, the rope table of each layer chosen by its SWA flag
+(local base, unscaled, or the global one), the post-attention and post-FFN
+norms before the residual adds, and gelu in the FFN; each is a runtime
+flag, so qwen3 (qk-norm alone) and qwen3moe (qk-norm and MoE) run it too.
 
 Contract (as the JAX kernel): ``x`` (B, 1, D) is the embedded token of each
 of B <= 8 slots; the result is x after every layer (B, 1, D) in x's dtype;
@@ -20,14 +24,14 @@ each slot's new K/V row is written at its ``n_past`` in ``kv`` in place,
 and ``n_past`` is left for the caller to advance.
 
 The gate accepts and rejects what the JAX gate does for the configurations
-the port can express (llama and gemma3; the MoE shared expert is not
-ported and is refused), with additions that follow from per-layer
-parameters or the kernel's instantiations: a projection must have one
-format, group and super-group across all layers, the cache must be bf16
-or f32 (the JAX kernel's own scope), an MoE model needs at most 256
-experts and a model dim of at most 8192 (the router stages h2 in shared
-memory), and an MoE stack takes no gemma mode (no such model exists; the
-kernel's MoE instantiations have none).
+the port can express (llama, gemma3 and the qwen families: q/k/v biases
+are refused, as the JAX gate refuses ``bqkv_fused``, and so is an unfused
+shared expert), with additions that follow from per-layer parameters or
+the kernel's instantiations: a projection must have one format, group and
+super-group across all layers, the cache must be bf16 or f32 (the JAX
+kernel's own scope), an MoE model needs at most 256 experts and a model
+dim of at most 8192 (the router stages h2 in shared memory), and a shared
+expert's gate vector must hold D values.
 """
 
 from __future__ import annotations
@@ -92,6 +96,7 @@ def _layout(qt) -> tuple:
 
 
 EXPERT_KEYS = ("moe_gate", "moe_up", "moe_down")  # stacked experts, K6 order
+SHEXP_KEYS = ("shexp_gateup_fused", "shexp_down")  # the shared expert (qwen2moe)
 # gemma3's per-layer norm vectors, in the plane table's order
 GEMMA_NORMS = ("q_norm", "k_norm", "post_attn_norm", "post_ffn_norm")
 MAX_EXPERTS = 256   # router lanes the kernel takes
@@ -100,11 +105,12 @@ MAX_MOE_D = 8192    # model dim whose h2 the kernel stages for the router
 
 def proj_keys(layer) -> tuple[str, ...]:
     """The projections in kernel order: q|k|v (or q|k), [v], o, then
-    gate|up and down, or an MoE layer's stacked experts gate, up, down."""
+    gate|up and down, or an MoE layer's shared expert's gate|up and down
+    (where it has one) and its stacked experts gate, up, down."""
     split = "wqk_fused" in layer and "wv" in layer and "wqkv_fused" not in layer
     attn = ("wqk_fused", "wv", "wo") if split else ("wqkv_fused", "wo")
     if "moe_gate_inp" in layer:
-        return attn + EXPERT_KEYS
+        return attn + (SHEXP_KEYS if SHEXP_KEYS[0] in layer else ()) + EXPERT_KEYS
     return attn + ("wgateup_fused", "w_down")
 
 
@@ -112,7 +118,8 @@ def uniform_layers(layers, keys) -> bool:
     """Every layer holds exactly ``keys`` (plus the norms, gemma's among
     them, and an MoE layer's router), each projection with one layout and
     each extra tensor with one shape across the layers."""
-    extra = {k for k in ("moe_gate_inp",) + GEMMA_NORMS if k in layers[0]}
+    extra = {k for k in ("moe_gate_inp", "shexp_gate_inp") + GEMMA_NORMS
+             if k in layers[0]}
     want = set(keys) | {"attn_norm", "ffn_norm"} | extra
     if any(set(p.keys()) != want for p in layers):
         return False
@@ -157,8 +164,9 @@ def gemma_mode(cfg) -> bool:
 def _moe_stream_ok(p, cfg) -> bool:
     """MoE leg of the K6 gate (JAX ``_moe_stream_ok``): softmax or sigmoid
     routing over all experts, top-k of at most 8, optional renorm and
-    scale; no biases, no shared expert; stacked int8 or nib4c experts with
-    plain scales on the chunk grid."""
+    scale; no router or expert biases; a shared expert only fused (gate|up
+    and down, with an optional (D,) gate vector); stacked int8 or nib4c
+    experts with plain scales on the chunk grid."""
     if not (cfg.n_experts > 0 and 1 <= cfg.n_experts_used <= 8):
         return False
     if cfg.moe_topk_softmax or cfg.moe_scale_input:
@@ -168,8 +176,12 @@ def _moe_stream_ok(p, cfg) -> bool:
     if any(k in p for k in ("moe_gate_inp_b", "moe_gate_b", "moe_up_b",
                             "moe_down_b", "moe_probs_bias", "exp_probs_b")):
         return False
-    if any(k.startswith("shexp_") for k in p.keys()):
-        return False  # the shared expert (qwen2moe) is not ported
+    if (SHEXP_KEYS[0] in p) != (SHEXP_KEYS[1] in p):
+        return False
+    if "shexp_gate" in p or "shexp_up" in p:
+        return False  # an unfused shared expert
+    if "shexp_gate_inp" in p and p["shexp_gate_inp"].numel() != cfg.n_embd:
+        return False
     gi = p["moe_gate_inp"]
     if not (isinstance(gi, torch.Tensor) and gi.ndim == 2
             and tuple(gi.shape) == (cfg.n_embd, cfg.n_experts)):
@@ -212,7 +224,7 @@ def _stream_ok(params, cfg, kv, B: int, T: int) -> bool:
     moe = "moe_gate_inp" in p
     if moe and (B != 1 or not _moe_stream_ok(p, cfg)):
         return False  # the kernel routes one token's experts
-    if not gemma_ok(p, cfg) or (moe and gemma_mode(cfg)):
+    if not gemma_ok(p, cfg):
         return False
     keys = proj_keys(p)
     if not all(k in p for k in keys + ("attn_norm", "ffn_norm")):
@@ -220,6 +232,10 @@ def _stream_ok(params, cfg, kv, B: int, T: int) -> bool:
     if not uniform_layers(layers, keys):
         return False
     keys = tuple(k for k in keys if k not in EXPERT_KEYS)  # the dense ones
+    if moe and SHEXP_KEYS[0] in p and (
+            p[SHEXP_KEYS[0]].shape[1] != 2 * p[SHEXP_KEYS[1]].shape[0]
+            or p[SHEXP_KEYS[1]].shape[1] != cfg.n_embd):
+        return False
     if not all(_stream_qt(p[k]) for k in keys):
         return False
     if len({p[k].sd is not None for k in keys}) != 1:
@@ -340,19 +356,29 @@ def _qlinear_experts_plain(xb: torch.Tensor, qt: QuantTensor,
 def moe_ffn_plain(h2: torch.Tensor, p, cfg, ids_out: list | None = None) -> torch.Tensor:
     """K6's MoE FFN with the kernel's rounding points: the router reads the
     f32 h2 (JAX kernel ``decode_stream.py:700``), the experts its bf16
-    rounding; per chosen expert y = bf16(bf16(silu(g)) * bf16(u)) from the
-    f32 gate and up, and its down output weighted in f32.  h2 (B, D) f32
-    -> mlp (B, D) f32; the chosen ids (B, k) are appended to ``ids_out``."""
+    rounding; per chosen expert y = bf16(bf16(act(g)) * bf16(u)) from the
+    f32 gate and up, and its down output weighted in f32.  A shared expert
+    (JAX ``:683-697``) comes first: y = bf16(bf16(act(bf16(g))) * bf16(u))
+    through its down projection, times sigmoid(h2 · shexp_gate_inp) on the
+    f32 h2 where the layer has that vector.  h2 (B, D) f32 -> mlp (B, D)
+    f32; the chosen ids (B, k) are appended to ``ids_out``."""
     ids, w = moe_route_plain(h2, p["moe_gate_inp"], cfg)
     if ids_out is not None:
         ids_out.append(ids)
     hb = _bf16r(h2)
     mlp = torch.zeros_like(h2)
+    if SHEXP_KEYS[0] in p:
+        gu = qlinear_plain(hb, p[SHEXP_KEYS[0]])
+        Fs = gu.shape[-1] // 2
+        y = _bf16r(_bf16r(_act_plain(_bf16r(gu[:, :Fs]), cfg.act_fn)) * _bf16r(gu[:, Fs:]))
+        mlp = qlinear_plain(y, p[SHEXP_KEYS[1]])
+        if "shexp_gate_inp" in p:
+            mlp = mlp * torch.sigmoid(h2 @ p["shexp_gate_inp"].float().reshape(-1, 1))
     for j in range(ids.shape[1]):
         e = ids[:, j]
         g = _qlinear_experts_plain(hb, p["moe_gate"], e)
         u = _qlinear_experts_plain(hb, p["moe_up"], e)
-        y = _bf16r(_bf16r(F.silu(g)) * _bf16r(u))
+        y = _bf16r(_bf16r(_act_plain(g, cfg.act_fn)) * _bf16r(u))
         mlp = mlp + _qlinear_experts_plain(y, p["moe_down"], e) * w[:, j:j + 1]
     return mlp
 
@@ -432,14 +458,13 @@ def decode_layers_plain(params, cfg, x: torch.Tensor, kv,
             attn = _bf16r(_rms(attn, p["post_attn_norm"], eps))
         xc = _bf16r(_bf16r(xc) + attn)
         if "moe_gate_inp" in p:
-            mlp = moe_ffn_plain(_rms(xc, p["ffn_norm"], eps), p, cfg, ids_out)
-            xc = _bf16r(_bf16r(xc) + _bf16r(mlp))
-            continue
-        h2 = _bf16r(_rms(xc, p["ffn_norm"], eps))
-        gu = qlinear_plain(h2, p["wgateup_fused"])
-        g, u = _bf16r(gu[:, :F_]), _bf16r(gu[:, F_:])
-        y = _bf16r(_bf16r(_act_plain(g, cfg.act_fn)) * u)
-        mlp = _bf16r(qlinear_plain(y, p["w_down"]))
+            mlp = _bf16r(moe_ffn_plain(_rms(xc, p["ffn_norm"], eps), p, cfg, ids_out))
+        else:
+            h2 = _bf16r(_rms(xc, p["ffn_norm"], eps))
+            gu = qlinear_plain(h2, p["wgateup_fused"])
+            g, u = _bf16r(gu[:, :F_]), _bf16r(gu[:, F_:])
+            y = _bf16r(_bf16r(_act_plain(g, cfg.act_fn)) * u)
+            mlp = _bf16r(qlinear_plain(y, p["w_down"]))
         if post:
             mlp = _bf16r(_rms(mlp, p["post_ffn_norm"], eps))
         xc = _bf16r(_bf16r(xc) + mlp)
@@ -453,7 +478,7 @@ def decode_layers_plain(params, cfg, x: torch.Tensor, kv,
 MAX_G = 16          # query heads per KV head the kernel takes
 MAX_QDIM = 4096     # G * Dh
 MAX_SPLIT = 32      # key-range splits per (slot, KV head)
-TABLE_W = 49        # int64 words per layer in the plane table
+TABLE_W = 50        # int64 words per layer in the plane table
 NPROJ = 8           # q|k|v, v, o, gate|up, down, expert gate, up, down
 
 
@@ -468,29 +493,68 @@ class DecodeArgs(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "table", "kc", "vc", "n_past", "inv_freq", "inv_freq_local", "x0",
         "xin", "xmid", "xout", "qkv_acc", "o_acc", "gu_acc", "dn_acc", "obuf", "part",
-        "selfs", "bar", "eids")]
+        "selfs", "bar", "eids", "gpart", "gcnt")]
         + [("proj", ProjDims * NPROJ)]
         + [(n, ctypes.c_int) for n in (
             "L", "B", "D", "Hq", "Hkv", "Dh", "F", "S", "nsplit", "split_v",
-            "interleaved", "gu_len", "n_exp", "topk", "gating_sigmoid",
-            "wnorm", "has_qk", "has_post", "act")]
+            "interleaved", "n_exp", "topk", "gating_sigmoid",
+            "wnorm", "has_qk", "has_post", "act", "Fs", "has_shexp")]
         + [(n, ctypes.c_float) for n in ("scale", "eps", "wscale")])
+
+
+def _splits(d: ProjDims) -> int:
+    return (d.K // 2 if d.nib else d.K) // d.seg
+
+
+def _tiles(d: ProjDims) -> int:
+    return -(-d.N // 128)
+
+
+def gemv_scratch(proj, mp: int, moe: bool, topk: int, split_v: bool,
+                 shexp: bool) -> tuple[int, int]:
+    """(f32 words, counters) the kernel's ordered GEMV sums need in the
+    largest phase: every segment's partial sums of each projection a phase
+    runs (``csrc/decode_stream.cu``: P1 q|k|v and v, P5 o, P6 gate|up or
+    the chosen experts' gate and up and the shared expert's gate|up, P7
+    down or the shared expert's and the experts' downs into one sum), and
+    one counter per 128-column tile of each."""
+    def part(d, rows=mp):
+        return _splits(d) * rows * d.N
+
+    qkv, v, o, gu, dn, eg, eu, ed = proj
+    phases = [(part(qkv) + (part(v) if split_v else 0),
+               _tiles(qkv) + (_tiles(v) if split_v else 0)),
+              (part(o), _tiles(o))]
+    if moe:
+        phases += [(2 * topk * part(eg, 1) + (part(gu, 1) if shexp else 0),
+                    2 * topk * _tiles(eg) + (_tiles(gu) if shexp else 0)),
+                   ((_splits(dn) if shexp else 0) * ed.N + topk * part(ed, 1), _tiles(ed))]
+    else:
+        phases += [(part(gu), _tiles(gu)), (part(dn), _tiles(dn))]
+    return max(p for p, _ in phases), max(c for _, c in phases)
 
 
 class _Workspace:
     """Scratch of one (params, B, S, cache dtype, kernel): allocated once
     and reused by every step, so a step allocates nothing of its own.  An
     MoE stack's gate|up accumulator holds the k chosen experts' gate and
-    up rows, and ``eids`` (L, k) the ids the last step chose."""
+    up rows, then the shared expert's gate|up row, and ``eids`` (L, k) the
+    ids the last step chose.  ``gpart`` and ``gcnt`` hold the GEMVs'
+    partial sums by segment and their column tiles' arrival counters
+    (:func:`gemv_scratch`; zero at rest: the kernel resets each counter
+    it used)."""
 
-    def __init__(self, cfg, mp: int, B: int, Nqkv: int, dev, expert_n: int = 0):
+    def __init__(self, cfg, mp: int, B: int, Nqkv: int, dev, scratch: tuple[int, int],
+                 expert_n: int = 0, shexp_n: int = 0):
         D, F_, Dh = cfg.n_embd, cfg.n_ff, cfg.head_dim
         G = cfg.n_heads // cfg.n_kv_heads
         f32 = dict(dtype=torch.float32, device=dev)
-        self.gu_len = max(mp * 2 * F_, cfg.n_experts_used * 2 * expert_n)
+        self.gu_len = max(mp * 2 * F_, cfg.n_experts_used * 2 * expert_n + shexp_n)
         self.acc = torch.zeros(mp * (Nqkv + 2 * D) + self.gu_len, **f32)
         self.qkv_acc, self.o_acc, self.gu_acc, self.dn_acc = torch.split(
             self.acc, [mp * Nqkv, mp * D, self.gu_len, mp * D])
+        self.gpart = torch.zeros(max(1, scratch[0]), **f32)
+        self.gcnt = torch.zeros(max(1, scratch[1]), dtype=torch.int32, device=dev)
         self.eids = torch.zeros((cfg.n_layers, max(1, cfg.n_experts_used)),
                                 dtype=torch.int32, device=dev)
         self.x0 = torch.zeros((mp, D), **f32)
@@ -553,19 +617,30 @@ def launch_decode(params, cfg, x: torch.Tensor, kv, k7: bool) -> torch.Tensor:
     dev = x.device
     mp = next(p for p in (1, 2, 4, 8) if p >= B)
     moe = keys[-1] == EXPERT_KEYS[-1]
+    shexp = SHEXP_KEYS[0] in keys
     if moe and (k7 or B != 1):
         raise ValueError("decode kernel: an MoE stack runs on K6 at B = 1")
     qts = [layers[0][k] for k in keys]
     folded = qts[0].sd is not None
     Nqkv = Hq * Dh + 2 * Hkv * Dh
+    args = DecodeArgs()
+    slots = (((0, 1, 2) if split_v else (0, 2)) + ((3, 4) if shexp else ())
+             + ((5, 6, 7) if moe else (3, 4)))
+    for slot, qt in zip(slots, qts):
+        seg, ck = _gemv_segment(qt)
+        args.proj[slot] = ProjDims(qt.K, qt.N, qt.group, qt.sgroup or 1, ck,
+                                   seg, int(qt.fmt == "nib4c"))
+    if moe and _splits(args.proj[5]) != _splits(args.proj[6]):
+        raise ValueError("decode kernel: expert gate and up of different K splits")
     wkey = (B, kv.k.shape[2], kv.k.dtype, k7)
     spaces = params.__dict__.setdefault("_decode_workspaces", {})
     ws = spaces.get(wkey)
     if ws is None:
-        ws = spaces[wkey] = _Workspace(cfg, mp, B, Nqkv, dev,
-                                       qts[-3].N if moe else 0)
+        scratch = gemv_scratch(args.proj, mp, moe, cfg.n_experts_used, split_v, shexp)
+        ws = spaces[wkey] = _Workspace(cfg, mp, B, Nqkv, dev, scratch,
+                                       qts[-3].N if moe else 0,
+                                       layers[0][SHEXP_KEYS[0]].N if shexp else 0)
 
-    args = DecodeArgs()
     for name, t in (("table", layer_table(params, cfg)), ("kc", kv.k),
                     ("vc", kv.v), ("n_past", kv.n_past),
                     ("inv_freq", inv_freq_for(cfg, dev)),
@@ -575,28 +650,23 @@ def launch_decode(params, cfg, x: torch.Tensor, kv, k7: bool) -> torch.Tensor:
                     ("qkv_acc", ws.qkv_acc), ("o_acc", ws.o_acc),
                     ("gu_acc", ws.gu_acc), ("dn_acc", ws.dn_acc),
                     ("obuf", ws.obuf), ("part", ws.part), ("selfs", ws.selfs),
-                    ("bar", ws.bar), ("eids", ws.eids)):
+                    ("bar", ws.bar), ("eids", ws.eids), ("gpart", ws.gpart),
+                    ("gcnt", ws.gcnt)):
         setattr(args, name, t.data_ptr())
-    slots = ((0, 1, 2) if split_v else (0, 2)) + ((5, 6, 7) if moe else (3, 4))
-    for slot, qt in zip(slots, qts):
-        seg, ck = _gemv_segment(qt)
-        args.proj[slot] = ProjDims(qt.K, qt.N, qt.group, qt.sgroup or 1, ck,
-                                   seg, int(qt.fmt == "nib4c"))
     args.L, args.B, args.D = cfg.n_layers, B, D
     args.Hq, args.Hkv, args.Dh, args.F = Hq, Hkv, Dh, cfg.n_ff
     args.S = kv.k.shape[2]
     args.split_v, args.interleaved = int(split_v), int(cfg.rope_interleaved)
     args.scale = float(cfg.attn_scale or Dh ** -0.5)
     args.eps = float(cfg.rms_eps)
-    args.gu_len = ws.gu_len
     if moe:
         args.n_exp, args.topk = cfg.n_experts, cfg.n_experts_used
         args.gating_sigmoid = int(cfg.expert_gating_func == 2)
         args.wnorm = int(cfg.expert_weights_norm)
         args.wscale = float(cfg.expert_weights_scale)
+        if shexp:
+            args.has_shexp, args.Fs = 1, args.proj[3].N // 2
     gemma = gemma_mode(cfg)
-    if gemma and moe:
-        raise ValueError("decode kernel: an MoE stack takes no gemma mode")
     args.has_qk, args.has_post = int(cfg.qk_norm), int(cfg.post_attn_norm)
     args.act = ACTS[cfg.act_fn]
 
@@ -610,7 +680,6 @@ def launch_decode(params, cfg, x: torch.Tensor, kv, k7: bool) -> torch.Tensor:
     if kv.n_past.dtype != torch.int32 or kv.n_past.device != dev:
         raise ValueError("decode kernel: n_past must be int32 on the card")
     ws.x0[:B].copy_(x.reshape(B, D))
-    ws.acc.zero_()
     _call(so, k7, args, mp, folded, kv_bf16, moe, gemma, False, dev)
     return ws.xout[:B].to(x.dtype, copy=True).reshape(B, 1, D)
 
@@ -622,17 +691,26 @@ def last_expert_ids(params, kv) -> torch.Tensor:
     return ws.eids.clone()
 
 
+# K6's shared-expert mode, counted apart (device slot 7) beside the MoE
+# launch it is part of
+SHEXP_COUNT = kernels.mode_count("decode_stream_shexp", "decode_stream", 7)
+
+
 @kernels.counted("decode_stream", lib="decode_stream", slot=1, modes=("moe", "gemma"))
 def fused_decode_step_streamed(params, cfg, x: torch.Tensor, kv) -> torch.Tensor:
     """K6: x (B, 1, D) through every layer, the KV updated in place (see the
     module docstring); an MoE stack's launch also counts as
-    ``decode_stream_moe``, a gemma one as ``decode_stream_gemma``.  On the
-    CPU, the plain version."""
+    ``decode_stream_moe``, a gemma one (qk-norm included) as
+    ``decode_stream_gemma``, both as ``decode_stream_moe_gemma``, and one
+    with a shared expert as ``decode_stream_shexp`` too.  On the CPU, the
+    plain version."""
     if x.device.type == "cpu":
         return fused_decode_step_streamed_plain(params, cfg, x, kv)
     out = launch_decode(params, cfg, x, kv, k7=False)
-    kernels.count(fused_decode_step_streamed, "moe_gate_inp" in params["layers"][0],
-                  gemma_mode(cfg))
+    p = params["layers"][0]
+    kernels.count(fused_decode_step_streamed, "moe_gate_inp" in p, gemma_mode(cfg))
+    if SHEXP_KEYS[0] in p:
+        kernels.count(SHEXP_COUNT)
     return out
 
 

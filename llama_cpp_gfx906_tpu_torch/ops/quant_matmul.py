@@ -27,6 +27,7 @@ on the card when the planes are built there.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -283,7 +284,22 @@ def _gemv_segment(qt: QuantTensor) -> tuple[int, int]:
     return seg, ck
 
 
-def _gemv_launch(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+def gemv_splits(qt: QuantTensor, sms: int) -> int:
+    """The kernel's K splits for ``qt``: the fewest (a divisor of the
+    segment count) whose blocks, with the column tiles, reach every SM.
+    More cost a partial second wave (measured on an H100: gate|up
+    4096x28672 at 1 / 2 / 4 splits, down 14336x4096 at 7 / 14); the lm
+    head's ~1,000 tiles take one split, which writes its sums without
+    scratch or counters; a 1024-column projection takes them all."""
+    seg, _ = _gemv_segment(qt)
+    nseg = (qt.K // 2 if qt.fmt == "nib4c" else qt.K) // seg
+    tiles = -(-qt.q.shape[-1] // 128)
+    return next(d for d in range(1, nseg + 1)
+                if nseg % d == 0 and (tiles * d >= sms or d == nseg))
+
+
+def _gemv_launch(x2: torch.Tensor, qt: QuantTensor, splits: int | None = None
+                 ) -> torch.Tensor:
     M, K = x2.shape
     Np = qt.q.shape[-1]
     if M > 8 or K != qt.K or Np % 16:
@@ -299,18 +315,32 @@ def _gemv_launch(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     if Mp != M:
         x = torch.cat([x, x.new_zeros((Mp - M, K))])
     x = x.contiguous()
-    out = torch.zeros((Mp, Np), dtype=torch.float32, device=x2.device)
+    if splits is None:
+        splits = gemv_splits(qt, _sms(x2.device))
+    # with splits > 1: their partial sums (scratch) and the column tiles'
+    # arrival counters; the kernel adds the splits in order
+    out = torch.empty((Mp, Np), dtype=torch.float32, device=x2.device)
+    part = cnt = None
+    if splits > 1:
+        part = torch.empty(splits * Mp * Np, dtype=torch.float32, device=x2.device)
+        cnt = kernels.tile_counters(x2.device, -(-Np // 128))
     so = kernels.lib("gemv")
     if so.lcg_gemv.argtypes is None:
         so.lcg_gemv.restype = ctypes.c_int
-        so.lcg_gemv.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
-                                + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        so.lcg_gemv.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
+                                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     err = so.lcg_gemv(
         int(qt.fmt == "nib4c"), int(qt.sd is not None), Mp, *map(kernels.ptr, (
-            x, qt.q, qt.s, qt.m, qt.sd, qt.md, out)),
-        K, Np, qt.group, qt.sgroup or 1, ck, seg, kernels.stream(x2.device))
+            x, qt.q, qt.s, qt.m, qt.sd, qt.md, out, part, cnt)),
+        K, Np, qt.group, qt.sgroup or 1, ck, seg, splits, kernels.stream(x2.device))
     kernels.check(so, err, f"gemv_{qt.fmt}")
     return out[:M, : qt.N]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    """The card's multiprocessor count."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @kernels.counted("gemv_int8", lib="gemv", slot=0)
@@ -553,15 +583,23 @@ def rqmm_int8(x: torch.Tensor, qt: QuantTensor, idx: torch.Tensor) -> torch.Tens
     if idx.dtype != torch.int32 or idx.device != x.device or idx.shape != (P,):
         raise ValueError("rqmm_int8 kernel: idx must be (P,) int32 on x's device")
     xb = x.to(torch.bfloat16).contiguous()
-    out = torch.zeros((P, Np), dtype=torch.float32, device=x.device)
     so = kernels.lib("rqmm")
     if so.lcg_rqmm_int8.argtypes is None:
         so.lcg_rqmm_int8.restype = ctypes.c_int
-        so.lcg_rqmm_int8.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        so.lcg_rqmm_int8.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
+        so.lcg_rqmm_splits.restype = ctypes.c_int
+        so.lcg_rqmm_splits.argtypes = [ctypes.c_int] * 4
+    splits = so.lcg_rqmm_splits(P, K, Np, _sms(x.device))
+    # each split's partial sums (scratch) and one arrival counter per (pair,
+    # 128-column tile): the kernel adds the splits in order
+    out = torch.empty((P, Np), dtype=torch.float32, device=x.device)
+    part = torch.empty(splits * P * Np if splits > 1 else 1, dtype=torch.float32,
+                       device=x.device)
+    cnt = kernels.tile_counters(x.device, P * (Np // 128))
     err = so.lcg_rqmm_int8(*map(kernels.ptr, (xb, qt.q, qt.s, qt.m, idx.contiguous(),
-                                              out)),
-                           P, K, Np, qt.group, E, kernels.stream(x.device))
+                                              out, part, cnt)),
+                           P, K, Np, qt.group, E, splits, kernels.stream(x.device))
     kernels.check(so, err, "rqmm_int8")
     rqmm_int8.launches += 1
     return out[:, : qt.N]

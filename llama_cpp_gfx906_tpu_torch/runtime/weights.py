@@ -1,5 +1,6 @@
 """GGUF tensors -> the port's parameters (port of
-``llama_cpp_gfx906_tpu/runtime/weights.py``, llama and MoE llama).
+``llama_cpp_gfx906_tpu/runtime/weights.py``: llama, MoE llama, gemma3 and
+the qwen families).
 
 Parameters are a :class:`ParamDict` module: ``tok_emb``, ``out_norm``,
 ``lm_head`` and ``layers``, an ``nn.ModuleList`` of per-layer ParamDicts
@@ -12,7 +13,11 @@ package's per-layer slices.  An MoE layer (Mixtral) holds the router
 FFN.  A gemma3 layer adds the f32 vectors ``q_norm``, ``k_norm`` (Dh,),
 ``post_attn_norm`` and ``post_ffn_norm`` (D,); a file without
 ``output.weight`` ties the head: ``lm_head`` is ``tok_emb.T`` in the compute
-dtype, as the JAX loader makes it.
+dtype, as the JAX loader makes it.  The qwen families add q/k/v biases
+(qwen2, qwen2moe: ``bq``, ``bk``, ``bv`` in the compute dtype, fused with
+the q|k|v weight into ``bqkv_fused``) and a shared expert (qwen2moe: its
+gate and up fused into ``shexp_gateup_fused``, ``shexp_down``, and the
+gate vector ``shexp_gate_inp`` (D, 1) in the compute dtype).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from ..ops.quant_matmul import (
     QuantTensor,
     _SCALE_PART_DECODERS,
     _fold_streams,
+    _unpack_nib4c,
     pack_experts_int8_g16,
     pack_gguf_experts,
     pack_gguf_tensor,
@@ -44,6 +50,9 @@ _LAYER_NAMES = {
     "wk": "attn_k.weight",
     "wv": "attn_v.weight",
     "wo": "attn_output.weight",
+    "bq": "attn_q.bias",
+    "bk": "attn_k.bias",
+    "bv": "attn_v.bias",
     "q_norm": "attn_q_norm.weight",
     "k_norm": "attn_k_norm.weight",
     "post_attn_norm": "post_attention_norm.weight",
@@ -56,9 +65,17 @@ _LAYER_NAMES = {
     "moe_gate": "ffn_gate_exps.weight",
     "moe_up": "ffn_up_exps.weight",
     "moe_down": "ffn_down_exps.weight",
+    "shexp_gate_inp": "ffn_gate_inp_shexp.weight",
+    "shexp_gate": "ffn_gate_shexp.weight",
+    "shexp_up": "ffn_up_shexp.weight",
+    "shexp_down": "ffn_down_shexp.weight",
 }
 # weights consumed as x @ W: GGUF stores (out, in), so these transpose
-_MATMUL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_MATMUL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "shexp_gate",
+           "shexp_up", "shexp_down")
+# vectors kept in the compute dtype (the JAX loader casts every layer
+# tensor but the norms); the shared expert's gate transposes to (D, 1)
+_BIASES = ("bq", "bk", "bv")
 # stacked experts (E, out, in) -> (E, in, out); the expert-FF dim pads to
 # the streamed chunk grid (gate/up out, down in: both round the same EF)
 _EXPERTS = {"moe_gate": dict(pad_n=True), "moe_up": dict(pad_n=True),
@@ -140,8 +157,10 @@ def load_llama_params(reader, cfg: ModelConfig, dtype=torch.bfloat16,
         for key, info in infos.items():
             if key == "moe_gate_inp":
                 p[key] = _router(info, dtype, device)
-            elif key in _MATMUL or key in _EXPERTS:
+            elif key in _MATMUL or key in _EXPERTS or key == "shexp_gate_inp":
                 p[key] = _dense(info, dtype, device, transpose=True)
+            elif key in _BIASES:
+                p[key] = _dense(info, dtype, device)
             else:
                 p[key] = _dense(info, torch.float32, device)
         layers.append(p)
@@ -210,8 +229,10 @@ def load_llama_params_quantized(reader, cfg: ModelConfig, dtype=torch.bfloat16,
             elif key in _MATMUL and quantizable(info):
                 p[key] = pack_gguf_tensor(info.data, info.ggml_type, info.shape,
                                           fold_scales=fold, device=device)
-            elif key in _MATMUL or key in _EXPERTS:
+            elif key in _MATMUL or key in _EXPERTS or key == "shexp_gate_inp":
                 p[key] = _dense(info, dtype, device, transpose=True)
+            elif key in _BIASES:
+                p[key] = _dense(info, dtype, device)
             else:
                 p[key] = _dense(info, torch.float32, device)
         layers.append(p)
@@ -219,47 +240,88 @@ def load_llama_params_quantized(reader, cfg: ModelConfig, dtype=torch.bfloat16,
     return params
 
 
+def repack_nib4c_to_int8(qt: QuantTensor) -> QuantTensor:
+    """A nib4c tensor as int8 values (0..15) with the same scales and mins:
+    every dequantized value bit-identical, twice the bytes (JAX
+    ``repack_nib4_to_int8``)."""
+    if qt.fmt != "nib4c":
+        return qt
+    return QuantTensor(_unpack_nib4c(qt.q, qt.K).contiguous(), qt.s, qt.m, "int8",
+                       qt.group, qt.shape, qt.sd, qt.md, qt.sgroup)
+
+
 def _concat(parts: list):
     """Concatenate weights along the output dim (one launch instead of
-    several), or None when their layouts differ."""
+    several), or None when their layouts cannot meet (JAX
+    ``_concat_weights``): nib4c parts beside int8 ones repack to int8
+    (lossless); int8 groups harmonize to the finest by repeating the
+    coarser parts' scale and min rows; a missing min plane is zeros."""
     if all(isinstance(p, torch.Tensor) for p in parts):
         return torch.cat(parts, -1)
     if not all(isinstance(p, QuantTensor) for p in parts):
         return None
-    p0 = parts[0]
-    layouts = {(p.fmt, p.K, p.group, p.sgroup, p.sd is not None, p.m is not None)
-               for p in parts}
-    if len(layouts) != 1 or any(p.q.shape[-1] != p.N for p in parts):
+    if any(p.q.shape[-1] != p.N for p in parts):
         return None
-
-    def cat(name):
-        planes = [getattr(p, name) for p in parts]
-        return None if planes[0] is None else torch.cat(planes, -1)
-
-    return QuantTensor(cat("q"), cat("s"), cat("m"), p0.fmt, p0.group,
-                       (p0.K, sum(p.N for p in parts)), cat("sd"), cat("md"),
+    fmts = {p.fmt for p in parts}
+    if len(fmts) > 1 and fmts <= {"nib4c", "int8"} and len({p.K for p in parts}) == 1:
+        parts = [repack_nib4c_to_int8(p) for p in parts]
+    if len({(p.fmt, p.K) for p in parts}) != 1:
+        return None
+    folded = {p.sd is not None for p in parts}
+    if len(folded) != 1 or len({p.sgroup for p in parts}) != 1:
+        return None
+    folded = folded.pop()
+    g = min(p.group for p in parts)
+    if any(p.group != g for p in parts):
+        if parts[0].fmt != "int8" or any(p.group % g for p in parts):
+            return None
+        rep = lambda t, n: None if t is None else t.repeat_interleave(n, 0)  # noqa: E731
+        parts = [QuantTensor(p.q, rep(p.s, p.group // g), rep(p.m, p.group // g), p.fmt,
+                             g, p.shape, p.sd, p.md, p.sgroup) for p in parts]
+    p0 = parts[0]
+    m = md = None
+    if any(p.m is not None for p in parts):
+        m = torch.cat([p.m if p.m is not None else torch.zeros_like(p.s) for p in parts], -1)
+        if folded:
+            md = torch.cat([p.md if p.md is not None else torch.zeros_like(p.sd)
+                            for p in parts], -1)
+    return QuantTensor(torch.cat([p.q for p in parts], -1),
+                       torch.cat([p.s for p in parts], -1), m, p0.fmt, g,
+                       (p0.K, sum(p.N for p in parts)),
+                       torch.cat([p.sd for p in parts], -1) if folded else None, md,
                        p0.sgroup)
 
 
 def fuse_projections(p: dict) -> dict:
     """Fuse q/k/v -> ``wqkv_fused`` (or q|k -> ``wqk_fused`` with v apart
-    when q/k are nib4c and v int8, the Q4_K_M split-v disposition) and
-    gate/up -> ``wgateup_fused``."""
+    when q/k are nib4c and v int8, the Q4_K_M split-v disposition, unless
+    the layer has biases: qwen2 keeps the full fuse, repacking q/k to int8,
+    and its biases fuse into ``bqkv_fused``), gate/up -> ``wgateup_fused``
+    and the shared expert's gate/up -> ``shexp_gateup_fused``."""
     out = dict(p)
     wq, wk, wv = p["wq"], p["wk"], p["wv"]
     qk_only = (all(isinstance(w, QuantTensor) for w in (wq, wk, wv))
-               and wq.fmt == wk.fmt == "nib4c" and wv.fmt == "int8")
+               and wq.fmt == wk.fmt == "nib4c" and wv.fmt == "int8" and "bq" not in p)
     keys = ("wq", "wk") if qk_only else ("wq", "wk", "wv")
     fused = _concat([p[k] for k in keys])
     if fused is not None:
         out["wqk_fused" if qk_only else "wqkv_fused"] = fused
         for k in keys:
             del out[k]
+        if not qk_only and all(k in p for k in _BIASES):
+            out["bqkv_fused"] = torch.cat([p[k] for k in _BIASES], -1)
+            for k in _BIASES:
+                del out[k]
     if "w_gate" in p and "w_up" in p:  # an MoE layer has neither
         fused = _concat([p["w_gate"], p["w_up"]])
         if fused is not None:
             out["wgateup_fused"] = fused
             del out["w_gate"], out["w_up"]
+    if "shexp_gate" in p and "shexp_up" in p:
+        fused = _concat([p["shexp_gate"], p["shexp_up"]])
+        if fused is not None:
+            out["shexp_gateup_fused"] = fused
+            del out["shexp_gate"], out["shexp_up"]
     return out
 
 
@@ -285,15 +347,17 @@ def _norm_vec(p, n: str):
 
 def layer_table(params: ParamDict, cfg: ModelConfig) -> torch.Tensor:
     """The decode kernels' (K6, K7) view of the layer stack: an int64 device
-    table (L, 49) of, per layer, the addresses of the q, s, m, sd, md planes
+    table (L, 50) of, per layer, the addresses of the q, s, m, sd, md planes
     of the projections q|k|v (or q|k), v (split-v only), o, gate|up and down
-    (0 where a plane is absent), then the attn_norm and ffn_norm vectors and
+    (an MoE layer's shared expert's gate|up and down in those two slots; 0
+    where a plane is absent), then the attn_norm and ffn_norm vectors and
     the layer's sliding window (0 on a global layer); an MoE layer adds its
     router (D, Ep) f32 and, for the stacked experts gate, up and down, the
     q, s, m base addresses and the byte strides of one expert's q and s (m)
     planes, so expert e lies at base + e * stride (0 for a dense layer);
     last, the addresses of the gemma norms q_norm, k_norm, post_attn_norm
-    and post_ffn_norm (0 where absent) and the layer's SWA flag.  The JAX
+    and post_ffn_norm (0 where absent), the layer's SWA flag and the shared
+    expert's gate vector (an f32 copy, D; 0 where absent).  The JAX
     package stacks the layers instead; the port builds this once, holds it
     with the params (whose tensors it points into) and reuses it every
     step.  Planes must be contiguous, 16-byte aligned and on one device;
@@ -309,7 +373,7 @@ def layer_table(params: ParamDict, cfg: ModelConfig) -> torch.Tensor:
     slots = dense if dense[0] == "wqk_fused" else [dense[0], None] + dense[1:]
     slots += [None] * (5 - len(slots))  # an MoE layer has no dense FFN
     dev = layers[0]["attn_norm"].device
-    routers = []
+    routers, gates = [], []
 
     def addr(t, align: int) -> int:
         if t is None:
@@ -340,10 +404,16 @@ def layer_table(params: ParamDict, cfg: ModelConfig) -> torch.Tensor:
             row += [0] * 16
         row += [addr(_norm_vec(p, n), 4) for n in GEMMA_NORMS]
         row.append(int(cfg.swa_layers[li]))
+        if "shexp_gate_inp" in p:
+            gates.append(p["shexp_gate_inp"].float().reshape(-1).contiguous())
+            row.append(addr(gates[-1], 16))
+        else:
+            row.append(0)
         rows.append(row)
     table = torch.tensor(rows, dtype=torch.int64).to(dev)
     params.__dict__["_layer_table"] = table
     params.__dict__["_router_rows"] = routers  # the padded routers it points into
+    params.__dict__["_shexp_gates"] = gates  # the f32 gate vectors it points into
     return table
 
 

@@ -1,4 +1,4 @@
-"""Write a structurally valid synthetic llama or gemma3 GGUF at a chosen scale.
+"""Write a structurally valid synthetic llama, gemma3 or qwen GGUF at a chosen scale.
 
 For loading and timing the engine where no real checkpoint is at hand:
 block payloads are valid (finite f16 scales, random quants), so the engine
@@ -48,6 +48,38 @@ per layer as 1 + 0.1 N(0, 1), so a swapped or missing norm shows.
   projections K6's chunk grid takes) and ``tiny-gemma3-q8_0``: 6 layers
   (one global), window 16, for the tests.
 
+The qwen presets write archs ``qwen2``, ``qwen2moe``, ``qwen3`` and
+``qwen3moe`` with the keys and tensors llama.cpp's converter writes for
+them: rms eps 1e-6, rope theta 1e6, vocab 151,936 unless stated, an untied
+``output.weight`` (up to 4096 distinct rows, as the gemma head); qwen2 and qwen2moe add the q/k/v biases
+``attn_{q,k,v}.bias`` (small zero-mean f32 vectors, 0.1 N(0, 1)), qwen3
+and qwen3moe the per-head ``attn_q_norm`` / ``attn_k_norm`` (1 + 0.1
+N(0, 1)); qwen2moe adds the shared expert ``ffn_{gate,up,down}_shexp`` and
+its gate ``ffn_gate_inp_shexp`` (f32, written as a (1, D) row, ne (D, 1),
+as the converter writes HF's ``shared_expert_gate``; llama.cpp reads it as
+its (D,) vector), ``expert_shared_feed_forward_length`` and
+``expert_weights_norm`` false (``norm_topk_prob``); qwen3moe writes
+``expert_weights_norm`` true.  Widths of the public ``config.json`` files:
+- ``qwen3-8b-q4_k_m`` (``Qwen/Qwen3-8B``: 36 layers, hidden 4096, 32 / 8
+  heads of 128, intermediate 12288) and ``tiny-qwen3`` /
+  ``tiny-qwen3-q8_0`` (2 layers, hidden 512: the narrowest whose nib4c
+  projections K6's chunk grid takes, 4 / 2 heads);
+- ``qwen3moe-30b-a3b-q4_k_m`` (``Qwen/Qwen3-30B-A3B``: 48 layers, hidden
+  2048, 32 / 4 heads of 128, 128 experts of 768, 8 per token, intermediate
+  6144) and ``tiny-qwen3moe`` (2 layers, hidden 512, 8 experts of 768, 2 per
+  token);
+- ``qwen2-7b-q4_k_m`` (``Qwen/Qwen2.5-7B-Instruct``: 28 layers, hidden
+  3584, 28 / 4 heads of 128, intermediate 18944, vocab 152,064) and
+  ``tiny-qwen2`` / ``tiny-qwen2-q8_0`` (2 layers, hidden 256, 4 / 2 heads);
+- ``qwen2moe-a2.7b-q8_0`` (``Qwen/Qwen1.5-MoE-A2.7B``: 24 layers, hidden
+  2048, 16 / 16 heads of 128, 60 experts of 1408, 4 per token, a shared
+  expert of 5632, intermediate 5632), Q8_0 everywhere, and
+  ``tiny-qwen2moe`` (Q4_K_M) / ``tiny-qwen2moe-q8_0`` (2 layers, hidden
+  512, 4 / 2 heads, 8 experts of 768 / 384, 2 per token, a shared expert
+  of 512).  Every expert FF pads to a multiple of 512 at load.
+``write_synth(..., attn_bias=False)`` leaves a qwen2 or qwen2moe file
+without its biases (the stack the JAX K6 gate takes).
+
 Usage:
     python -m llama_cpp_gfx906_tpu_torch.tools.synth_gguf out.gguf [--preset 8b] [--seed 0]
 """
@@ -80,10 +112,33 @@ PRESETS = {
     "gemma3-270m-q8_0": (18, 640, 4, 1, 256, 2048, 262144, "q8_0"),
     "tiny-gemma3": (6, 512, 2, 1, 256, 1024, 2048, "q4_k_m"),
     "tiny-gemma3-q8_0": (6, 512, 2, 1, 256, 1024, 2048, "q8_0"),
+    # qwen: F is the expert FF for the MoE ones
+    "qwen3-8b-q4_k_m": (36, 4096, 32, 8, 128, 12288, 151936, "q4_k_m"),
+    "qwen3moe-30b-a3b-q4_k_m": (48, 2048, 32, 4, 128, 768, 151936, "q4_k_m"),
+    "qwen2-7b-q4_k_m": (28, 3584, 28, 4, 128, 18944, 152064, "q4_k_m"),
+    "qwen2moe-a2.7b-q8_0": (24, 2048, 16, 16, 128, 1408, 151936, "q8_0"),
+    "tiny-qwen3": (2, 512, 4, 2, 128, 1024, 2048, "q4_k_m"),
+    "tiny-qwen3-q8_0": (2, 512, 4, 2, 128, 1024, 2048, "q8_0"),
+    "tiny-qwen3moe": (2, 512, 4, 2, 128, 768, 2048, "q4_k_m"),
+    "tiny-qwen2": (2, 256, 4, 2, 128, 512, 2048, "q4_k_m"),
+    "tiny-qwen2-q8_0": (2, 256, 4, 2, 128, 512, 2048, "q8_0"),
+    "tiny-qwen2moe": (2, 512, 4, 2, 128, 768, 2048, "q4_k_m"),
+    "tiny-qwen2moe-q8_0": (2, 512, 4, 2, 128, 384, 2048, "q8_0"),
 }
 # (experts, experts per token, rope theta) of the MoE presets
 EXPERTS = {"mixtral-q4_k_m": (8, 2, 1e6), "mixtral-q8_0": (8, 2, 1e6),
-           "tiny-moe": (4, 2, 1e6), "tiny-moe-q8_0": (4, 2, 1e6)}
+           "tiny-moe": (4, 2, 1e6), "tiny-moe-q8_0": (4, 2, 1e6),
+           "qwen3moe-30b-a3b-q4_k_m": (128, 8, 1e6), "qwen2moe-a2.7b-q8_0": (60, 4, 1e6),
+           "tiny-qwen3moe": (8, 2, 1e6), "tiny-qwen2moe": (8, 2, 1e6),
+           "tiny-qwen2moe-q8_0": (8, 2, 1e6)}
+# qwen presets: (arch, dense FF of the MoE ones, the shared expert's FF)
+QWEN = {"qwen3-8b-q4_k_m": ("qwen3", 0, 0), "tiny-qwen3": ("qwen3", 0, 0),
+        "tiny-qwen3-q8_0": ("qwen3", 0, 0),
+        "qwen3moe-30b-a3b-q4_k_m": ("qwen3moe", 6144, 0), "tiny-qwen3moe": ("qwen3moe", 512, 0),
+        "qwen2-7b-q4_k_m": ("qwen2", 0, 0), "tiny-qwen2": ("qwen2", 0, 0),
+        "tiny-qwen2-q8_0": ("qwen2", 0, 0),
+        "qwen2moe-a2.7b-q8_0": ("qwen2moe", 5632, 5632), "tiny-qwen2moe": ("qwen2moe", 512, 512),
+        "tiny-qwen2moe-q8_0": ("qwen2moe", 512, 512)}
 # gemma3 presets: (sliding window, linear rope scaling factor of the global
 # layers or None, training context)
 GEMMA3 = {"gemma3-4b-q4_k_m": (1024, 8.0, 131072), "gemma3-270m-q8_0": (512, None, 32768),
@@ -154,15 +209,19 @@ _ROWS = {GGMLType.Q4_K: q4k_rows, GGMLType.Q6_K: q6k_rows, GGMLType.Q8_0: q8_0_r
 
 
 def write_synth(path: str, preset: str = "8b", seed: int = 0,
-                n_layers: int | None = None, n_vocab: int | None = None) -> str:
+                n_layers: int | None = None, n_vocab: int | None = None,
+                attn_bias: bool = True) -> str:
     """Write ``preset``; ``n_layers`` / ``n_vocab`` cut its depth and vocab
-    (the first layers' and tokens' rows stay those of the full preset)."""
+    (the first layers' and tokens' rows stay those of the full preset);
+    ``attn_bias`` False leaves out a qwen2 / qwen2moe file's q/k/v biases."""
     L, D, H, KVH, DH, F, V, mix = PRESETS[preset]
     L, V = n_layers or L, n_vocab or V
     q8 = mix == "q8_0"
     E, K_USED, rope_base = EXPERTS.get(preset, (0, 0, 500000.0))
     gemma = preset in GEMMA3
-    arch = "gemma3" if gemma else "llama"
+    arch, dense_ff, shared_ff = QWEN.get(preset, ("gemma3" if gemma else "llama", 0, 0))
+    qwen = preset in QWEN
+    biases = attn_bias and arch in ("qwen2", "qwen2moe")
     rng = np.random.default_rng(seed)
     w = GGUFWriter(path, arch)
     w.add_string("general.name", f"synth-{preset}" + ("" if q8 else "-q4km"))
@@ -172,7 +231,7 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
     w.add_uint32(f"{arch}.attention.head_count_kv", KVH)
     w.add_uint32(f"{arch}.attention.key_length", DH)
     w.add_uint32(f"{arch}.attention.value_length", DH)
-    w.add_uint32(f"{arch}.feed_forward_length", F)
+    w.add_uint32(f"{arch}.feed_forward_length", dense_ff or F)
     if gemma:
         window, scaling, n_ctx = GEMMA3[preset]
         w.add_uint32("gemma3.context_length", n_ctx)
@@ -183,13 +242,22 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
         if scaling:
             w.add_string("gemma3.rope.scaling.type", "linear")
             w.add_float32("gemma3.rope.scaling.factor", scaling)
+    elif qwen:
+        w.add_uint32(f"{arch}.context_length", 32768)
+        w.add_float32(f"{arch}.attention.layer_norm_rms_epsilon", 1e-6)
+        w.add_float32(f"{arch}.rope.freq_base", 1e6)
     else:
         w.add_uint32("llama.context_length", 8192)
         w.add_float32("llama.attention.layer_norm_rms_epsilon", 1e-5)
         w.add_float32("llama.rope.freq_base", rope_base)
     if E:
-        w.add_uint32("llama.expert_count", E)
-        w.add_uint32("llama.expert_used_count", K_USED)
+        w.add_uint32(f"{arch}.expert_count", E)
+        w.add_uint32(f"{arch}.expert_used_count", K_USED)
+    if qwen and E:
+        w.add_uint32(f"{arch}.expert_feed_forward_length", F)
+        w.add_bool(f"{arch}.expert_weights_norm", arch == "qwen3moe")
+    if shared_ff:
+        w.add_uint32(f"{arch}.expert_shared_feed_forward_length", shared_ff)
     w.add_uint32(f"{arch}.vocab_size", V)
     w.add_string("tokenizer.ggml.model", "llama")
     tokens = ["<s>", "</s>", "<unk>"] + [f"<0x{b:02X}>" for b in range(256)]
@@ -219,8 +287,11 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
         w.add_tensor(name, rows.reshape(-1), ggml_type=proj,
                      raw_ne=(in_dim, out_dim, E))
 
-    def norm(n):  # gemma: 1 + 0.1 N(0, 1) per layer; llama: ones
-        return ((1 + 0.1 * rng.standard_normal(n)) if gemma else np.ones(n)).astype(np.float32)
+    def norm(n, vary=gemma):  # gemma, qk-norms: 1 + 0.1 N(0, 1) per layer; else ones
+        return ((1 + 0.1 * rng.standard_normal(n)) if vary else np.ones(n)).astype(np.float32)
+
+    def bias(n):
+        return (0.1 * rng.standard_normal(n)).astype(np.float32)
 
     if gemma:  # tied head: token_embd is the output, in the side type; its
         # rows are the logits' too, so more of them differ (up to 4096)
@@ -230,19 +301,26 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
         w.add_tensor("token_embd.weight", _tile(emb, V).view(np.uint8).reshape(-1),
                      ggml_type=GGMLType.F16, raw_ne=(D, V))
     w.add_tensor("output_norm.weight", np.ones(D, np.float32))
-    if not gemma:
-        add_q("output.weight", V, D, side)
+    if not gemma:  # a qwen head: up to 4096 distinct rows, so the top logits
+        # of a tiny vocab do not tie exactly (as the gemma tied head)
+        add_q("output.weight", V, D, side,
+              distinct=EMBD_DISTINCT_ROWS if qwen else DISTINCT_ROWS)
     for i in range(L):
         w.add_tensor(f"blk.{i}.attn_norm.weight", norm(D))
         w.add_tensor(f"blk.{i}.ffn_norm.weight", norm(D))
+        if gemma or arch in ("qwen3", "qwen3moe"):
+            w.add_tensor(f"blk.{i}.attn_q_norm.weight", norm(DH, True))
+            w.add_tensor(f"blk.{i}.attn_k_norm.weight", norm(DH, True))
         if gemma:
-            w.add_tensor(f"blk.{i}.attn_q_norm.weight", norm(DH))
-            w.add_tensor(f"blk.{i}.attn_k_norm.weight", norm(DH))
             w.add_tensor(f"blk.{i}.post_attention_norm.weight", norm(D))
             w.add_tensor(f"blk.{i}.post_ffw_norm.weight", norm(D))
         add_q(f"blk.{i}.attn_q.weight", H * DH, D)
         add_q(f"blk.{i}.attn_k.weight", KVH * DH, D)
         add_q(f"blk.{i}.attn_v.weight", KVH * DH, D, side)
+        if biases:
+            w.add_tensor(f"blk.{i}.attn_q.bias", bias(H * DH))
+            w.add_tensor(f"blk.{i}.attn_k.bias", bias(KVH * DH))
+            w.add_tensor(f"blk.{i}.attn_v.bias", bias(KVH * DH))
         add_q(f"blk.{i}.attn_output.weight", D, H * DH)
         if E:
             router = rng.standard_normal((E, D)) / np.sqrt(D)
@@ -250,6 +328,12 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
             add_experts(f"blk.{i}.ffn_gate_exps.weight", i, 0, F, D)
             add_experts(f"blk.{i}.ffn_up_exps.weight", i, 1, F, D)
             add_experts(f"blk.{i}.ffn_down_exps.weight", i, 2, D, F)
+            if shared_ff:
+                gate = rng.standard_normal((1, D)) / np.sqrt(D)
+                w.add_tensor(f"blk.{i}.ffn_gate_inp_shexp.weight", gate.astype(np.float32))
+                add_q(f"blk.{i}.ffn_gate_shexp.weight", shared_ff, D)
+                add_q(f"blk.{i}.ffn_up_shexp.weight", shared_ff, D)
+                add_q(f"blk.{i}.ffn_down_shexp.weight", D, shared_ff)
             continue
         add_q(f"blk.{i}.ffn_gate.weight", F, D)
         add_q(f"blk.{i}.ffn_up.weight", F, D)

@@ -200,13 +200,14 @@ def test_layer_table_gemma_words(files):
 
     te = _engines(files["tiny-gemma3"])[1]
     table = layer_table(te.params, te.cfg)
-    assert table.shape == (6, k6.TABLE_W) == (6, 49)
+    assert table.shape == (6, k6.TABLE_W) == (6, 50)
     for li, p in enumerate(te.params["layers"]):
         row = table[li].tolist()
         assert row[25:28] == [p["attn_norm"].data_ptr(), p["ffn_norm"].data_ptr(),
                               16 if li < 5 else 0]
         assert row[28:44] == [0] * 16
-        assert row[44:] == [p[k].data_ptr() for k in k6.GEMMA_NORMS] + [int(li < 5)]
+        assert row[44:49] == [p[k].data_ptr() for k in k6.GEMMA_NORMS] + [int(li < 5)]
+        assert row[49] == 0  # no shared expert
 
 
 @pytest.mark.parametrize("preset", PRESETS)

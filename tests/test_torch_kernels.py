@@ -154,6 +154,41 @@ def test_attention_kernels_head_dim_256(cuda_device, kind, dtype):
             flash_decode(q, k, v, npast, 256 ** -0.5)
 
 
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("Hq,Hkv", [(28, 4), (32, 4)])
+@pytest.mark.parametrize("T,n_past", [(1, (700, 3000)), (16, (256, 0)), (44, (256, 0)),
+                                      (101, (0, 17)), (256, (0, 9))])
+def test_attention_kernels_at_qwen_group_sizes(cuda_device, kv, Hq, Hkv, T, n_past):
+    """K3 and K4 at the Qwen group sizes, Dh 128: Qwen2.5-7B's 28/4 (G 7)
+    and Qwen3-30B-A3B's 32/4 (G 8), bf16 and int8 caches, decode at
+    n_past 700 / 3000 and the ragged prefill chunks (a 300-token prompt's
+    256 then its 44-token tail; 101 tokens); K3 takes G·T <= 128 as the
+    dispatch does, K4 the rest."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention_plain
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode_plain
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import quantize_rows
+
+    q, k, v, npast, _ = _attn_case(23, len(n_past), T, Hq, Hkv, 128, 3072, n_past,
+                                   cuda_device, torch.bfloat16)
+    decode = (Hq // Hkv) * T <= 128
+    kw = {}
+    if kv == "int8":
+        k, v = quantize_rows(k), quantize_rows(v)
+        if not decode:
+            kw = dict(k_scales=k.s[..., 0], v_scales=v.s[..., 0])
+            k, v = k.q, v.q
+    args = (q, k, v, npast, 128 ** -0.5)
+    kern, plain = ((flash_decode, flash_decode_plain) if decode
+                   else (flash_attention, flash_attention_plain))
+    before = kern.launches
+    got = kern(*args, **kw)
+    ref = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    assert _rel(got, ref) < TOL
+
+
 def test_mha_dispatch_on_card(cuda_device):
     """G*T <= 128 takes K3, more takes K4; the cache is updated in place."""
     for T, kern in ((2, flash_decode), (80, flash_attention)):
@@ -689,3 +724,102 @@ def test_gemma_decode_kernels_gelu_erf(cuda_device, tmp_path):
         ref = k6.decode_layers_plain(params, cfg, x, ref_kv)
         torch.cuda.synchronize()
         assert _rel(got, ref) < TOL and _rel(kv.k, ref_kv.k) < TOL
+
+
+# ---------------------------------------------------------------------------
+# the split-K sums in a fixed order; the qwen modes of K6 and K7
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("qtype,fold,K,N,M", [(GGMLType.Q6_K, True, 4096, 1024, 1),
+                                              (GGMLType.Q4_K, True, 14336, 512, 8),
+                                              (GGMLType.Q8_0, False, 1408, 2048, 4)])
+def test_gemv_launches_are_bit_identical(cuda_device, qtype, fold, K, N, M):
+    """K1 / K2 add their K segments in a fixed order: two launches on the
+    same inputs give the same bits."""
+    qt = tq.pack_gguf_tensor(_raw(qtype, N, K, 5), qtype, (N, K), fold_scales=fold,
+                             device=cuda_device)
+    x = torch.randn((M, K), device=cuda_device).to(torch.bfloat16)
+    kern = tq.gemv_nib4c if qt.fmt == "nib4c" else tq.gemv_int8
+    a, b = kern(x, qt), kern(x, qt)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and _rel(a, tq.gemv_plain(x, qt)) < TOL
+
+
+@pytest.mark.parametrize("qtype,fold,K,N,M", [(GGMLType.Q6_K, True, 4096, 1024, 1),
+                                              (GGMLType.Q4_K, True, 4096, 4096, 2),
+                                              (GGMLType.Q4_K, False, 4096, 640, 8)])
+def test_gemv_every_split_count_matches_plain(cuda_device, qtype, fold, K, N, M):
+    """K1 / K2 at each split count that divides the segments (1: a block
+    walks all of K and writes the output itself), each against the plain
+    version and bit-identical over two launches."""
+    qt = tq.pack_gguf_tensor(_raw(qtype, N, K, 6), qtype, (N, K), fold_scales=fold,
+                             device=cuda_device)
+    x = torch.randn((M, K), device=cuda_device).to(torch.bfloat16)
+    seg, _ = tq._gemv_segment(qt)
+    nseg = (K // 2 if qt.fmt == "nib4c" else K) // seg
+    ref = tq.gemv_plain(x, qt)
+    for splits in (d for d in range(1, nseg + 1) if nseg % d == 0):
+        a, b = tq._gemv_launch(x, qt, splits), tq._gemv_launch(x, qt, splits)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and _rel(a, ref) < TOL, splits
+
+
+def test_rqmm_launches_are_bit_identical(cuda_device):
+    """K8 adds its K splits in a fixed order, and an out-of-range expert id
+    gives zeros."""
+    E, N, K = 4, 512, 4096
+    raw = np.concatenate([_raw(GGMLType.Q8_0, N, K, e) for e in range(E)])
+    qt = tq.pack_gguf_experts(raw, GGMLType.Q8_0, (E, N, K), device=cuda_device)
+    x = torch.randn((3, K), device=cuda_device).to(torch.bfloat16)
+    idx = torch.tensor([2, 0, 7], dtype=torch.int32, device=cuda_device)
+    a, b = tq.rqmm_int8(x, qt, idx), tq.rqmm_int8(x, qt, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and bool((a[2] == 0).all())
+    assert _rel(a[:2], tq.rqmm_plain(x[:2], qt, idx[:2])) < TOL
+
+
+@pytest.mark.parametrize("preset,bias,route,n_past", [
+    ("tiny-qwen3", True, "k6", (40,)),
+    ("tiny-qwen3", True, "k6", (5, 40, 200, 17)),
+    ("tiny-qwen3-q8_0", True, "k7", (40,)),
+    ("tiny-qwen3moe", True, "k6", (40,)),
+    ("tiny-qwen2moe", False, "k6", (40,)),
+    ("tiny-qwen2moe-q8_0", False, "k6", (300,))])
+def test_qwen_decode_kernels_match_plain(cuda_device, tmp_path, preset, bias, route,
+                                         n_past):
+    """K6's qwen modes (qk-norm without post-norms at B 1 and 4, MoE with
+    qk-norm, the shared expert with its gate on a bias-free qwen2moe) and
+    K7's qk-norm against the plain version from the same state, the hidden
+    state and every cache row; a second launch gives the same bits; the
+    shared expert's launch counts as ``decode_stream_shexp``."""
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+
+    path = write_synth(str(tmp_path / f"{preset}.gguf"), preset, seed=0, attn_bias=bias)
+    eng = Engine.from_gguf(path, max_seq=512, device=cuda_device)
+    cfg, params = eng.cfg, eng.params
+    B = len(n_past)
+    kern = k7.fused_decode_step if route == "k7" else k6.fused_decode_step_streamed
+    gate = k7._fused_ok if route == "k7" else k6._stream_ok
+    x = tllama.embed(params, cfg, torch.arange(B, device=cuda_device)[:, None] * 7 + 3)
+    kv, again, ref_kv = (_filled_cache(cfg, B, 512, n_past, cuda_device) for _ in range(3))
+    assert gate(params, cfg, kv, B, 1)
+    before = kernels.counts()
+    got = kern(params, cfg, x, kv)
+    ids = k6.last_expert_ids(params, kv).tolist() if cfg.n_experts else None
+    got2 = kern(params, cfg, x, again)
+    plain_ids = []
+    ref = k6.decode_layers_plain(params, cfg, x, ref_kv, ids_out=plain_ids)
+    torch.cuda.synchronize()
+    now = kernels.counts()
+    name = "decode_step" if route == "k7" else "decode_stream"
+    mode = f"{name}_moe_gemma" if cfg.arch == "qwen3moe" else (
+        f"{name}_moe" if cfg.n_experts else f"{name}_gemma")
+    assert (now[name] - before[name], now[mode] - before[mode]) == (2, 2)
+    assert now["decode_stream_shexp"] - before["decode_stream_shexp"] == (
+        2 if cfg.arch == "qwen2moe" else 0)
+    assert torch.equal(got, got2) and torch.equal(kv.k, again.k)
+    assert torch.isfinite(got.float()).all() and _rel(got, ref) < TOL
+    assert _rel(kv.k, ref_kv.k) < TOL and _rel(kv.v, ref_kv.v) < TOL
+    if ids is not None:
+        assert ids == [i[0].tolist() for i in plain_ids]

@@ -454,15 +454,19 @@ def test_moe_stream_gate_matches_jax(case):
 
 
 def test_moe_stream_gate_refuses_the_shared_expert():
-    """A fused shared expert (qwen2moe) passes the JAX gate; the port has
-    not ported it, so its gate refuses."""
+    """A fused shared expert (qwen2moe) passes the JAX gate and, since K6's
+    shared-expert mode is ported, the port's; a shared expert whose down
+    half is missing is refused by both."""
     jcfg, jp = moe_model()
     rng = np.random.default_rng(2)
     gu = _qstack(rng, D, 1024)
-    jp = dict(jp, layers={**jp["layers"], "shexp_gateup_fused": gu,
-                          "shexp_down": _qstack(rng, 512, D)})
-    (js, ts), _ = _gates(jcfg, jp)
-    assert js and not ts
+    full = dict(jp, layers={**jp["layers"], "shexp_gateup_fused": gu,
+                            "shexp_down": _qstack(rng, 512, D)})
+    (js, ts), _ = _gates(jcfg, full)
+    assert js and ts
+    half = dict(jp, layers={**jp["layers"], "shexp_gateup_fused": gu})
+    (js, ts), _ = _gates(jcfg, half)
+    assert not js and not ts
 
 
 @functools.lru_cache(maxsize=None)

@@ -92,6 +92,17 @@ def test_nib4c_chunk_rule():
             assert tq._fold_streams(K, t) == jq._fold_streams(K, t), (K, t)
 
 
+@pytest.mark.parametrize("sms,want", [(132, 4), (16, 4), (12, 4), (8, 2), (5, 2),
+                                      (4, 1), (2, 1)])
+def test_gemv_splits_fill_the_card(sms, want):
+    """K1/K2 split K only as far as reaching every SM needs: 4 column tiles
+    and 4 segments of 512 rows take 1, 2 or all 4 splits (a divisor)."""
+    qt = tq.pack_gguf_tensor(_raw(GGMLType.Q8_0, 512, 2048, seed=3), GGMLType.Q8_0,
+                             (512, 2048))
+    assert tq._gemv_segment(qt) == (512, 0)
+    assert tq.gemv_splits(qt, sms) == want
+
+
 @pytest.mark.parametrize("M", [1, 8])
 @pytest.mark.parametrize("qtype,fold", [
     (GGMLType.Q8_0, False), (GGMLType.Q4_0, False), (GGMLType.Q4_K, False),
