@@ -21,7 +21,13 @@ Phases, each printing JSON lines:
      flag), at n_past 700 and 3000 (above both windows); K6's qwen modes
      on two full-width layers each: qk-norm without post-norms (Qwen3-8B,
      B 1 and 4), MoE with qk-norm (Qwen3-30B-A3B), the shared expert with
-     and without its gate (Qwen1.5-MoE-A2.7B without its biases);
+     and without its gate (Qwen1.5-MoE-A2.7B without its biases); K3's
+     ALiBi mode at MPT-7B's 32/32 heads (B 1 and 4, n_past 700 / 3000, bf16
+     and int8, after 512 shared rows) and its self-extend mode at the 8B's
+     (B 1, n_past 3000, rows at i // 4 and at the ``-gan 4 -gaw 1024``
+     ladder's positions, T 1 and 4), each with an SDPA yardstick whose
+     float mask holds the bias and the mask, and both at the JAX kernel
+     tests' shape;
   2. the 8B Q4_K_M model end to end (synthetic weights from a seed, full
      width and depth): ``Engine.from_gguf``, a greedy ``generate`` (decode
      through K6), the per-layer loop called as a function (K1-K4), and a
@@ -29,6 +35,12 @@ Phases, each printing JSON lines:
   3. ``8b_fused``: the same model through ``decode_fused`` (one captured
      step replayed per token), launches per token, and 8 steps of the K6
      path held against the per-layer loop from the same state;
+     ``8b_self_extend``: the same model at ``max_seq`` 4096, a 3,000-token
+     prompt, then the CLI's self-extend loop (``-gan 4 -gaw 1024``, 64
+     greedy tokens through the per-layer loop and K3's self-extend mode),
+     its launches per token, layer 0's K rows after the ladder against raw
+     keys roped fresh at their new positions, and 8 steps held against the
+     same loop with the plain attention;
   4. ``270m_q8_0``: the 270M-shape Q8_0 model (prefill through K5, decode
      through K7), the same way;
   5. ``8b_serve``: the continuous-batching server on the 8B model
@@ -41,8 +53,8 @@ Phases, each printing JSON lines:
      profile of a 4-slot decode stretch) and two holds: the batched T = 1
      forward against single-slot forwards, and the shared segment against
      the same prompts unshared;
-  6. ``mixtral_q4km``: Mixtral-8x7B Q4_K_M (synthetic, full width and
-     depth, about 26 GB): prefill through the dense all-experts path, a
+  6. ``mixtral_q4km``: Mixtral-8x7B Q4_K_M (synthetic, full width, cut to
+     4 of 32 layers): prefill through the dense all-experts path, a
      greedy ``generate`` and ``decode_fused`` through K6's MoE branch, one
      K6 and one K1 launch per fused token, the fused route held against the
      per-layer loop;
@@ -78,7 +90,17 @@ Phases, each printing JSON lines:
      the per-layer loop (K1, K2, K3, K8), held against the CPU's plain
      loop; then the bias-free qwen2moe stack through ``decode_fused`` (K6's
      shared-expert mode);
- 15. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
+ 15. ``mpt_7b``: MPT-7B Q4_K_M (synthetic, full width and depth): a
+     ragged 1,531-token prefill (the counted einsum: G·T > 128 with ALiBi
+     has no kernel, as in JAX), ``generate`` and ``decode_fused`` through
+     the per-layer loop with K3's ALiBi mode, launches per token exact, 8
+     fused steps held against the loop with the plain attention, then
+     ``BatchedEngine`` at 4 slots: its launches per decode step and the
+     batched step against single slots;
+ 16. ``bloom_7b1``: BLOOM-7B1 Q4_K_M at full width, 4 of 30 layers, every
+     bias and the embedding norm, through the loop on the card held
+     against the CPU's plain loop;
+ 17. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
      and held-out perplexity, through ``Engine`` and, all prompts at once,
      through ``BatchedEngine`` with an f32 and a q8 cache.
 Kernel launch counts are set to 0 before each path and read after it.  A
@@ -92,11 +114,13 @@ it exits non-zero and prints no result.
 Usage: python3 chip_smoke.py
 
 ``python3 chip_smoke.py --plant-faults [fault ...]`` shows instead whether
-the K6/K7 check can fail: it copies the package and this script into
-temporary directories, plants one known fault (``FAULTS``; all of them
-unless some are named) in each copy's
-``csrc/decode_stream.cu``, builds the copies, and prints the errors that
-``decode_errors`` reads for each (K6 on two 8B layers and on two Mixtral
+the K3 and K6/K7 checks can fail: it copies the package and this script
+into temporary directories, plants one known fault (``FAULTS``; all of
+them unless some are named) in each copy's ``csrc/decode_stream.cu`` or,
+for K3's (``K3_FAULTS``), ``csrc/flash_decode.cu``, builds the copies,
+and prints K3's error against plain on each ALiBi and self-extend case
+(``k3_mode_cases``) and the errors that ``decode_errors`` reads for each
+(K6 on two 8B layers and on two Mixtral
 Q4_K_M layers, K7 on the 18 layers of the 270M shape, K6's gemma mode on 6
 Gemma-3-4B layers, K7's on the 18 of Gemma-3-270M, K6's qwen modes on 2
 layers each of Qwen3-8B, Qwen3-30B-A3B and bias-free Qwen1.5-MoE; B = 1,
@@ -162,7 +186,16 @@ FAULTS = {
     # qwen3moe: an MoE stack dispatched to the instantiation without qk-norm
     "moe_qk_norm_skipped": ("return launch<1, FOLDED, true, true, GEMMA, KV>",
                             "return launch<1, FOLDED, true, true, false, KV>"),
+    # K3: the ALiBi distance from physical rows while logical positions are set
+    "alibi_physical_under_pos": (
+        "if (alibi) sc -= sh.slope[qi] * static_cast<float>(qp - kq);",
+        "if (alibi) sc -= sh.slope[qi] * static_cast<float>(qph - kp);"),
+    # K3: the physical window skip kept with logical positions on
+    "pos_window_skip": (
+        "const int lo = (window > 0 && kv_pos == nullptr) ? max(0, n_past + 1 - window) : 0;",
+        "const int lo = window > 0 ? max(0, n_past + 1 - window) : 0;"),
 }
+K3_FAULTS = ("alibi_physical_under_pos", "pos_window_skip")  # csrc/flash_decode.cu
 
 KERNEL_INFO = {
     "gemv_int8": ("llama_cpp_gfx906_tpu_torch/csrc/gemv.cu",
@@ -200,7 +233,7 @@ KERNEL_INFO = {
 COUNT_NAME = {"decode_stream_qk_norm": "decode_stream_gemma",
               "decode_stream_moe_qk_norm": "decode_stream_moe_gemma"}
 # the K3 / K4 modes of the serve path: the same kernels, counted apart
-for _mode in ("int8", "shared", "int8_shared"):
+for _mode in ("int8", "shared", "int8_shared", "alibi", "pos"):
     KERNEL_INFO[f"flash_decode_{_mode}"] = KERNEL_INFO["flash_decode"]
 KERNEL_INFO["flash_attention_int8"] = KERNEL_INFO["flash_attention"]
 # the path whose launch count each kernel reports in the summary line (the
@@ -218,7 +251,8 @@ KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
                "decode_stream_gemma": "gemma3_4b", "decode_step_gemma": "gemma3_270m_q8_0",
                "decode_stream_qk_norm": "qwen3_8b",
                "decode_stream_moe_qk_norm": "qwen3moe_30b_a3b",
-               "decode_stream_shexp": "qwen2moe_shexp"}
+               "decode_stream_shexp": "qwen2moe_shexp",
+               "flash_decode_alibi": "mpt_7b_fused", "flash_decode_pos": "8b_self_extend"}
 SERVE_PROMPT_LENS = (256, 384, 512, 640, 768, 896, 1024, 320)
 # the serve path's launches per 4-slot decode step
 SERVE_PER_STEP = {"q8": {"flash_decode_int8": 32, "flash_decode": 32, "gemv_nib4c": 128,
@@ -302,6 +336,18 @@ QWEN3_PER_STEP = {"q8": {"flash_decode_int8": QWEN3_L, "flash_decode": QWEN3_L,
                            "gemv_nib4c": 0, "flash_decode": 0}}
 QWEN2_LAYERS = 4  # the qwen2_7b and qwen2moe_a2_7b phases' cut depths (of 28, 24)
 QWEN3MOE_LAYERS = 48  # the qwen3moe_30b_a3b phase's depth (of 48)
+MIXTRAL_Q4_LAYERS = 4  # the mixtral_q4km phase's cut depth (of 32)
+SE_PROMPT_TOKENS, SE_NEW_TOKENS = 3000, 64  # the 8b_self_extend phase
+GA_N, GA_W = 4, 1024  # its -gan / -gaw
+# its launches per decode token (the per-layer loop, K3's self-extend mode)
+SE_PER_TOKEN = {"flash_decode_pos": 32, "flash_decode": 32, "gemv_nib4c": 128,
+                "gemv_int8": 33, "decode_stream": 0, "decode_step": 0}
+MPT_PROMPT_TOKENS = 1531  # the mpt_7b prefill (ragged)
+# MPT-7B's launches per fused decode token: per layer K2 on q|k|v, o, up
+# and down, K3-ALiBi; the head's K1; no K6/K7 (refused, as in JAX)
+MPT_PER_TOKEN = {"flash_decode_alibi": 32, "flash_decode": 32, "gemv_nib4c": 128,
+                 "gemv_int8": 1, "decode_stream": 0, "decode_step": 0}
+BLOOM_LAYERS = 4  # the bloom_7b1 phase's cut depth (of 30)
 
 
 FAILURES: list[str] = []
@@ -490,6 +536,7 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
     torch.cuda.empty_cache()
     kv_mode_cases(torch, dev, g, flush, record)
     gqa_cases(torch, dev, torch.Generator(device=dev).manual_seed(7), flush, record)
+    alibi_pos_cases(torch, flush, record)
 
     # K5: the 270M Q8_0 prefill projections at the smoke prompt's 676 rows
     M = 676
@@ -796,6 +843,110 @@ def gqa_cases(torch, dev, g, flush, record) -> None:
         torch.cuda.empty_cache()
 
 
+def k3_mode_cases(torch, dev):
+    """K3's ALiBi and self-extend cases: the ``kernel_times.K3_CASES``
+    entries whose mode has ALiBi or logical positions (``kernel_times``
+    lists them), one at a time, inputs from seed 17 + the entry's index on
+    ``dev`` (``kernel_times.k3_case``), each with its count name
+    (``flash_decode_alibi`` or ``flash_decode_pos``)."""
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+
+    for i, spec in enumerate(kt.K3_CASES):
+        if "alibi" in spec[0] or "pos" in spec[0]:
+            c = kt.k3_case(torch, dev, spec, 17 + i)
+            c["name"] = "flash_decode_pos" if "pos" in spec[0] else "flash_decode_alibi"
+            yield c
+
+
+def k3_sdpa(torch, c):
+    """One ``scaled_dot_product_attention`` call computing the same function
+    as the K3 case ``c``: rows dequantized to bf16 beforehand, the shared
+    rows put before each slot's own, and a float mask holding the ALiBi
+    bias where a key is seen and -inf where it is not; plus the live rows
+    per slot and the (query token, key) pairs the mask lets through.
+    Returns (callable, live rows per slot, pairs)."""
+    import torch.nn.functional as F
+
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import QuantKV, dequantize_rows
+
+    q, k, v, kw = c["q"], c["k"], c["v"], c["kw"]
+    if isinstance(k, QuantKV):
+        k, v = dequantize_rows(k, torch.bfloat16), dequantize_rows(v, torch.bfloat16)
+    B, T, Hq, D = q.shape
+    dev = q.device
+    n = c["npast"].long()
+    L = int(n.max()) + T
+    t = torch.arange(T, device=dev)
+    rows = torch.arange(L, device=dev)
+    S0 = kw["shared_k"].shape[1] if "shared_k" in kw else 0
+    if "kv_pos" in kw:
+        kpos, qpos = kw["kv_pos"][:, :L].long(), kw["q_pos"].long()
+    else:
+        kpos = (S0 + rows)[None].expand(B, L)
+        qpos = S0 + n[:, None] + t[None]
+    if S0:
+        kpos = torch.cat([torch.arange(S0, device=dev)[None].expand(B, S0), kpos], 1)
+        k = torch.cat([kw["shared_k"].expand(B, -1, -1, -1), k[:, :L]], 1)
+        v = torch.cat([kw["shared_v"].expand(B, -1, -1, -1), v[:, :L]], 1)
+        live_row = torch.cat([torch.ones(S0, dtype=torch.bool, device=dev),
+                              torch.zeros(L, dtype=torch.bool, device=dev)])
+        own = torch.cat([torch.zeros(S0, dtype=torch.long, device=dev), rows])
+    else:
+        k, v = k[:, :L], v[:, :L]
+        live_row, own = torch.zeros(L, dtype=torch.bool, device=dev), rows
+    seen = (kpos[:, None, :] <= qpos[:, :, None]) & (
+        live_row[None, None] | (own[None, None, :] < (n[:, None, None] + T)))
+    window = kw.get("sliding_window", 0)
+    if window:
+        seen &= kpos[:, None, :] > qpos[:, :, None] - window
+    bias = torch.zeros((B, Hq, T, kpos.shape[1]), device=dev)
+    if "alibi_slopes" in kw:
+        dist = (qpos[:, :, None] - kpos[:, None, :]).float()
+        bias = -kw["alibi_slopes"].float()[None, :, None, None] * dist[:, None]
+    mask = torch.where(seen[:, None], bias, float("-inf")).to(torch.bfloat16)
+    qs = q.transpose(1, 2).contiguous()
+    ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    live = [int(x) + T if "kv_pos" in kw or not window else min(int(x) + T, window)
+            for x in n]
+    return (lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                   scale=c["scale"], enable_gqa=True),
+            live, int(seen.sum()))
+
+
+def alibi_pos_cases(torch, flush, record) -> None:
+    """K3's ALiBi and self-extend modes (``k3_mode_cases``) against the plain
+    version, launched twice (the same bits), timed beside the plain version
+    and the SDPA yardstick (``k3_sdpa``; the softcap case has none: SDPA
+    cannot apply a softcap before the bias).  Bytes: each live K and V row
+    once (int8: with its two 4-byte scales), 4 bytes of logical position
+    per live row, the shared rows once, q in and out; operations: 4·D per
+    query head and (query token, key) pair that the mask lets through."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import QuantKV
+
+    for c in k3_mode_cases(torch, torch.device("cuda")):
+        q, k, v, npast, scale, kw = c["q"], c["k"], c["v"], c["npast"], c["scale"], c["kw"]
+        args = (q, k, v, npast, scale)
+        got = flash_decode(*args, **kw)
+        err = check(f"{c['name']} {c['case']}", got, flash_decode_plain(*args, **kw), torch)
+        same = bit_identical(f"{c['name']} {c['case']}", got, flash_decode(*args, **kw), torch)
+        lib, live, pairs = k3_sdpa(torch, c)
+        B, T, Hq, D = q.shape
+        Hkv = (k.q if isinstance(k, QuantKV) else k).shape[2]
+        row = Hkv * (2 * D + 8) if isinstance(k, QuantKV) else Hkv * 2 * D * 2
+        row += 4 if "kv_pos" in kw else 0
+        S0 = kw["shared_k"].shape[1] if "shared_k" in kw else 0
+        nbytes = sum(live) * row + S0 * Hkv * 2 * D * 2 + 2 * q.numel() * 2
+        record(c["name"], c["case"], err,
+               device_ms(lambda: flash_decode(*args, **kw), torch, flush),
+               device_ms(lambda: flash_decode_plain(*args, **kw), torch, flush),
+               nbytes, 4 * Hq * D * pairs,
+               None if "logit_softcap" in kw else device_ms(lib, torch, flush),
+               mode=c["mode"], bit_identical=same,
+               library="SDPA, float mask (bias and mask; int8 rows pre-dequantized)")
+    torch.cuda.empty_cache()
+
+
 def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
     """A decode kernel against its plain version from one state: x for the
     tokens ``toks`` (B, 1) and caches of random rows (seed 11) filled to
@@ -993,15 +1144,13 @@ def loop_logits(torch, eng, tok: int, layers_fn=None):
     (``layers_forward``, the route the JAX package takes off its
     accelerator: K1/K2 GEMVs and K3 attention per layer), called as a
     function, then the head."""
-    from llama_cpp_gfx906_tpu_torch.models.llama import embed, layers_forward
-    from llama_cpp_gfx906_tpu_torch.ops.norms import rms_norm
-    from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import linear
+    from llama_cpp_gfx906_tpu_torch.models.llama import embed, head, layers_forward
 
     p, cfg = eng.params, eng.cfg
     with torch.inference_mode():
         x = embed(p, cfg, torch.tensor([[tok]], device=eng.device))
         x = (layers_fn or layers_forward)(p, cfg, x, eng.kv)
-        logits = linear(rms_norm(x, p["out_norm"], cfg.rms_eps), p["lm_head"]).float()
+        logits = head(p, cfg, x)
         eng.set_n_past(eng.n_past + 1)
         return logits[0, -1].cpu().numpy()
 
@@ -1250,6 +1399,109 @@ def phase_8b_fused(torch, eng, ids, paths: dict) -> None:
          **out, layer_loop_comparison=cmp)
 
 
+def phase_8b_self_extend(torch, eng, paths: dict) -> None:
+    """Self-extend on the 8B engine of phase ``8b`` (full width and depth)
+    with a fresh cache of 4096 rows: a 3,000-token prompt, then the CLI's
+    loop (``tools/cli._generate_self_extend``, ``-gan 4 -gaw 1024``): its
+    ladder compresses the prompt's positions, then 64 greedy tokens through
+    ``decode_one`` (the per-layer loop: both decode kernels' gates refuse a
+    cache with positions, as JAX's do).  Held: the launches per decode token
+    (``SE_PER_TOKEN``; the loop's prefill launches measured apart), layer
+    0's K rows of the prompt against raw keys roped fresh at their new
+    positions (2e-2 of max |fresh|: bf16 roundings of the re-ropes), and 8
+    decode steps from one cloned state against the same loop with K3's
+    plain version (2e-2 per step, the same greedy tokens)."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route, embed
+    from llama_cpp_gfx906_tpu_torch.ops.norms import rms_norm
+    from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import linear
+    from llama_cpp_gfx906_tpu_torch.ops.rope import apply_rope, inv_freq_for
+    from llama_cpp_gfx906_tpu_torch.tools.cli import _generate_self_extend
+    from llama_cpp_gfx906_tpu_torch.tools.kernel_times import ladder_positions
+
+    eng.kv, eng.max_seq = None, 4096
+    eng.reset()
+    torch.cuda.empty_cache()
+    cfg, dev = eng.cfg, eng.device
+    ids = prompt_ids(eng, 1500)[:SE_PROMPT_TOKENS]
+    if len(ids) != SE_PROMPT_TOKENS:
+        raise AssertionError(f"8b_self_extend: a prompt of {len(ids)} tokens")
+    before = kernels.device_counts()
+    t0 = time.perf_counter()
+    eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = launches_since(before)
+    before = kernels.device_counts()
+    t_dec = eng.perf.t_decode_s
+    t0 = time.perf_counter()
+    # the synthetic head repeats 64 distinct rows: an end-of-generation id
+    # wins one step in 64, so the phase decodes past it, as ``generate``'s do
+    toks = _generate_self_extend(eng, ids, SE_NEW_TOKENS, GA_N, GA_W, stop_on_eog=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decode_s = eng.perf.t_decode_s - t_dec
+    ran = launches_since(before)
+    n = len(toks)
+    paths["8b_self_extend"] = {k: ran[k] - prefill_launches.get(k, 0) for k in ran}
+    per_token = {k: v / max(n, 1) for k, v in paths["8b_self_extend"].items()}
+    if n != SE_NEW_TOKENS or not all(0 <= t < cfg.n_vocab for t in toks):
+        raise AssertionError(f"8b_self_extend: generated {toks}")
+    if any(per_token.get(k) != v for k, v in SE_PER_TOKEN.items()):
+        fail(f"8b_self_extend: launches per decode token {per_token}, want {SE_PER_TOKEN}")
+    if decode_route(eng.params, cfg, eng.kv) is not None:
+        fail("8b_self_extend: a decode kernel's gate takes a cache with positions")
+    pos = eng.kv.pos[0, :SE_PROMPT_TOKENS].long()
+    want_pos = ladder_positions(SE_PROMPT_TOKENS, GA_N, GA_W)[0]  # the CPU engine's
+    if not np.array_equal(pos.cpu().numpy(), want_pos):
+        fail("8b_self_extend: the prompt's positions are not the ladder's on the CPU")
+    with torch.inference_mode():
+        p0 = eng.params["layers"][0]
+        h = rms_norm(embed(eng.params, cfg, torch.tensor([ids], device=dev)),
+                     p0["attn_norm"], cfg.rms_eps)
+        Dq = cfg.n_heads * cfg.head_dim
+        k_raw = linear(h, p0["wqk_fused"])[..., Dq:].reshape(
+            1, SE_PROMPT_TOKENS, cfg.n_kv_heads, cfg.head_dim)
+        fresh = apply_rope(k_raw, pos[None], inv_freq_for(cfg, dev), cfg.rope_interleaved)
+        k_rows_rel = rel_of(torch, eng.kv.k[0, 0, :SE_PROMPT_TOKENS], fresh[0])
+    if not k_rows_rel <= TOL:
+        fail(f"8b_self_extend: layer 0's K rows vs fresh rope {k_rows_rel} > {TOL}")
+
+    # 8 steps from one cloned state: K3's positions mode against its plain version
+    kv = eng.kv
+    n0 = eng.n_past
+    saved = [t.clone() for t in (kv.k, kv.v, kv.pos, kv.pos_next)]
+
+    def restore():
+        eng.set_n_past(n0)
+        for t, s in zip((kv.k, kv.v, kv.pos, kv.pos_next), saved):
+            t.copy_(s)
+
+    fed, kern = [], []
+    tok = toks[-1]
+    for _ in range(8):
+        fed.append(tok)
+        kern.append(eng.decode_one(tok))
+        tok = int(np.argmax(kern[-1]))
+    restore()
+    plain = plain_attention_steps(torch, eng, fed)
+    restore()
+    del saved
+    rel = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(kern, plain)]
+    agree = [int(np.argmax(a) == np.argmax(b)) for a, b in zip(kern, plain)]
+    if not max(rel) <= TOL or not all(agree):
+        fail(f"8b_self_extend: 8 steps vs the plain attention: rel {rel}, greedy {agree}")
+    emit(phase="8b_self_extend", prompt_tokens=len(ids), new_tokens=n, ga_n=GA_N, ga_w=GA_W,
+         prefill_s=prefill_s, prefill_tok_s=len(ids) / prefill_s, self_extend_wall_s=wall,
+         decode_tok_s=n / decode_s, pos_next=int(kv.pos_next[0]), n_past=eng.n_past,
+         prefill_launches=prefill_launches, launches_per_token=per_token,
+         k_rows_vs_fresh_rope_rel=k_rows_rel, steps_vs_plain_rel=rel,
+         steps_greedy_agree=agree)
+    eng.reset()
+
+
 def http(url: str, body: dict | None = None, timeout: float = 900) -> tuple[int, str]:
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
@@ -1448,13 +1700,11 @@ def rel_of(torch, a, b) -> float:
 
 def loop_forward(params, cfg, tokens, kv, last_only: bool = True):
     """``forward`` through the per-layer loop whatever the decode route."""
-    from llama_cpp_gfx906_tpu_torch.models.llama import embed, layers_forward
-    from llama_cpp_gfx906_tpu_torch.ops.norms import rms_norm
-    from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import linear
+    from llama_cpp_gfx906_tpu_torch.models.llama import advance, embed, head, layers_forward
 
     x = layers_forward(params, cfg, embed(params, cfg, tokens), kv)[:, -1:]
-    kv.n_past += tokens.shape[1]
-    return linear(rms_norm(x, params["out_norm"], cfg.rms_eps), params["lm_head"]).float(), kv
+    advance(kv, tokens.shape[1])
+    return head(params, cfg, x), kv
 
 
 def batched_vs_single(torch, eng, prompts, rng, steps: int = 8, single_fn=None) -> dict:
@@ -1855,11 +2105,13 @@ def phase_gemma3_270m(torch, paths: dict, tmp: Path) -> None:
 
 
 def phase_mixtral_q4km(torch, paths: dict, tmp: Path) -> None:
-    """Mixtral-8x7B Q4_K_M at full width and depth (nib4c experts, 32
-    layers): load, a greedy ``generate`` (the 676-token prefill through the
-    dense all-experts path, decode through K6's MoE branch),
-    ``decode_fused`` with its launches per token, and the fused route held
-    against the per-layer loop (routed: the quantized nib4c gather)."""
+    """Mixtral-8x7B Q4_K_M at full width, ``MIXTRAL_Q4_LAYERS`` of 32 layers
+    (nib4c experts; the cut keeps K6's MoE launch per token and the fused
+    route against the loop, and writes 3.3 GB instead of 26.5): load, a
+    greedy ``generate`` (the 676-token prefill through the dense
+    all-experts path, decode through K6's MoE branch), ``decode_fused``
+    with its launches per token, and the fused route held against the
+    per-layer loop (routed: the quantized nib4c gather)."""
     import os
 
     from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
@@ -1869,7 +2121,7 @@ def phase_mixtral_q4km(torch, paths: dict, tmp: Path) -> None:
 
     path = tmp / "synth-mixtral-q4km.gguf"
     t0 = time.perf_counter()
-    write_synth(str(path), "mixtral-q4_k_m", seed=0)
+    write_synth(str(path), "mixtral-q4_k_m", seed=0, n_layers=MIXTRAL_Q4_LAYERS)
     t_write = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     eng = Engine.from_gguf(str(path), max_seq=8192)
@@ -1896,7 +2148,8 @@ def phase_mixtral_q4km(torch, paths: dict, tmp: Path) -> None:
                              f"{launches}")
     fused = fused_run(torch, eng, ids, "decode_stream_moe")
     cmp = compare_routes(torch, eng, ids, TOL_Q4KM, enforce_loop=True)
-    emit(phase="mixtral_q4km", synth_write_s=t_write, gguf_bytes=os.path.getsize(path),
+    emit(phase="mixtral_q4km", layers=eng.cfg.n_layers, synth_write_s=t_write,
+         gguf_bytes=os.path.getsize(path),
          prompt_tokens=len(ids), new_tokens=len(toks), route=route, **perf,
          weights_and_cache_bytes=mem_weights,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -2222,11 +2475,13 @@ def loop_vs_cpu(torch, name: str, path: str, n_prompt: int, per_token: dict,
     if decode_route(card.params, card.cfg, card.kv) is not None or \
             k6._stream_ok(card.params, card.cfg, card.kv, 1, 1) or \
             k7._fused_ok(card.params, card.cfg, card.kv, 1, 1):
-        raise AssertionError(f"{name}: a decode kernel's gate takes the biased stack")
+        raise AssertionError(f"{name}: a decode kernel's gate takes the stack")
     ids = prompt_ids(card, 300)[:n_prompt]
     kernel_counts(reset=True)
+    t0 = time.perf_counter()
     a = [card.prefill(ids)]
     torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
     prefill_launches = kernel_counts()
     kernel_counts(reset=True)
     fed = []
@@ -2251,6 +2506,7 @@ def loop_vs_cpu(torch, name: str, path: str, n_prompt: int, per_token: dict,
         fail(f"{name}: the card's loop vs the CPU's: max rel {rel}, allclose ratio {ratio} "
              f"at {TOL_Q4KM}")
     return dict(prompt_tokens=len(ids), prefill_launches=prefill_launches,
+                prefill_tok_s=len(ids) / prefill_s,
                 decode_launches=launches, decode_tok_s=steps / decode_s,
                 card_vs_cpu_rel=rel, card_vs_cpu_allclose_ratio=ratio)
 
@@ -2323,6 +2579,175 @@ def phase_qwen2moe(torch, paths: dict, tmp: Path) -> None:
     del eng
     Path(path).unlink()
     torch.cuda.empty_cache()
+
+
+def plain_attention_steps(torch, eng, fed: list[int]) -> list:
+    """``decode_one`` over the tokens ``fed`` with K3's plain version in
+    place of the kernel (the same loop otherwise)."""
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.ops import attention
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode_plain
+
+    attention.flash_decode = flash_decode_plain
+    try:
+        return [eng.decode_one(t) for t in fed]
+    finally:
+        attention.flash_decode = kernels.COUNTERS["flash_decode"]
+
+
+def phase_mpt_7b(torch, paths: dict, tmp: Path) -> None:
+    """MPT-7B Q4_K_M at full width and depth (ALiBi, LayerNorm, an ungated
+    gelu FFN): synth write and load; a ragged 1,531-token prefill (ALiBi at
+    G·T > 128: the counted einsum, one a layer); ``generate`` and
+    ``decode_fused`` through the per-layer loop with K3's ALiBi mode, the
+    fused launches per token held to ``MPT_PER_TOKEN``; 8 fused steps: their
+    greedy tokens those of the loop with K3 fed the same tokens, whose logits
+    are held to the loop with K3's plain version within 2e-2; then
+    ``BatchedEngine`` at 4 slots x 4096 (bf16 cache): 4 requests of
+    256-1,531 prompt tokens and 16 new tokens each, K3-ALiBi once a layer
+    per decode step, and the batched step against single slots."""
+    import os
+
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
+    from llama_cpp_gfx906_tpu_torch.runtime.batch_engine import BatchedEngine
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = tmp / "synth-mpt-7b-q4km.gguf"
+    t0 = time.perf_counter()
+    write_synth(str(path), "mpt-7b-q4_k_m", seed=0)
+    t_write = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine.from_gguf(str(path), max_seq=4096)
+    mem_weights = torch.cuda.memory_allocated()
+    L = eng.cfg.n_layers
+    if decode_route(eng.params, eng.cfg, eng.kv) is not None:
+        raise AssertionError("mpt_7b: a decode kernel's gate takes an ALiBi stack")
+    ids = prompt_ids(eng, 600)[:MPT_PROMPT_TOKENS]
+    eng.reset()
+    kernel_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = kernel_counts()
+    if (prefill_launches["attend_einsum"], prefill_launches["flash_decode"],
+            prefill_launches["flash_attention"]) != (L, 0, 0):
+        fail(f"mpt_7b: prefill launches {prefill_launches}, want {L} einsum")
+    kernel_counts(reset=True)
+    _, toks = eng.generate(eng.tokenizer.detokenize(ids), n_predict=32, stop_on_eog=False)
+    torch.cuda.synchronize()
+    paths["mpt_7b"] = launches = kernel_counts()
+    generate_perf = eng.perf.summary()
+    if len(toks) != 32 or not all(0 <= t < eng.cfg.n_vocab for t in toks):
+        raise AssertionError(f"mpt_7b: bad generated tokens {toks}")
+    if (launches["flash_decode_alibi"] != 32 * L or launches["decode_stream"]
+            or launches["decode_step"]):
+        fail(f"mpt_7b: generate's decode went elsewhere than K3's ALiBi mode: {launches}")
+    fused = fused_run(torch, eng, ids, "flash_decode_alibi",
+                      want={k: float(v) for k, v in MPT_PER_TOKEN.items()})
+    paths["mpt_7b_fused"] = fused["launches"]
+
+    # 8 fused steps against the loop with K3 and with K3's plain version
+    eng.reset()
+    first = int(np.argmax(eng.prefill(ids)))
+    n0 = eng.n_past
+    k0, v0 = eng.kv.k.clone(), eng.kv.v.clone()
+
+    def rewind():
+        eng.kv.k.copy_(k0)
+        eng.kv.v.copy_(v0)
+        eng.set_n_past(n0)
+
+    steps = eng.decode_fused(first, n_steps=8)
+    fed = [first] + steps[:-1]
+    rewind()
+    loop = [eng.decode_one(t) for t in fed]
+    rewind()
+    plain = plain_attention_steps(torch, eng, fed)
+    del k0, v0
+    rel = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(loop, plain)]
+    fused_vs_loop = [int(t == int(np.argmax(a))) for t, a in zip(steps, loop)]
+    if not max(rel) <= TOL or not all(fused_vs_loop):
+        fail(f"mpt_7b: 8 fused steps: the loop vs plain attention rel {rel}, fused greedy "
+             f"vs the loop's {fused_vs_loop}")
+    emit(phase="mpt_7b", layers=L, synth_write_s=t_write, gguf_bytes=os.path.getsize(path),
+         prompt_tokens=len(ids), prefill_s=prefill_s, prefill_tok_s=len(ids) / prefill_s,
+         prefill_launches=prefill_launches, generate_perf=generate_perf,
+         generate_launches=launches, weights_and_cache_bytes=mem_weights,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), **fused,
+         steps_loop_vs_plain_rel=rel, steps_fused_vs_loop_greedy=fused_vs_loop)
+    cfg, params, tok, dev = eng.cfg, eng.params, eng.tokenizer, eng.device
+    del eng
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(6)
+
+    def prompts(lens):
+        return [[int(t) for t in rng.integers(3, cfg.n_vocab, n)] for n in lens]
+
+    be = BatchedEngine(cfg, params, tok, n_slots=4, max_seq=4096,
+                       kv_cache_dtype=torch.bfloat16, device=dev)
+    be.warmup()
+    m0 = dict(be.metrics)
+    before = kernels.device_counts()
+    t0 = time.perf_counter()
+    run_requests(be, prompts((256, 700, 1024, MPT_PROMPT_TOKENS)), 16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["mpt_7b_serve"] = served = launches_since(before)
+    steps_n = be.metrics["n_decode_steps"] - m0["n_decode_steps"]
+    chunks = be.metrics["n_prefill_chunks"] - m0["n_prefill_chunks"]
+    # every chunk holds more than 128 tokens (the einsum), then the head's
+    # K1 on its last row; each decode step: K3-ALiBi and 4 K2 a layer, K1
+    want = {"flash_decode_alibi": L * steps_n, "gemv_nib4c": 4 * L * steps_n,
+            "gemv_int8": steps_n + chunks, "decode_stream": 0, "flash_attention": 0}
+    if any(served.get(k) != v for k, v in want.items()):
+        fail(f"mpt_7b: the batched engine launched {served} in {steps_n} decode steps "
+             f"and {chunks} prefill chunks, want {want}")
+    n_out = be.metrics["n_generated_tokens"] - m0["n_generated_tokens"]
+    if n_out != 4 * 16:
+        fail(f"mpt_7b: {n_out} tokens served, want 64")
+    worst = batched_vs_single(torch, be, prompts((256, 700, 1500, 3000)), rng)["worst_rel"]
+    if not worst <= TOL:
+        fail(f"mpt_7b: batched vs single-slot logits {worst} > {TOL}")
+    emit(phase="mpt_7b_serve", served_tokens=n_out, served_wall_s=wall,
+         served_tok_s=n_out / wall, decode_steps=steps_n, prefill_chunks=chunks,
+         decode_step_wall_ms=(be.metrics["t_decode_s"] - m0["t_decode_s"]) * 1e3
+         / max(steps_n, 1),
+         decode_step_device_ms=(be.metrics["t_decode_device_s"] - m0["t_decode_device_s"])
+         * 1e3 / max(steps_n, 1),
+         launches=served, launches_want=want, batched_vs_single_rel=worst)
+    del be, params
+    path.unlink()
+    torch.cuda.empty_cache()
+
+
+def phase_bloom_7b1(torch, paths: dict, tmp: Path) -> None:
+    """BLOOM-7B1 Q4_K_M at full width, ``BLOOM_LAYERS`` of 30 layers (every
+    bias, the LayerNorms' biases, the embedding norm; vocab 250,880): the
+    per-layer loop on the card (per layer K2 on q|k|v, o, up and down,
+    K3-ALiBi; the head's K1), held against the CPU's plain loop; a 101-token
+    prefill (G·T <= 128: K3's ALiBi mode)."""
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = str(tmp / "synth-bloom-7b1-q4km.gguf")
+    t0 = time.perf_counter()
+    write_synth(path, "bloom-7b1-q4_k_m", seed=0, n_layers=BLOOM_LAYERS)
+    t_write = time.perf_counter() - t0
+    L = BLOOM_LAYERS
+    out = loop_vs_cpu(torch, "bloom_7b1", path, 101,
+                      {"gemv_nib4c": 4 * L, "gemv_int8": 1, "flash_decode": L,
+                       "flash_decode_alibi": L, "decode_stream": 0, "decode_step": 0},
+                      paths)
+    if out["prefill_launches"]["flash_decode_alibi"] != L:
+        fail(f"bloom_7b1: prefill launches {out['prefill_launches']}")
+    emit(phase="bloom_7b1", layers=L, synth_write_s=t_write, **out)
+    Path(path).unlink()
 
 
 def phase_tinydoc(torch, paths: dict) -> None:
@@ -2441,16 +2866,19 @@ def plant_faults(names: list[str]) -> None:
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(ROOT / "chip_smoke.py", root)
             if edit is not None:
-                src = root / PKG / "csrc" / "decode_stream.cu"
+                src = root / PKG / "csrc" / f"{fault_source(fault)}.cu"
                 text = src.read_text()
                 if text.count(edit[0]) != 1:
                     raise RuntimeError(f"{fault}: the text to replace is not in "
-                                       "decode_stream.cu once")
+                                       f"{src.name} once")
                 src.write_text(text.replace(edit[0], edit[1]))
             roots[fault] = root
-        build = f"from {PKG} import kernels; kernels.build_all(('decode_stream',))"
-        procs = [subprocess.Popen([sys.executable, "-c", build], cwd=root)
-                 for root in roots.values()]
+        procs = []
+        for fault, root in roots.items():
+            libs = ("decode_stream", "flash_decode") if fault == "none" else (
+                fault_source(fault),)
+            build = f"from {PKG} import kernels; kernels.build_all({libs!r})"
+            procs.append(subprocess.Popen([sys.executable, "-c", build], cwd=root))
         if any(p.wait() != 0 for p in procs):
             raise RuntimeError("a copy failed to build")
         for fault, root in roots.items():
@@ -2458,14 +2886,32 @@ def plant_faults(names: list[str]) -> None:
                            cwd=root, check=True)
 
 
+def fault_source(fault: str) -> str:
+    """The source under ``csrc/`` that a planted fault edits."""
+    return "flash_decode" if fault in K3_FAULTS else "decode_stream"
+
+
 def decode_errors_of_copy(torch, fault: str) -> None:
-    """The K6 and K7 errors of this copy's kernels, one JSON line each."""
+    """The K3 errors (the unmodified source and K3's faults) and the K6 and
+    K7 errors (the unmodified source and K6/K7's faults) of this copy's
+    kernels, one JSON line each."""
     from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
     from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
     from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
     from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
 
+    if fault == "none" or fault in K3_FAULTS:
+        for c in k3_mode_cases(torch, torch.device("cuda")):
+            args = (c["q"], c["k"], c["v"], c["npast"], c["scale"])
+            got = flash_decode(*args, **c["kw"])
+            ref = flash_decode_plain(*args, **c["kw"])
+            emit(phase="planted_fault", fault=fault, kernel=c["name"], case=c["case"],
+                 rel_err=rel_of(torch, got, ref), tol=TOL)
+        torch.cuda.empty_cache()
+    if fault in K3_FAULTS:
+        return
     with tempfile.TemporaryDirectory() as tmp:
         for name, preset, L, _, synth in kt.DECODE_CASES:
             eng, path = kt.decode_engine(tmp, preset, L, **synth)
@@ -2521,6 +2967,7 @@ def main() -> None:
         got = run_phase("8b", phase_8b, torch, paths, tmp)
         if got is not None:
             run_phase("8b_fused", phase_8b_fused, torch, *got, paths)
+            run_phase("8b_self_extend", phase_8b_self_extend, torch, got[0], paths)
         del got
         torch.cuda.empty_cache()
         run_phase("8b_serve", phase_8b_serve, torch, paths, tmp)
@@ -2545,6 +2992,9 @@ def main() -> None:
         run_phase("qwen3moe_30b_a3b", phase_qwen3moe, torch, paths, tmp)
         run_phase("qwen2_7b", phase_qwen2_7b, torch, paths, tmp)
         run_phase("qwen2moe_a2_7b", phase_qwen2moe, torch, paths, tmp)
+        run_phase("mpt_7b", phase_mpt_7b, torch, paths, tmp)
+        torch.cuda.empty_cache()
+        run_phase("bloom_7b1", phase_bloom_7b1, torch, paths, tmp)
     run_phase("tinydoc", phase_tinydoc, torch, paths)
     run_phase("tinydoc_batched", phase_tinydoc_batched, torch, paths)
 
@@ -2565,7 +3015,9 @@ def main() -> None:
             "rqmm_int8": "gate 4096x14336 P=2", "decode_stream_moe": "n_past=3000 nib4c",
             "decode_stream_gemma": "B=1 n_past=3000", "decode_step_gemma": "B=1 n_past=3000",
             "decode_stream_qk_norm": "B=1 n_past=3000",
-            "decode_stream_moe_qk_norm": "n_past=3000", "decode_stream_shexp": "n_past=3000 gate"}
+            "decode_stream_moe_qk_norm": "n_past=3000", "decode_stream_shexp": "n_past=3000 gate",
+            "flash_decode_alibi": "mpt B=1 bf16 n_past=3000",
+            "flash_decode_pos": "8b gan4 gaw1024 T=1 bf16"}
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = next(r for r in results[name] if pick[name] in r["case"])

@@ -16,7 +16,7 @@ LCG_EXPORT const char* lcg_error_string(int err) {
 // launch's first block, so graph replays count too (a profiler trace can
 // drop records).  Each library's kernels count into their own slots
 // (kernels.py names them); lcg_device_counts copies the slots out.
-constexpr int kCountSlots = 8;
+constexpr int kCountSlots = 16;
 __device__ unsigned long long g_launch_counts[kCountSlots];
 
 LCG_EXPORT int lcg_device_counts(unsigned long long* out) {  // kCountSlots values

@@ -4,8 +4,8 @@
 // Replaces: llama_cpp_gfx906_tpu/ops/flash_decode.py  _decode_kernel
 // (launched by _flash_decode_call, wrapper flash_decode), for bf16, f32 or
 // int8 KV with GQA, a per-sequence fill level n_past, sliding window, logit
-// softcap, attention sinks and a batch-shared prefix segment.  Its ALiBi
-// and self-extend modes are not ported yet.
+// softcap, attention sinks, a batch-shared prefix segment, ALiBi and
+// self-extend (logical) positions.
 //
 // Contract: qh (B, Hkv, NQ, D) f32 holds the NQ = G*T queries of each KV
 // head, lane u = g*T + t (query head h*G + g, new token t); the cache
@@ -27,6 +27,25 @@
 // softmax; the shared rows are all causally visible, the window applies
 // over logical positions.
 //
+// ALiBi mode (slopes (Hkv, NQ) f32 per query lane, or null): each score,
+// after the softcap and before the mask, loses slope * (q_pos - k_pos), the
+// positions of the segment's own coordinates (shared rows at 0 .. S0-1 and
+// queries at S0 + n_past + t; own rows at their row and queries at
+// n_past + t) or, in the self-extend mode, the logical ones.
+//
+// Self-extend mode (kv_pos (B, S) and q_pos (B, T) int32, or null): row r
+// of sequence b sits at logical position kv_pos[b, r], query t at
+// q_pos[b, t]; a row is seen where its logical position is at most the
+// query's (and, with a window, above q - W) and it is live (r < n_past +
+// T).  Logical positions do not follow rows, so no row is skipped by the
+// window: the block walks every live row and stages the 64 positions of a
+// tile beside its K and V rows.  Not with a shared segment (the JAX kernel
+// raises there too).  The two modes share one instantiation flag (EXT),
+// each on or off at run time inside it: as runtime branches in every
+// instantiation they cost the other modes 6-8% (measured at n_past 3000),
+// as a flag they double K3's instantiations (its build still runs beside
+// decode_stream.cu's, which takes far longer).
+//
 // Bound on the card: the live KV bytes read once, 2 * n_live * D * sizeof(KV)
 // per KV head, plus 4 bytes of scale per row and head in the int8 mode, plus
 // the shared rows (read by every slot's block: B times from the kernel, once
@@ -36,12 +55,14 @@
 //     once for all G*T queries of the head, in the stored (B, S, Hkv, D)
 //     layout, with no transpose;
 //   - only the live rows [max(0, n_past+1-W), n_past+T) are walked (and the
-//     shared rows inside the window), in tiles of 64 keys, so the traffic
-//     follows n_past, not the allocation; the block reads n_past itself, so
-//     the host never synchronises;
+//     shared rows inside the window; with logical positions every live
+//     row), in tiles of 64 keys, so the traffic follows n_past, not the
+//     allocation; the block reads n_past itself, so the host never
+//     synchronises;
 //   - the K and V rows of a tile stream into shared memory with 16-byte
 //     cp.async copies (16 dims of int8, 8 of bf16, 4 of f32), and the
-//     int8 mode's scales with 4-byte ones beside them, double-buffered: the
+//     int8 mode's scales (and the self-extend mode's positions) with 4-byte
+//     ones beside them, double-buffered: the
 //     next tile is in flight while the current one computes;
 //   - scores: 4 threads per key split the head dim and meet by shuffles;
 //     online softmax per query in f32 (one warp per query); P.V: the same
@@ -83,6 +104,9 @@ struct __align__(16) Shared {
   float qs[QT][D];
   float ps[QT][BK];
   float sc[2][2][BK];  // int8 mode: [stage][K, V][key] scales
+  int kpos[2][BK];     // self-extend mode: [stage][key] logical positions
+  float slope[QT];     // ALiBi mode: each query's slope
+  int qlog[QT];        // self-extend mode: each query's logical position
   float m[QT], l[QT], alpha[QT];
 };
 
@@ -151,17 +175,20 @@ __device__ __forceinline__ void load_dims(const int8_t* p, float* out) {
 
 // One segment of rows [lo, hi) into the running softmax of the block's
 // queries.  Row r of the segment lies at kb + r * row_stride (its scales, in
-// the int8 mode, at ksb / vsb + r * scale_stride); query t of the block sits
-// at qpos0 + t in the segment's row coordinates.
-template <typename E, int D>
+// the int8 mode, at ksb / vsb + r * scale_stride; its logical position, in
+// the self-extend mode, at posb[r], the queries' at sh.qlog); query t of the
+// block sits at qpos0 + t in the segment's row coordinates.  ``alibi``: the
+// scores take the slopes in sh.slope.  Both only where EXT.
+template <typename E, int D, bool EXT>
 __device__ __forceinline__ void walk(const E* __restrict__ kb,
                                      const E* __restrict__ vb,
                                      const float* __restrict__ ksb,
                                      const float* __restrict__ vsb,
+                                     const int* __restrict__ posb,
                                      size_t row_stride, int scale_stride,
                                      int lo, int hi, int qpos0, int T, int q0,
                                      float scale, int window, float softcap,
-                                     E* stages, Shared<D>& sh,
+                                     bool alibi, E* stages, Shared<D>& sh,
                                      float (&acc)[D / 32]) {
   using TL = Tile<E, D>;
   constexpr bool QUANT = std::is_same<E, int8_t>::value;
@@ -186,6 +213,13 @@ __device__ __forceinline__ void walk(const E* __restrict__ kb,
         const float* src =
             (is_v ? vsb : ksb) + (size_t)(valid ? t0 + j : lo) * scale_stride;
         cp_async4(&sh.sc[stage][is_v][j], src, valid);
+      }
+    }
+    if constexpr (EXT) {
+      if (posb != nullptr && tid >= 2 * BK && tid < 3 * BK) {
+        const int j = tid - 2 * BK;
+        const bool valid = t0 + j < hi;
+        cp_async4(&sh.kpos[stage][j], posb + (valid ? t0 + j : lo), valid);
       }
     }
     cp_async_commit();
@@ -234,10 +268,20 @@ __device__ __forceinline__ void walk(const E* __restrict__ kb,
       for (int o = 1; o < KSPLIT; o <<= 1)
         dot[qi] += __shfl_xor_sync(0xffffffffu, dot[qi], o);
       if (kr == qi % KSPLIT) {
-        const int qpos = qpos0 + (q0 + qi) % T;
+        // the query's and the key's positions: physical (in the segment's
+        // coordinates) or, in the self-extend mode, logical
+        const int qph = qpos0 + (q0 + qi) % T;
+        int qp = qph, kq = kp;
         float sc = dot[qi] * kscale * scale;
         if (softcap > 0.f) sc = tanhf(sc / softcap) * softcap;
-        const bool ok = kp < hi && kp <= qpos && (window <= 0 || kp > qpos - window);
+        if constexpr (EXT) {
+          if (posb != nullptr) {
+            qp = sh.qlog[qi];
+            kq = sh.kpos[stage][kj];
+          }
+          if (alibi) sc -= sh.slope[qi] * static_cast<float>(qp - kq);
+        }
+        const bool ok = kp < hi && kq <= qp && (window <= 0 || kq > qp - window);
         sh.ps[qi][kj] = ok ? sc : -INFINITY;
       }
     }
@@ -298,7 +342,7 @@ __device__ __forceinline__ void walk(const E* __restrict__ kb,
   }
 }
 
-template <typename KV, typename SH, bool SHARED, int D>
+template <typename KV, typename SH, bool SHARED, bool EXT, int D>
 __global__ void __launch_bounds__(NT)
 flash_decode_kernel(const float* __restrict__ qh, const KV* __restrict__ k,
                     const KV* __restrict__ v,
@@ -308,13 +352,18 @@ flash_decode_kernel(const float* __restrict__ qh, const KV* __restrict__ k,
                     const SH* __restrict__ shv, int S0,
                     const int* __restrict__ n_past_arr,
                     const float* __restrict__ sinks,  // (Hkv, NQ) or null
+                    const float* __restrict__ slopes,  // (Hkv, NQ) or null
+                    const int* __restrict__ kv_pos,    // (B, S) or null
+                    const int* __restrict__ q_pos,     // (B, T) or null
                     float* __restrict__ out, int S, int Hkv, int NQ, int T,
                     float scale, int window, float softcap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Shared<D> sh;
   constexpr int DPT = D / 32;
-  // slot 0: bf16/f32, 1: int8, 2: shared, 3: int8 + shared
-  lcg::count_launch((std::is_same<KV, int8_t>::value ? 1 : 0) + (SHARED ? 2 : 0));
+  // slot: bit 0 int8, bit 1 shared, bit 2 ALiBi, bit 3 logical positions
+  const bool alibi = slopes != nullptr;
+  lcg::count_launch((std::is_same<KV, int8_t>::value ? 1 : 0) + (SHARED ? 2 : 0) +
+                    (alibi ? 4 : 0) + (kv_pos != nullptr ? 8 : 0));
 
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;  // b * Hkv + h
@@ -328,8 +377,11 @@ flash_decode_kernel(const float* __restrict__ qh, const KV* __restrict__ k,
     sh.qs[qi][d] = (q0 + qi < NQ) ? qh[((size_t)bh * NQ + q0 + qi) * D + d] : 0.f;
   }
   if (tid < QT) {
+    const int lane = min(q0 + tid, NQ - 1);
     sh.m[tid] = lcg::kNegInf;
     sh.l[tid] = 0.f;
+    sh.slope[tid] = alibi ? slopes[h * NQ + lane] : 0.f;
+    sh.qlog[tid] = q_pos != nullptr ? q_pos[b * T + lane % T] : 0;
   }
   float acc[DPT];
 #pragma unroll
@@ -338,19 +390,21 @@ flash_decode_kernel(const float* __restrict__ qh, const KV* __restrict__ k,
   if constexpr (SHARED) {  // logical rows 0 .. S0-1, queries at S0 + n_past + t
     const int qpos0 = S0 + n_past;
     const int lo = window > 0 ? max(0, qpos0 + 1 - window) : 0;
-    walk<SH, D>(shk + (size_t)h * D, shv + (size_t)h * D, nullptr, nullptr,
-                row_stride, 0, lo, S0, qpos0, T, q0, scale, window, softcap,
-                reinterpret_cast<SH*>(smem_raw), sh, acc);
+    walk<SH, D, EXT>(shk + (size_t)h * D, shv + (size_t)h * D, nullptr, nullptr,
+                nullptr, row_stride, 0, lo, S0, qpos0, T, q0, scale, window,
+                softcap, alibi, reinterpret_cast<SH*>(smem_raw), sh, acc);
   }
   {
     const int hi = min(n_past + T, S);  // live rows end
-    const int lo = window > 0 ? max(0, n_past + 1 - window) : 0;
+    // logical positions do not follow rows: no window skip with them
+    const int lo = (window > 0 && kv_pos == nullptr) ? max(0, n_past + 1 - window) : 0;
     const size_t base = (size_t)b * S * row_stride + (size_t)h * D;
     const size_t sbase = (size_t)b * S * Hkv + h;
-    walk<KV, D>(k + base, v + base,
+    walk<KV, D, EXT>(k + base, v + base,
                 kscale != nullptr ? kscale + sbase : nullptr,
-                vscale != nullptr ? vscale + sbase : nullptr, row_stride, Hkv,
-                lo, hi, n_past, T, q0, scale, window, softcap,
+                vscale != nullptr ? vscale + sbase : nullptr,
+                kv_pos != nullptr ? kv_pos + (size_t)b * S : nullptr, row_stride,
+                Hkv, lo, hi, n_past, T, q0, scale, window, softcap, alibi,
                 reinterpret_cast<KV*>(smem_raw), sh, acc);
   }
 
@@ -378,6 +432,8 @@ struct Args {
   int S0;
   const int* n_past;
   const float* sinks;
+  const float* slopes;
+  const int *kv_pos, *q_pos;
   float* out;
   int B, S, Hkv, NQ, T;
   float scale;
@@ -385,9 +441,9 @@ struct Args {
   float softcap;
 };
 
-template <typename KV, typename SH, bool SHARED, int D>
+template <typename KV, typename SH, bool SHARED, bool EXT, int D>
 cudaError_t launch_d(const Args& a, cudaStream_t st) {
-  auto kern = flash_decode_kernel<KV, SH, SHARED, D>;
+  auto kern = flash_decode_kernel<KV, SH, SHARED, EXT, D>;
   constexpr size_t smem = stage_bytes<KV, SH, D>();
   static bool smem_set = false;  // once, so later launches may be graph-captured
   if (!smem_set) {
@@ -400,35 +456,40 @@ cudaError_t launch_d(const Args& a, cudaStream_t st) {
   kern<<<grid, NT, smem, st>>>(
       a.qh, static_cast<const KV*>(a.k), static_cast<const KV*>(a.v), a.kscale,
       a.vscale, static_cast<const SH*>(a.shk), static_cast<const SH*>(a.shv),
-      a.S0, a.n_past, a.sinks, a.out, a.S, a.Hkv, a.NQ, a.T, a.scale, a.window,
-      a.softcap);
+      a.S0, a.n_past, a.sinks, a.slopes, a.kv_pos, a.q_pos, a.out, a.S, a.Hkv,
+      a.NQ, a.T, a.scale, a.window, a.softcap);
   return cudaGetLastError();
 }
 
 constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory per block
 
-template <typename KV, typename SH, bool SHARED>
+template <typename KV, typename SH, bool SHARED, bool EXT>
 cudaError_t launch_s(int D, const Args& a, cudaStream_t st) {
   switch (D) {
     case 64:
-      return launch_d<KV, SH, SHARED, 64>(a, st);
+      return launch_d<KV, SH, SHARED, EXT, 64>(a, st);
     case 128:
-      return launch_d<KV, SH, SHARED, 128>(a, st);
+      return launch_d<KV, SH, SHARED, EXT, 128>(a, st);
     case 256:  // two f32 stages of 256-wide rows exceed 227 KB
       if constexpr (stage_bytes<KV, SH, 256>() <= kMaxSmem)
-        return launch_d<KV, SH, SHARED, 256>(a, st);
+        return launch_d<KV, SH, SHARED, EXT, 256>(a, st);
       return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// the shared mode is an instantiation of its own, so a profiler trace tells
-// it apart by name
+// the shared mode and the ALiBi / logical-position modes are instantiations
+// of their own, so a profiler trace tells them apart by name
+template <typename KV, typename SH, bool EXT>
+cudaError_t launch_x(int D, const Args& a, cudaStream_t st) {
+  return a.S0 > 0 ? launch_s<KV, SH, true, EXT>(D, a, st)
+                  : launch_s<KV, SH, false, EXT>(D, a, st);
+}
 template <typename KV, typename SH>
 cudaError_t launch(int D, const Args& a, cudaStream_t st) {
-  return a.S0 > 0 ? launch_s<KV, SH, true>(D, a, st)
-                  : launch_s<KV, SH, false>(D, a, st);
+  return (a.slopes != nullptr || a.kv_pos != nullptr) ? launch_x<KV, SH, true>(D, a, st)
+                                                      : launch_x<KV, SH, false>(D, a, st);
 }
 
 }  // namespace
@@ -436,19 +497,24 @@ cudaError_t launch(int D, const Args& a, cudaStream_t st) {
 // kv_kind: 0 f32, 1 bf16, 2 int8 (with kscale / vscale (B, S, Hkv) f32).
 // sh_kind: the shared rows' type, 0 f32 or 1 bf16 (S0 > 0); beside a bf16 or
 // f32 cache it must be the cache's.  n_past: int32 (B,) on the card.
+// slopes (Hkv, NQ) f32, kv_pos (B, S) and q_pos (B, T) int32: null when off;
+// kv_pos and q_pos come together, and not with S0 > 0.
 LCG_EXPORT int lcg_flash_decode(int kv_kind, int sh_kind, int D,
                                 const float* qh, const void* k, const void* v,
                                 const float* kscale, const float* vscale,
                                 const void* shk, const void* shv, int S0,
                                 const int* n_past, const float* sinks,
-                                float* out, int B, int S, int Hkv, int NQ,
-                                int T, float scale, int window, float softcap,
-                                void* stream) {
+                                const float* slopes, const int* kv_pos,
+                                const int* q_pos, float* out, int B, int S,
+                                int Hkv, int NQ, int T, float scale, int window,
+                                float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Args a{qh,   k,      v,   kscale, vscale, shk, shv, S0,    n_past,
-               sinks, out,   B,   S,      Hkv,    NQ,  T,   scale, window,
-               softcap};
+  const Args a{qh,     k,      v,      kscale, vscale, shk, shv, S0,
+               n_past, sinks,  slopes, kv_pos, q_pos,  out, B,   S,
+               Hkv,    NQ,     T,      scale,  window, softcap};
   if (S0 > 0 && kv_kind != 2 && sh_kind != kv_kind) return cudaErrorInvalidValue;
+  if ((kv_pos == nullptr) != (q_pos == nullptr) || (kv_pos != nullptr && S0 > 0))
+    return cudaErrorInvalidValue;
   switch (kv_kind) {
     case 0:
       return launch<float, float>(D, a, st);

@@ -139,6 +139,7 @@ class Keys:
         HEAD_COUNT = "{arch}.attention.head_count"
         HEAD_COUNT_KV = "{arch}.attention.head_count_kv"
         KEY_LENGTH = "{arch}.attention.key_length"
+        LAYERNORM_EPS = "{arch}.attention.layer_norm_epsilon"
         LAYERNORM_RMS_EPS = "{arch}.attention.layer_norm_rms_epsilon"
         SLIDING_WINDOW = "{arch}.attention.sliding_window"
         SCALE = "{arch}.attention.scale"

@@ -136,7 +136,7 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-COUNT_SLOTS = 8  # device count slots per library (csrc/common.cuh kCountSlots)
+COUNT_SLOTS = 16  # device count slots per library (csrc/common.cuh kCountSlots)
 # name -> the wrapper function whose ``launches`` attribute counts its kernel
 COUNTERS: dict = {}
 # (library, device count slot) -> the count names one launch there adds to

@@ -15,7 +15,12 @@ width from its tensors, as the JAX loader does (the file's
 takes the JAX package's gemma branch: gelu-tanh, the embedding scaled by
 sqrt(D), per-head q/k RMS norms, post-attention and post-FFN norms, NEOX
 rope, and interleaved sliding windows (every 6th layer global) whose
-layers rotate with a local rope base, unscaled.
+layers rotate with a local rope base, unscaled.  ``mpt`` and ``bloom``
+take the JAX ALiBi branches (``models/config.py:369-391``): LayerNorm with
+the eps of ``{arch}.attention.layer_norm_epsilon``, no positional
+embedding, ALiBi slopes on the attention scores and an ungated FFN
+(gelu-erf for mpt; gelu-tanh, biases everywhere and a norm after the
+embedding for bloom).
 """
 
 from __future__ import annotations
@@ -73,7 +78,11 @@ class ModelConfig:
     # refuses them until those families are ported
     moe_topk_softmax: bool = False
     moe_scale_input: bool = False
-    attn_bias: bool = False  # q/k/v biases (qwen2, qwen2moe)
+    attn_bias: bool = False  # q/k/v biases (qwen2, qwen2moe, bloom)
+    norm_type: str = "rms"  # "rms" | "layer" (LayerNorm, with optional bias)
+    pos_emb: str = "rope"  # "rope" | "none" (mpt, bloom: ALiBi only)
+    alibi: bool = False  # mpt/bloom positional bias on the attention scores
+    ffn_gated: bool = True  # False: the 2-matrix MLP act(x W_up + b) W_down + b
 
     @property
     def swa_layers(self) -> tuple[bool, ...]:
@@ -107,10 +116,12 @@ def sub_config(cfg: ModelConfig, first: int, n: int) -> ModelConfig:
     raise ValueError(f"layers {first}..{first + n - 1}: no SWA pattern gives {want}")
 
 
-# the archs the port loads: the llama graph under its names, gemma3, qwen
+# the archs the port loads: the llama graph under its names, gemma3, qwen,
+# the ALiBi families
 LLAMA_ARCHS = ("llama", "llama2", "llama3", "mistral", "mixtral", "tinyllama")
 QWEN_ARCHS = ("qwen2", "qwen2moe", "qwen3", "qwen3moe")
-ARCHS = LLAMA_ARCHS + ("gemma3",) + QWEN_ARCHS
+ALIBI_ARCHS = ("mpt", "bloom")
+ARCHS = LLAMA_ARCHS + ("gemma3",) + QWEN_ARCHS + ALIBI_ARCHS
 
 
 def config_from_gguf(reader) -> ModelConfig:
@@ -173,4 +184,10 @@ def config_from_gguf(reader) -> ModelConfig:
             post_ffn_norm=True, qk_norm=True, swa_pattern=6,
             attn_scale=float(g(Keys.Attention.SCALE, 0.0)),
             rope_local_base=float(g(Keys.Rope.LOCAL_FREQ_BASE, 10000.0)))
+    if arch in ALIBI_ARCHS:  # JAX models/config.py:369-391
+        cfg = replace(
+            cfg, norm_type="layer", rms_eps=float(g(Keys.Attention.LAYERNORM_EPS, 1e-5)),
+            pos_emb="none", alibi=True, ffn_gated=False,
+            act_fn="gelu_erf" if arch == "mpt" else "gelu_tanh",
+            attn_bias=arch == "bloom")
     return cfg

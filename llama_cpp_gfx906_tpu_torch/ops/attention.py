@@ -13,16 +13,19 @@ Shapes:
 :func:`attend` is the plain masked-softmax einsum: the oracle of the K3 and
 K4 kernels and the CPU path.  On the card :func:`mha_with_cache` sends a
 call to K3 ``flash_decode`` when the G*T queries of a KV head fit its
-128-query limit (every cache kind, with or without a shared segment), else
-to K4 ``flash_attention`` (bf16/f32 or int8 cache).  A chunk of more than
-128 queries per KV head with a shared segment has no kernel, in the JAX
-package either (its flash prefill has no shared mode and leaves that case to
-XLA): it takes the einsum on the card, counted by :func:`attend_einsum`.
+128-query limit (every cache kind, with or without a shared segment, ALiBi
+slopes or self-extend positions), else to K4 ``flash_attention`` (bf16/f32
+or int8 cache).  A chunk of more than 128 queries per KV head with a shared
+segment, ALiBi or logical positions has no kernel, in the JAX package
+either (its flash prefill has none of those modes and leaves them to XLA):
+it takes the einsum on the card, counted by :func:`attend_einsum`.
 (The JAX package's ``S >= 4096`` condition for its decode kernel is about
 the TPU einsum reading the whole allocation; it is not carried over.)
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,6 +35,32 @@ from .flash_decode import MAX_QUERIES, flash_decode
 from .kv_quant import QuantKV, dequantize_rows, insert_quant
 
 NEG_INF = -1e30
+
+
+def alibi_slopes_for(n_heads: int) -> torch.Tensor:
+    """Per-head ALiBi slopes (JAX ``alibi_slopes_for``, HF
+    ``build_alibi_tensor``): the geometric ladder of the nearest power of two
+    n below ``n_heads``, then every other rung of the 2n ladder for the
+    rest."""
+    n = 2 ** math.floor(math.log2(n_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+    slopes = [base ** (i + 1) for i in range(n)]
+    if n < n_heads:
+        extra = 2.0 ** (-(2.0 ** -(math.log2(2 * n) - 3)))
+        slopes += [extra ** (2 * i + 1) for i in range(n_heads - n)]
+    return torch.tensor(slopes, dtype=torch.float32)
+
+
+_SLOPES: dict = {}
+
+
+def alibi_slopes_on(n_heads: int, device) -> torch.Tensor:
+    """:func:`alibi_slopes_for` on ``device``, copied there once (a step that
+    reads them can be captured in a CUDA graph)."""
+    key = (n_heads, torch.device(device))
+    if key not in _SLOPES:
+        _SLOPES[key] = alibi_slopes_for(n_heads).to(device)
+    return _SLOPES[key]
 
 
 def insert_kv(cache: torch.Tensor, new: torch.Tensor, n_past: torch.Tensor) -> None:
@@ -99,16 +128,19 @@ def attend(q, k_cache, v_cache, n_past, scale: float, sliding_window: int = 0,
 @kernels.counted("attend_einsum")
 def attend_einsum(q, k_cache, v_cache, n_past, scale: float,
                   sliding_window: int = 0, logit_softcap: float = 0.0,
-                  sinks=None, shared_k=None, shared_v=None) -> torch.Tensor:
+                  sinks=None, shared_k=None, shared_v=None, alibi_slopes=None,
+                  kv_pos=None, q_pos=None) -> torch.Tensor:
     """:func:`attend` for a call that no kernel takes (a chunk of more than
-    128 queries per KV head over a shared segment), over rows dequantized
-    in q's dtype for a q8 cache (the JAX einsum path's rounding point).  On
-    the card each call counts like a kernel launch."""
+    128 queries per KV head over a shared segment, with ALiBi or with
+    logical positions), over rows dequantized in q's dtype for a q8 cache
+    (the JAX einsum path's rounding point).  On the card each call counts
+    like a kernel launch."""
     if isinstance(k_cache, QuantKV):
         k_cache = dequantize_rows(k_cache, q.dtype)
         v_cache = dequantize_rows(v_cache, q.dtype)
     out = attend(q, k_cache, v_cache, n_past, scale, sliding_window,
-                 logit_softcap, sinks, shared_k=shared_k, shared_v=shared_v)
+                 logit_softcap, sinks, kv_pos=kv_pos, q_pos=q_pos,
+                 alibi_slopes=alibi_slopes, shared_k=shared_k, shared_v=shared_v)
     if q.is_cuda:
         attend_einsum.launches += 1
     return out
@@ -132,23 +164,14 @@ def mha_with_cache(q, k_new, v_new, k_cache, v_cache, n_past, scale: float,
         insert_kv(v_cache, v_new, n_past)
     B, T, Hq, _ = q.shape
     G = Hq // k_cache.shape[2]
-    shared = dict(shared_k=shared_k, shared_v=shared_v)
-    if kv_pos is not None or alibi_slopes is not None:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "ALiBi and self-extend attention have no CUDA kernel yet")
-        kc, vc = k_cache, v_cache
-        if quant:
-            kc, vc = dequantize_rows(kc, q.dtype), dequantize_rows(vc, q.dtype)
-        out = attend(q, kc, vc, n_past, scale, sliding_window, logit_softcap,
-                     sinks, kv_pos=kv_pos, q_pos=q_pos,
-                     alibi_slopes=alibi_slopes, **shared)
-    elif G * T <= MAX_QUERIES:
+    extra = dict(shared_k=shared_k, shared_v=shared_v, alibi_slopes=alibi_slopes,
+                 kv_pos=kv_pos, q_pos=q_pos)
+    if G * T <= MAX_QUERIES:
         out = flash_decode(q, k_cache, v_cache, n_past, scale, sliding_window,
-                           logit_softcap, sinks, **shared)
-    elif shared_k is not None:
+                           logit_softcap, sinks, **extra)
+    elif shared_k is not None or alibi_slopes is not None or kv_pos is not None:
         out = attend_einsum(q, k_cache, v_cache, n_past, scale, sliding_window,
-                            logit_softcap, sinks, **shared)
+                            logit_softcap, sinks, **extra)
     elif quant:
         out = flash_attention(q, k_cache.q, v_cache.q, n_past, scale,
                               sliding_window, logit_softcap, sinks,

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .decode_stream import (decode_layers_plain, gemma_mode, gemma_ok, launch_decode,
+from .decode_stream import (decode_layers_plain, gemma_mode, gemma_ok, graph_ok, launch_decode,
                             uniform_layers)
 from .quant_matmul import QuantTensor
 from .rope import rope_frequencies
@@ -34,7 +34,7 @@ def _int8_qt(t) -> bool:
 
 def _fused_ok(params, cfg, kv, B: int, T: int) -> bool:
     """The K7 gate: B = 1, T = 1, fused q|k|v, int8 plain-scale weights."""
-    if T != 1 or B != 1:
+    if T != 1 or B != 1 or not graph_ok(cfg, kv):
         return False
     # a q8 cache or a shared-prefix segment: the JAX gate refuses both first
     if kv.shared_k is not None or not isinstance(kv.k, torch.Tensor):

@@ -132,6 +132,14 @@ def uniform_layers(layers, keys) -> bool:
 ACTS = {"silu": 0, "gelu": 1, "gelu_tanh": 1, "gelu_erf": 2}  # the kernel's act
 
 
+def graph_ok(cfg, kv) -> bool:
+    """The clauses of the JAX gates (K7 ``_fused_ok``, K6 ``_stream_ok``) on
+    the model's graph and the cache: RMS norms, rope, a gated FFN, no ALiBi
+    (mpt, bloom), no self-extend logical positions in the cache."""
+    return (kv.pos is None and cfg.norm_type == "rms" and cfg.pos_emb == "rope"
+            and not cfg.alibi and cfg.ffn_gated)
+
+
 def gemma_ok(p, cfg) -> bool:
     """The gemma clauses of the JAX gates (K7 ``_fused_ok``, K6
     ``_stream_ok``): per-head q/k norms of shape (Dh,), post-norms only as
@@ -206,7 +214,7 @@ def _moe_stream_ok(p, cfg) -> bool:
 def _stream_ok(params, cfg, kv, B: int, T: int) -> bool:
     """The K6 gate (B <= 8 slots, T = 1, every projection in the streamed
     chunk grid)."""
-    if T != 1 or not (1 <= B <= 8):
+    if T != 1 or not (1 <= B <= 8) or not graph_ok(cfg, kv):
         return False
     # a q8 cache or a shared-prefix segment: the JAX gate refuses both first
     if kv.shared_k is not None or not isinstance(kv.k, torch.Tensor):

@@ -2,9 +2,11 @@
 
 Port of ``llama_cpp_gfx906_tpu/ops/flash_decode.py::flash_decode`` for a
 bf16, f32 or q8 (``QuantKV``: int8 rows and per-row scales) cache, with GQA,
-the ``n_past`` offset, sliding window, softcap, sinks and a batch-shared
+the ``n_past`` offset, sliding window, softcap, sinks, a batch-shared
 prefix segment ``shared_k``/``shared_v`` (1, S0, Hkv, D) in the compute
-dtype, walked before each sequence's own rows.  The kernel
+dtype, walked before each sequence's own rows, ALiBi slopes (Hq,) and
+self-extend logical positions ``kv_pos`` (B, S) / ``q_pos`` (B, T) (not
+with a shared segment, as in JAX).  The kernel
 (``csrc/flash_decode.cu``) runs one block per (batch, KV head), walks only
 the live cache rows and reads them in their stored (B, S, Hkv, D) layout,
 dequantizing int8 rows in the kernel; see the source for its design and
@@ -26,7 +28,8 @@ _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 def flash_decode_plain(q, k_cache, v_cache, n_past, scale: float,
                        sliding_window: int = 0, logit_softcap: float = 0.0,
-                       sinks=None, shared_k=None, shared_v=None) -> torch.Tensor:
+                       sinks=None, shared_k=None, shared_v=None, alibi_slopes=None,
+                       kv_pos=None, q_pos=None) -> torch.Tensor:
     """Plain version of K3: the masked-softmax einsum, over rows
     dequantized to f32 for a q8 cache."""
     from .attention import attend
@@ -35,21 +38,30 @@ def flash_decode_plain(q, k_cache, v_cache, n_past, scale: float,
         k_cache = dequantize_rows(k_cache, torch.float32)
         v_cache = dequantize_rows(v_cache, torch.float32)
     return attend(q, k_cache, v_cache, n_past, scale, sliding_window,
-                  logit_softcap, sinks, shared_k=shared_k, shared_v=shared_v)
+                  logit_softcap, sinks, kv_pos=kv_pos, q_pos=q_pos,
+                  alibi_slopes=alibi_slopes, shared_k=shared_k, shared_v=shared_v)
 
 
-@kernels.counted("flash_decode", lib="flash_decode", modes=("int8", "shared"))
+@kernels.counted("flash_decode", lib="flash_decode",
+                 modes=("int8", "shared", "alibi", "pos"))
 def flash_decode(q, k_cache, v_cache, n_past, scale: float,
                  sliding_window: int = 0, logit_softcap: float = 0.0,
-                 sinks=None, shared_k=None, shared_v=None) -> torch.Tensor:
+                 sinks=None, shared_k=None, shared_v=None, alibi_slopes=None,
+                 kv_pos=None, q_pos=None) -> torch.Tensor:
     """Attention of q (B, T, Hq, D) over the cache (B, S, Hkv, D) or a
     ``QuantKV`` of that shape, which already holds the T new rows at n_past,
     after the shared rows (1, S0, Hkv, D) when given; returns (B, T, Hq, D)
-    in q's dtype."""
+    in q's dtype.  ``alibi_slopes`` (Hq,) bias the scores by distance;
+    ``kv_pos`` (B, S) and ``q_pos`` (B, T) are the rows' and the queries'
+    logical positions (self-extend)."""
+    if (kv_pos is None) != (q_pos is None):
+        raise ValueError("flash_decode: kv_pos and q_pos go together")
+    if kv_pos is not None and shared_k is not None:
+        raise NotImplementedError("shared-prefix KV + self-extend positions")
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, n_past, scale,
                                   sliding_window, logit_softcap, sinks,
-                                  shared_k, shared_v)
+                                  shared_k, shared_v, alibi_slopes, kv_pos, q_pos)
     quant = isinstance(k_cache, QuantKV)
     if quant != isinstance(v_cache, QuantKV):
         raise ValueError("flash_decode: K and V caches of different kinds")
@@ -82,11 +94,22 @@ def flash_decode(q, k_cache, v_cache, n_past, scale: float,
                          f"head dim {D} (64, 128, or 256 without f32 rows)")
     # lane u = g*T + t of KV head h is query head h*G + g at new token t
     qh = q.float().permute(0, 2, 1, 3).reshape(B, Hkv, NQ, D).contiguous()
-    sinks_l = None
-    if sinks is not None:
+    # per lane (Hkv, NQ): the sink logit and the ALiBi slope of its head
+    sinks_l = slopes_l = None
+    if sinks is not None or alibi_slopes is not None:
         lane_head = torch.arange(Hkv * NQ, device=q.device)
         lane_head = lane_head // NQ * G + (lane_head % NQ) // T
-        sinks_l = sinks.float()[lane_head].contiguous()
+        if sinks is not None:
+            sinks_l = sinks.float()[lane_head].contiguous()
+        if alibi_slopes is not None:
+            slopes_l = alibi_slopes.float()[lane_head].contiguous()
+    kvp = qp = None
+    if kv_pos is not None:
+        kvp = kv_pos.to(device=q.device, dtype=torch.int32).contiguous()
+        qp = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
+        if kvp.shape != (B, S) or qp.shape != (B, T):
+            raise ValueError(f"flash_decode: positions {tuple(kvp.shape)} / "
+                             f"{tuple(qp.shape)}, want ({B}, {S}) / ({B}, {T})")
     out = torch.empty((B, Hkv, NQ, D), dtype=torch.float32, device=q.device)
     npast = n_past.to(device=q.device, dtype=torch.int32).contiguous()
     ks = vs = None
@@ -97,15 +120,16 @@ def flash_decode(q, k_cache, v_cache, n_past, scale: float,
         so.lcg_flash_decode.restype = ctypes.c_int
         so.lcg_flash_decode.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + [ctypes.c_int]
-            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     err = so.lcg_flash_decode(
         _KIND[kq.dtype], sh_kind, D,
         *map(kernels.ptr, (qh, kq, vq, ks, vs, shk, shv)), S0,
-        *map(kernels.ptr, (npast, sinks_l, out)),
+        *map(kernels.ptr, (npast, sinks_l, slopes_l, kvp, qp, out)),
         B, S, Hkv, NQ, T, float(scale), int(sliding_window),
         float(logit_softcap), kernels.stream(q.device))
     kernels.check(so, err, "flash_decode")
-    kernels.count(flash_decode, quant, S0 > 0)
+    kernels.count(flash_decode, quant, S0 > 0, alibi_slopes is not None,
+                  kv_pos is not None)
     out = out.reshape(B, Hkv, G, T, D).permute(0, 3, 1, 2, 4)
     return out.reshape(B, T, Hq, D).to(q.dtype)

@@ -1,4 +1,5 @@
-"""RMS normalization (port of ``llama_cpp_gfx906_tpu/ops/norms.py::rms_norm``).
+"""RMS and layer normalization (port of ``llama_cpp_gfx906_tpu/ops/norms.py``
+``rms_norm`` and ``layer_norm``).
 
 Accumulation is f32 whatever the activation dtype; the result returns in
 the input's dtype.
@@ -13,3 +14,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     xf = x.float()
     scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return ((xf * scale) * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim (mean and variance in f32), times
+    ``weight``, plus ``bias`` where given."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)

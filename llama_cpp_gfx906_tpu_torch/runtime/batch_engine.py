@@ -370,7 +370,9 @@ class BatchedEngine:
         """Context shift when the slot is about to overflow: keep n_keep
         rows, drop half of the rest, slide the tail left and re-rope the
         moved keys (q8 K rows round-trip through f32 for the re-rope; V rows
-        move as int8 and scale)."""
+        move as int8 and scale).  A model without rope (the ALiBi families)
+        keeps its K rows unrotated, as JAX's shift does: ALiBi reads only
+        the rows' new distances."""
         n_discard = max((slot.n_past - slot.n_keep) // 2, 1)
         keep, S = slot.n_keep, self.max_seq
         dev = self.device
@@ -379,12 +381,15 @@ class BatchedEngine:
         moved = (rows >= keep) & (rows < slot.n_past - n_discard)
         deltas = torch.where(moved, -n_discard, 0)[None]  # (1, S)
         inv_freq = inv_freq_for(self.cfg, dev)
+        rope = self.cfg.pos_emb == "rope"
         i = slot.id
         with torch.inference_mode():
             if isinstance(self.kv.k, QuantKV):
                 kq = take_rows(self.kv.k[:, i], src, 1)
-                kf = rope_shift_rows((kq.q.float() * kq.s)[:, None], deltas,
-                                     inv_freq, self.cfg.rope_interleaved)[:, 0]
+                kf = kq.q.float() * kq.s
+                if rope:
+                    kf = rope_shift_rows(kf[:, None], deltas, inv_freq,
+                                         self.cfg.rope_interleaved)[:, 0]
                 k2 = quantize_rows(kf)
                 v2 = take_rows(self.kv.v[:, i], src, 1)
                 for plane, new in ((self.kv.k.q, k2.q), (self.kv.k.s, k2.s),
@@ -392,8 +397,9 @@ class BatchedEngine:
                     plane[:, i].copy_(new)
             else:
                 k2 = self.kv.k[:, i].index_select(1, src)
-                k2 = rope_shift_rows(k2[:, None], deltas, inv_freq,
-                                     self.cfg.rope_interleaved)[:, 0]
+                if rope:
+                    k2 = rope_shift_rows(k2[:, None], deltas, inv_freq,
+                                         self.cfg.rope_interleaved)[:, 0]
                 self.kv.k[:, i].copy_(k2)
                 self.kv.v[:, i].copy_(self.kv.v[:, i].index_select(1, src))
         slot.n_past -= n_discard

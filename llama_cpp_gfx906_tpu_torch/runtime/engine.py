@@ -1,7 +1,8 @@
 """Single-stream inference engine: load -> prefill -> decode loop (port of
 ``llama_cpp_gfx906_tpu/runtime/engine.py``: ``from_gguf``, ``reset``,
-``set_n_past``, ``prefill``, ``decode_one``, ``generate``, and the fused
-decode loop ``decode_fused`` / ``generate_fused``).
+``set_n_past``, ``prefill``, ``decode_one``, ``generate``, the fused
+decode loop ``decode_fused`` / ``generate_fused``, and self-extend's
+``seq_div`` / ``seq_add``).
 
 PyTorch runs eagerly, so there are no shape buckets: prefill runs at the
 prompt's own length.  The KV cache (bf16/f32, or q8 with
@@ -11,7 +12,16 @@ unless ``device="cpu"`` is passed.
 The fused loop keeps decode on the device: one step (forward at T = 1,
 on-device sampling, the recent-token ring) is captured once per engine in
 a CUDA graph and replayed once per token; only the chunk's token ids come
-back to the host.  On the CPU the same step runs in a Python loop.
+back to the host.  On the CPU the same step runs in a Python loop.  The
+captured step belongs to the cache's state: it is captured again once the
+decode route or the cache's logical-position planes change (``seq_div`` /
+``seq_add`` give the cache those planes, ``reset`` drops them).
+
+Self-extend (grouped attention): ``seq_div`` / ``seq_add`` give every row
+of the cache a logical position (``KVCache.pos``) and compress or shift a
+range of them, re-roping the cached K rows by each row's change on the
+device in one pass; later tokens are roped and masked at their logical
+positions.
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ from .. import kernels
 from ..device import resolve_device
 from ..gguf.reader import GGUFModelReader
 from ..models.config import ModelConfig, config_from_gguf
-from ..models.llama import KVCache, decode_route, forward
+from ..models.llama import POS_SENTINEL, KVCache, decode_route, forward
+from ..ops.kv_quant import QuantKV, quantize_rows
+from ..ops.rope import inv_freq_for, rope_shift_rows
 from ..ops.sampling_ops import CAND, sample_tokens
 from ..sampling.samplers import SamplerChain, SamplerParams
 from ..tokenizers import Tokenizer, tokenizer_from_gguf
@@ -111,6 +123,7 @@ class _FusedLoop:
         self.out = torch.zeros((steps,), **i32)
         self.i = torch.zeros((1,), dtype=torch.int64, device=dev)
         self.graph = None
+        self.key = None  # the route and cache state the graph was captured on
 
 
 @dataclass
@@ -147,8 +160,9 @@ class Engine:
         return eng
 
     def reset(self) -> None:
-        """Empty the cache.  Its buffers are kept (rows past n_past are never
-        read), so a captured decode step stays valid."""
+        """Empty the cache and drop its logical positions, as a fresh JAX
+        cache has none.  Its K/V buffers are kept (rows past n_past are never
+        read), so a decode step captured without positions stays valid."""
         if getattr(self, "kv", None) is None:
             self.kv = KVCache.create(self.cfg, 1, self.max_seq, self.kv_dtype,
                                      self.device)
@@ -158,9 +172,72 @@ class Engine:
 
     def set_n_past(self, n: int) -> None:
         """Rewind (or advance) the sequence position; rows past ``n`` are
-        dead and are overwritten by later writes."""
+        dead and are overwritten by later writes.  At 0 the logical
+        positions go (``reset``); otherwise rows past ``n`` take the
+        sentinel and the next position follows the last live row's."""
         self.kv.n_past.fill_(n)
         self._n_past = n
+        if self.kv.pos is None:
+            return
+        if n == 0:
+            self.kv.pos = self.kv.pos_next = None
+            return
+        live = self._live()
+        self.kv.pos.masked_fill_(~live, POS_SENTINEL)
+        self.kv.pos_next.copy_(self.kv.pos.masked_fill(~live, -1).amax(1) + 1)
+
+    # -- self-extend / grouped attention (JAX seq_div / seq_add) -------------
+
+    def _live(self) -> torch.Tensor:
+        """(B, S) bool: the rows below the fill level."""
+        return (torch.arange(self.max_seq, device=self.device)[None, :]
+                < self.kv.n_past[:, None])
+
+    def _ensure_pos(self) -> None:
+        """Give the cache logical positions, the rows' own where it has none
+        (the sentinel past the fill level)."""
+        if self.kv.pos is not None:
+            return
+        rows = torch.arange(self.max_seq, dtype=torch.int32, device=self.device)
+        self.kv.pos = torch.where(self._live(), rows[None, :], POS_SENTINEL)
+        self.kv.pos = self.kv.pos.to(torch.int32).contiguous()
+        self.kv.pos_next = self.kv.n_past.clone()
+
+    def _move_positions(self, p0: int, p1: int, new_pos_fn) -> None:
+        """Positions in [p0, p1) become ``new_pos_fn(pos)``; the cached K
+        rows are re-roped by each row's change, in place, on the device (a
+        q8 cache's K rows round-trip through f32, as the context shift's)."""
+        if self.cfg.pos_emb != "rope":
+            raise ValueError("seq_div / seq_add need a rope attention cache")
+        self._ensure_pos()
+        pos = self.kv.pos
+        in_range = (pos >= p0) & (pos < p1)
+        new_pos = torch.where(in_range, new_pos_fn(pos), pos).to(torch.int32)
+        deltas = (new_pos - pos).masked_fill(~in_range, 0)
+        inv_freq = inv_freq_for(self.cfg, self.device)
+        with torch.inference_mode():
+            if isinstance(self.kv.k, QuantKV):
+                kf = self.kv.k.q.float() * self.kv.k.s
+                k2 = quantize_rows(rope_shift_rows(kf, deltas, inv_freq,
+                                                   self.cfg.rope_interleaved))
+                self.kv.k.q.copy_(k2.q)
+                self.kv.k.s.copy_(k2.s)
+            else:
+                self.kv.k.copy_(rope_shift_rows(self.kv.k, deltas, inv_freq,
+                                                self.cfg.rope_interleaved))
+            pos.copy_(new_pos)
+            self.kv.pos_next.copy_(new_pos.masked_fill(~self._live(), -1).amax(1) + 1)
+
+    def seq_div(self, p0: int, p1: int, g: int) -> None:
+        """Compress the logical positions in [p0, p1) by ``g``:
+        p -> p0 + (p - p0) // g (self-extend; JAX ``Engine.seq_div``)."""
+        self._move_positions(p0, p1, lambda pos: p0 + torch.div(
+            pos - p0, g, rounding_mode="floor"))
+
+    def seq_add(self, p0: int, p1: int, delta: int) -> None:
+        """Shift the logical positions in [p0, p1) by ``delta`` (JAX
+        ``Engine.seq_add``)."""
+        self._move_positions(p0, p1, lambda pos: pos + delta)
 
     @property
     def n_past(self) -> int:
@@ -207,6 +284,17 @@ class Engine:
         st.tok.copy_(nxt)
         st.i += 1
 
+    def _graph_key(self) -> tuple:
+        """What a captured step depends on beyond its static buffers: the
+        decode route and the addresses of the cache's position planes."""
+        kv = self.kv
+        planes = (None if kv.pos is None
+                  else (kv.pos.data_ptr(), kv.pos_next.data_ptr()))
+        return decode_route(self.params, self.cfg, kv), planes
+
+    def _graph_stale(self, st: _FusedLoop) -> bool:
+        return st.graph is None or st.key != self._graph_key()
+
     def _capture(self, st: _FusedLoop) -> None:
         """Warm one step up eagerly (builds and loads the kernels), rewind
         it, then capture the step.  A capture launches nothing, so the
@@ -224,7 +312,7 @@ class Engine:
         with torch.cuda.graph(graph):
             self._fused_step(st)
         kernels.set_counts(before)
-        st.graph = graph
+        st.graph, st.key = graph, self._graph_key()
 
     def decode_fused(self, token_id: int, n_steps: int = 32,
                      sampler: SamplerParams | None = None,
@@ -252,7 +340,7 @@ class Engine:
                 sp.seed if sp.seed != 0xFFFFFFFF else 0)
         t0 = time.perf_counter()
         with torch.inference_mode():
-            if self.device.type == "cuda" and st.graph is None:
+            if self.device.type == "cuda" and self._graph_stale(st):
                 self._capture(st)
             st.tok.fill_(token_id)
             st.recent.copy_(torch.from_numpy(recent))

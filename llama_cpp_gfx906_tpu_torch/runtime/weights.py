@@ -17,7 +17,16 @@ dtype, as the JAX loader makes it.  The qwen families add q/k/v biases
 (qwen2, qwen2moe: ``bq``, ``bk``, ``bv`` in the compute dtype, fused with
 the q|k|v weight into ``bqkv_fused``) and a shared expert (qwen2moe: its
 gate and up fused into ``shexp_gateup_fused``, ``shexp_down``, and the
-gate vector ``shexp_gate_inp`` (D, 1) in the compute dtype).
+gate vector ``shexp_gate_inp`` (D, 1) in the compute dtype).  The ALiBi
+families (mpt, bloom) store q/k/v fused as ``attn_qkv``: the loader splits
+it into q, k and v by rows (each quant block lies within one row, so the
+parts are the file's own bytes) and fuses them again as the other families
+(:func:`effective_tensors`); bloom adds biases on every projection (``bo``,
+``b_up``, ``b_down`` in the compute dtype), its LayerNorms' biases
+(``attn_norm_b``, ``ffn_norm_b``, f32), a norm after the embedding
+(``tok_norm``, ``tok_norm_b``) and the final norm's and the head's biases
+(``out_norm_b``, ``lm_head_b``), all f32 as the JAX loader keeps them.
+Both have an ungated FFN (``w_up``, ``w_down``).
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..gguf.constants import GGMLType
+from ..gguf.constants import GGML_BLOCK_SIZES, GGMLType
+from ..gguf.reader import TensorInfo
 from ..models.config import ModelConfig
 from ..ops.quant_matmul import (
     QuantTensor,
@@ -44,8 +54,12 @@ EMBD = "token_embd.weight"
 OUT_NORM = "output_norm.weight"
 OUTPUT = "output.weight"
 
+# optional model-level f32 vectors (JAX runtime/weights.py:608-612)
+_TOP_VECTORS = {"out_norm_b": "output_norm.bias", "tok_norm": "token_embd_norm.weight",
+                "tok_norm_b": "token_embd_norm.bias", "lm_head_b": "output.bias"}
 _LAYER_NAMES = {
     "attn_norm": "attn_norm.weight",
+    "attn_norm_b": "attn_norm.bias",
     "wq": "attn_q.weight",
     "wk": "attn_k.weight",
     "wv": "attn_v.weight",
@@ -53,14 +67,18 @@ _LAYER_NAMES = {
     "bq": "attn_q.bias",
     "bk": "attn_k.bias",
     "bv": "attn_v.bias",
+    "bo": "attn_output.bias",
     "q_norm": "attn_q_norm.weight",
     "k_norm": "attn_k_norm.weight",
     "post_attn_norm": "post_attention_norm.weight",
     "ffn_norm": "ffn_norm.weight",
+    "ffn_norm_b": "ffn_norm.bias",
     "post_ffn_norm": "post_ffw_norm.weight",
     "w_gate": "ffn_gate.weight",
     "w_up": "ffn_up.weight",
     "w_down": "ffn_down.weight",
+    "b_up": "ffn_up.bias",
+    "b_down": "ffn_down.bias",
     "moe_gate_inp": "ffn_gate_inp.weight",
     "moe_gate": "ffn_gate_exps.weight",
     "moe_up": "ffn_up_exps.weight",
@@ -74,8 +92,10 @@ _LAYER_NAMES = {
 _MATMUL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "shexp_gate",
            "shexp_up", "shexp_down")
 # vectors kept in the compute dtype (the JAX loader casts every layer
-# tensor but the norms); the shared expert's gate transposes to (D, 1)
+# tensor but the norms, their biases included); the shared expert's gate
+# transposes to (D, 1)
 _BIASES = ("bq", "bk", "bv")
+_VECTORS = _BIASES + ("bo", "b_up", "b_down")
 # stacked experts (E, out, in) -> (E, in, out); the expert-FF dim pads to
 # the streamed chunk grid (gate/up out, down in: both round the same EF)
 _EXPERTS = {"moe_gate": dict(pad_n=True), "moe_up": dict(pad_n=True),
@@ -129,10 +149,53 @@ def _router(t, dtype, device) -> torch.Tensor:
     return _dense(t, dtype, device, transpose=True).float()
 
 
+def _row_slice(t: TensorInfo, r0: int, r1: int, name: str) -> TensorInfo:
+    """Rows [r0, r1) of a 2-D GGUF tensor, its bytes as stored (JAX
+    ``_row_slice``: quant blocks never straddle rows)."""
+    blck, bsize = GGML_BLOCK_SIZES[t.ggml_type]
+    K = t.shape[-1]
+    data = np.asarray(t.data).reshape(t.shape[0], K // blck * bsize)[r0:r1]
+    return TensorInfo(name=name, shape=(r1 - r0, K), ne=(K, r1 - r0),
+                      ggml_type=t.ggml_type, offset=-1, data=data.reshape(-1))
+
+
+def _f32_info(name: str, arr: np.ndarray) -> TensorInfo:
+    raw = np.ascontiguousarray(arr.astype("<f4")).view(np.uint8)
+    return TensorInfo(name=name, shape=tuple(arr.shape), ne=tuple(arr.shape[::-1]),
+                      ggml_type=GGMLType.F32, offset=-1, data=raw)
+
+
+def effective_tensors(reader, cfg: ModelConfig) -> dict:
+    """The file's tensors with a fused ``attn_qkv.{weight,bias}`` split into
+    ``attn_{q,k,v}`` (JAX ``effective_tensors``, mpt / bloom)."""
+    src = dict(reader.tensors)
+    Dq, Dkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    bounds = {"q": (0, Dq), "k": (Dq, Dq + Dkv), "v": (Dq + Dkv, Dq + 2 * Dkv)}
+    for i in range(cfg.n_layers):
+        b = f"blk.{i}."
+        w = src.get(b + "attn_qkv.weight")
+        if w is not None and b + "attn_q.weight" not in src:
+            for n, (r0, r1) in bounds.items():
+                src[f"{b}attn_{n}.weight"] = _row_slice(w, r0, r1, f"{b}attn_{n}.weight")
+        bias = src.get(b + "attn_qkv.bias")
+        if bias is not None and b + "attn_q.bias" not in src:
+            arr = bias.to_f32().reshape(-1)
+            for n, (r0, r1) in bounds.items():
+                src[f"{b}attn_{n}.bias"] = _f32_info(f"{b}attn_{n}.bias", arr[r0:r1])
+    return src
+
+
 def _layer_infos(t, cfg: ModelConfig) -> list[dict]:
     """Per layer, the GGUF tensor info of every known name the file has."""
     return [{k: t[f"blk.{i}.{n}"] for k, n in _LAYER_NAMES.items()
              if f"blk.{i}.{n}" in t} for i in range(cfg.n_layers)]
+
+
+def _top_vectors(params, t, device) -> None:
+    """The optional model-level f32 vectors the file has."""
+    for key, name in _TOP_VECTORS.items():
+        if name in t:
+            params[key] = _dense(t[name], torch.float32, device)
 
 
 def _put_layers(layers: list[dict], fuse: bool) -> nn.ModuleList:
@@ -143,7 +206,7 @@ def _put_layers(layers: list[dict], fuse: bool) -> nn.ModuleList:
 def load_llama_params(reader, cfg: ModelConfig, dtype=torch.bfloat16,
                       device="cpu") -> ParamDict:
     """Dense load: every tensor dequantized to ``dtype`` (norms stay f32)."""
-    t = reader.tensors
+    t = effective_tensors(reader, cfg)
     emb = _dense(t[EMBD], dtype, device)
     params = ParamDict({
         "tok_emb": emb,
@@ -151,6 +214,7 @@ def load_llama_params(reader, cfg: ModelConfig, dtype=torch.bfloat16,
         "lm_head": (_dense(t[OUTPUT], dtype, device, transpose=True)
                     if OUTPUT in t else emb.T.contiguous()),
     })
+    _top_vectors(params, t, device)
     layers = []
     for infos in _layer_infos(t, cfg):
         p = {}
@@ -159,7 +223,7 @@ def load_llama_params(reader, cfg: ModelConfig, dtype=torch.bfloat16,
                 p[key] = _router(info, dtype, device)
             elif key in _MATMUL or key in _EXPERTS or key == "shexp_gate_inp":
                 p[key] = _dense(info, dtype, device, transpose=True)
-            elif key in _BIASES:
+            elif key in _VECTORS:
                 p[key] = _dense(info, dtype, device)
             else:
                 p[key] = _dense(info, torch.float32, device)
@@ -181,7 +245,7 @@ def load_llama_params_quantized(reader, cfg: ModelConfig, dtype=torch.bfloat16,
     Stacked experts keep plain f32 scale planes (:func:`pack_gguf_experts`;
     int8/g16 where their type differs across layers), decoded on the
     device one tensor at a time."""
-    t = reader.tensors
+    t = effective_tensors(reader, cfg)
     qmm_ok = set(supported_qmm_types())
 
     def quantizable(info):
@@ -203,6 +267,7 @@ def load_llama_params_quantized(reader, cfg: ModelConfig, dtype=torch.bfloat16,
         params["lm_head"] = _dense(t[OUTPUT], dtype, device, True)
     else:  # tied: the embedding's values (decoded once), transposed
         params["lm_head"] = params["tok_emb"].T.contiguous()
+    _top_vectors(params, t, device)
 
     names = _layer_infos(t, cfg)
     # one fold decision per model, over the 2-D projections only (stacked
@@ -231,7 +296,7 @@ def load_llama_params_quantized(reader, cfg: ModelConfig, dtype=torch.bfloat16,
                                           fold_scales=fold, device=device)
             elif key in _MATMUL or key in _EXPERTS or key == "shexp_gate_inp":
                 p[key] = _dense(info, dtype, device, transpose=True)
-            elif key in _BIASES:
+            elif key in _VECTORS:
                 p[key] = _dense(info, dtype, device)
             else:
                 p[key] = _dense(info, torch.float32, device)
@@ -446,6 +511,7 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device="cpu") -> ParamDic
         return ParamDict(p)
 
     params = ParamDict({k: conv(np_params[k])
-                        for k in ("tok_emb", "out_norm", "lm_head")})
+                        for k in ("tok_emb", "out_norm", "lm_head", *_TOP_VECTORS)
+                        if k in np_params})
     params["layers"] = nn.ModuleList(conv_layer(i) for i in range(cfg.n_layers))
     return params

@@ -1,14 +1,18 @@
-"""Device times of the split-K kernels of a checkout, at the main paths' shapes.
+"""Device times of the split-K kernels and of K3 of a checkout, at the main paths' shapes.
 
 The cases live here, and ``chip_smoke.py`` builds its kernel cases from the
 same lists: K1 / K2 (``GEMV_CASES``: the 8B head, ``attn_v`` and Q4_K
 projections), K8 (``EXPERT_CASES``: Mixtral's experts at 2 and 8 pairs)
 and K6 / K7 in each mode (``DECODE_CASES``: a few full-width layers of
-each model, or a small model's whole stack).  Each is timed as
-``chip_smoke.py`` times a kernel (:func:`device_ms`).  Synthetic weights
-from seed 0; caches of random rows filled to n_past 3000.  With
-``--splits``, K1 / K2 are also timed at every split count the kernel
-takes (``gemv_splits`` picks one of them).
+each model, or a small model's whole stack) and K3 in each mode
+(``K3_CASES``: the 8B's, MPT-7B's and BLOOM-7B1's heads and the JAX tests'
+shape; :func:`k3_case` makes their inputs).
+Each is timed as ``chip_smoke.py`` times a kernel (:func:`device_ms`).
+Synthetic weights from seed 0; caches of random rows filled to n_past
+3000.  With ``--splits``, K1 / K2 are also timed at every split count the
+kernel takes (``gemv_splits`` picks one of them).  ``--kernels`` picks
+the groups to build and time (default all); the wall time of each build
+is printed.
 
 ``--root`` imports the package from another checkout (run the script by
 its path, so that no package is imported before it), so two versions of the
@@ -25,10 +29,12 @@ limit) first.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 # (kernel, case, GGML type, K, N, N padded to whole 128-column tiles)
@@ -58,6 +64,45 @@ DECODE_CASES = (
     ("decode_stream_qk_norm", "qwen3-8b-q4_k_m", 2, (1, 4), {}),
     ("decode_stream_moe_qk_norm", "qwen3moe-30b-a3b-q4_k_m", 2, (1,), {}),
     ("decode_stream_shexp", "qwen2moe-a2.7b-q8_0", 2, (1,), dict(attn_bias=False)))
+# (mode, case, (query heads, KV heads), n_past per slot, T, options): K3
+# at Dh 128 over 4096 rows of random bf16 K/V.  The mode is the wrapper's
+# (``flash_decode.modes``: its flags int8, shared, alibi, pos joined by
+# "_"; "" for none).  Options: ``D`` and ``S`` (head dim, rows), ``S0``
+# (shared rows), ``pos`` (``("div", g)``: row i at i // g, the new tokens
+# continuing; ``("gan", n, w)``: the CLI's ``-gan n -gaw w`` ladder,
+# :func:`ladder_positions`), ``softcap``, ``window``.  The old modes at
+# the 8B's heads; ALiBi at MPT-7B's and BLOOM-7B1's 32/32 heads: decode at
+# n_past 700 and 3000, B 1 and 4, after 512 shared rows, and their prefill
+# chunks of G·T <= 128 (101 tokens at n_past 0, 128 at 700); self-extend at
+# the 8B's, the new rows ending at row 3000; both at the JAX kernel tests'
+# shape (B 2, 4/2 heads of 64, 384 rows).  A mode the checkout's K3 lacks is
+# left out.
+_JAX_SHAPE = dict(D=64, S=384)
+K3_CASES = (
+    ("", "8b B=1 bf16 n_past=3000", (32, 8), (3000,), 1, {}),
+    ("int8", "8b B=4 int8 n_past=700/3000", (32, 8), (700, 3000) * 2, 1, {}),
+    ("shared", "8b B=4 bf16 S0=512 n_past=700", (32, 8), (700,) * 4, 1, dict(S0=512)),
+    *((f"{i8}{mode}", f"mpt{what} {kind} n_past={'/'.join(map(str, n_past))}", (32, 32),
+       n_past, T, opts)
+      for i8, kind in (("", "bf16"), ("int8_", "int8"))
+      for mode, what, n_past, T, opts in (
+          ("alibi", " B=1", (700,), 1, {}), ("alibi", " B=1", (3000,), 1, {}),
+          ("alibi", " B=4", (700, 3000) * 2, 1, {}),
+          ("shared_alibi", " B=4 S0=512", (700,) * 4, 1, dict(S0=512)),
+          ("alibi", "/bloom prefill T=101", (0,), 101, {}),
+          ("alibi", "/bloom prefill T=128", (700,), 128, {}))),
+    ("alibi", "jax shape softcap=25 window=96", (4, 2), (300, 120), 1,
+     dict(_JAX_SHAPE, softcap=25.0, window=96)),
+    *((f"{i8}pos", f"8b {ladder} T={T} {kind}", (32, 8), (3001 - T,), T, dict(pos=pos))
+      for i8, kind in (("", "bf16"), ("int8_", "int8"))
+      for ladder, pos in (("i//4", ("div", 4)), ("gan4 gaw1024", ("gan", 4, 1024)))
+      for T in (1, 4)),
+    ("alibi_pos", "jax shape alibi i//2", (4, 2), (300, 120), 1,
+     dict(_JAX_SHAPE, pos=("div", 2))),
+    ("pos", "jax shape window=32 i//3 T=4", (4, 2), (300, 120), 4,
+     dict(_JAX_SHAPE, pos=("div", 3), window=32)))
+GROUPS = {"gemv": ("gemv",), "rqmm": ("rqmm",), "decode": ("decode_stream",),
+          "k3": ("flash_decode",)}
 
 
 def device_ms(fn, torch, flush, n: int = 10) -> float:
@@ -141,6 +186,73 @@ def decode_engine(tmp: str, preset: str, n_layers, **synth):
     return Engine.from_gguf(path, max_seq=4096), path
 
 
+@functools.lru_cache(maxsize=None)
+def ladder_positions(n: int, ga_n: int, ga_w: int) -> tuple:
+    """The logical positions of ``n`` prefilled rows after the self-extend
+    ladder that runs before the first new token (``tools/cli.ladder``), and
+    that token's position: the ladder's ``seq_add`` / ``seq_div`` run
+    against an ``Engine`` on the CPU (the ``tiny`` synthetic model)."""
+    import torch
+
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.cli import ladder
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = Engine.from_gguf(write_synth(f"{tmp}/tiny.gguf", "tiny", seed=0), max_seq=n,
+                               dtype=torch.float32, device="cpu")
+    eng.set_n_past(n)
+    for name, args in ladder(n, 0, ga_n, ga_w)[0]:
+        getattr(eng, name)(*args)
+    return eng.kv.pos[0].numpy().copy(), int(eng.kv.pos_next[0])
+
+
+def k3_case(torch, dev, spec, seed: int) -> dict:
+    """The inputs of the ``K3_CASES`` entry ``spec`` on ``dev``, from
+    ``seed``: a dict of its mode, case, q, k, v, n_past, scale and the
+    wrapper's keyword arguments."""
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import quantize_rows
+
+    mode, case, (Hq, Hkv), n_past, T, opts = spec
+    D, S, B = opts.get("D", 128), opts.get("S", 4096), len(n_past)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def rnd(*size):
+        return (torch.randn(size, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+
+    q, k, v = rnd(B, T, Hq, D), rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    if "int8" in mode:
+        k, v = quantize_rows(k.float()), quantize_rows(v.float())
+    npast = torch.tensor(n_past, **i32)
+    kw = {}
+    if "S0" in opts:
+        kw.update(shared_k=rnd(1, opts["S0"], Hkv, D), shared_v=rnd(1, opts["S0"], Hkv, D))
+    if "alibi" in mode:
+        from llama_cpp_gfx906_tpu_torch.ops.attention import alibi_slopes_for
+
+        kw["alibi_slopes"] = alibi_slopes_for(Hq).to(dev)
+    if "softcap" in opts:
+        kw["logit_softcap"] = opts["softcap"]
+    if "window" in opts:
+        kw["sliding_window"] = opts["window"]
+    if "pos" in opts:
+        t = torch.arange(T, **i32)
+        if opts["pos"][0] == "div":
+            grp = opts["pos"][1]
+            kv_pos = (torch.arange(S, **i32) // grp)[None].expand(B, S)
+            q_pos = (npast[:, None] + t[None]) // grp
+        else:  # one slot whose T new rows follow the ladder's prompt
+            n = n_past[0]
+            lad, nxt = ladder_positions(n + T - 1, *opts["pos"][1:])
+            kv_pos = torch.full((1, S), 1 << 30, **i32)
+            kv_pos[0, :n] = torch.from_numpy(lad[:n]).to(dev)
+            q_pos = (nxt + t)[None]
+            kv_pos[0, n:n + T] = q_pos[0]
+        kw.update(kv_pos=kv_pos.contiguous(), q_pos=q_pos.to(torch.int32).contiguous())
+    return dict(mode=mode, case=case, q=q, k=k, v=v, npast=npast, scale=D ** -0.5, kw=kw)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -148,7 +260,10 @@ def main(argv=None) -> None:
     ap.add_argument("--label", default="")
     ap.add_argument("--splits", action="store_true",
                     help="also time K1 / K2 at every split count")
+    ap.add_argument("--kernels", default=",".join(GROUPS),
+                    help=f"the groups to build and time, of {','.join(GROUPS)}")
     args = ap.parse_args(argv)
+    groups = args.kernels.split(",")
     sys.path.insert(0, args.root)
     import numpy as np
     import torch
@@ -167,7 +282,11 @@ def main(argv=None) -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(json.dumps(dict(card=smi, root=args.root, label=args.label)), flush=True)
-    kernels.build_all(("gemv", "decode_stream", "rqmm"))
+    for group in groups:
+        t0 = time.perf_counter()
+        kernels.build_all(GROUPS[group])
+        print(json.dumps(dict(label=args.label, build=group,
+                              seconds=time.perf_counter() - t0)), flush=True)
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -177,7 +296,7 @@ def main(argv=None) -> None:
         print(json.dumps(dict(label=args.label, kernel=kernel, case=case, ms=ms, **extra)),
               flush=True)
 
-    for name, case, gtype, K, N, pad in GEMV_CASES:
+    for name, case, gtype, K, N, pad in GEMV_CASES if "gemv" in groups else ():
         qt = gemv_weights(rng, gtype, K, N, pad, dev)
         x = torch.randn((1, K), generator=g, device=dev).to(torch.bfloat16)
         kern = getattr(qmm, name)
@@ -191,7 +310,7 @@ def main(argv=None) -> None:
         del qt
 
     prng = np.random.default_rng(5)
-    for case, gtype, N, K, pairs in EXPERT_CASES:
+    for case, gtype, N, K, pairs in EXPERT_CASES if "rqmm" in groups else ():
         qt = expert_weights(gtype, N, K, dev)
         for P in pairs:
             idx = torch.tensor(pair_ids(prng, P), dtype=torch.int32, device=dev)
@@ -202,7 +321,7 @@ def main(argv=None) -> None:
         torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
-        for name, preset, L, batches, synth in DECODE_CASES:
+        for name, preset, L, batches, synth in DECODE_CASES if "decode" in groups else ():
             eng, path = decode_engine(tmp, preset, L, **synth)
             if eng is None:
                 emit(name, preset, None, left_out="no such preset in this checkout")
@@ -228,6 +347,25 @@ def main(argv=None) -> None:
             del eng, params
             Path(path).unlink()
             torch.cuda.empty_cache()
+    if "k3" in groups:
+        k3_times(torch, dev, flush, emit)
+
+
+def k3_times(torch, dev, flush, emit) -> None:
+    """K3 on ``K3_CASES`` (inputs from seed 17 + the case's index), each
+    case whose mode the checkout's K3 has."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode
+
+    for i, spec in enumerate(K3_CASES):
+        if spec[0] and spec[0] not in flash_decode.modes:
+            emit("flash_decode", spec[1], None, left_out="no such mode in this checkout")
+            continue
+        c = k3_case(torch, dev, spec, 17 + i)
+        args = (c["q"], c["k"], c["v"], c["npast"], c["scale"])
+        emit("flash_decode", c["case"],
+             device_ms(lambda: flash_decode(*args, **c["kw"]), torch, flush), mode=c["mode"])
+        del c, args
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Write a structurally valid synthetic llama, gemma3 or qwen GGUF at a chosen scale.
+"""Write a structurally valid synthetic llama, gemma3, qwen, mpt or bloom GGUF at a chosen scale.
 
 For loading and timing the engine where no real checkpoint is at hand:
 block payloads are valid (finite f16 scales, random quants), so the engine
@@ -80,6 +80,27 @@ its (D,) vector), ``expert_shared_feed_forward_length`` and
 ``write_synth(..., attn_bias=False)`` leaves a qwen2 or qwen2moe file
 without its biases (the stack the JAX K6 gate takes).
 
+The ALiBi presets write archs ``mpt`` and ``bloom`` with the tensors
+llama.cpp's converter writes for them: q/k/v fused into one
+``attn_qkv.weight`` (rows q, then k, then v), an ungated FFN
+(``ffn_up``, ``ffn_down``), LayerNorm weights drawn per layer as 1 + 0.1
+N(0, 1), ``{arch}.attention.layer_norm_epsilon`` 1e-5, context 2048, no
+rope keys; mpt writes no bias (``mpt.attention.max_alibi_bias`` 8), bloom
+a bias (0.1 N(0, 1)) on every projection and every norm, and
+``token_embd_norm``.  The head is an untied Q6_K ``output.weight`` (up to
+4096 distinct rows) in the Q4_K_M mix: the published checkpoints tie
+their head to the embedding, which llama.cpp's Q4_K_M then stores as a
+Q6_K ``token_embd`` with no ``output.weight``; and a real Q4_K_M stores
+``attn_qkv`` as Q5_K, a codec the port lacks (here Q4_K as every
+projection).  Widths of the public ``config.json`` files:
+- ``mpt-7b-q4_k_m`` (``mosaicml/mpt-7b``: 32 layers, d_model 4096, 32
+  heads of 128, expansion 4: FF 16384, vocab 50,432) and ``tiny-mpt`` /
+  ``tiny-mpt-q8_0`` (2 layers, hidden 256, 4 heads of 64);
+- ``bloom-7b1-q4_k_m`` (``bigscience/bloom-7b1``: 30 layers, hidden 4096,
+  32 heads of 128, FF 16384, vocab 250,880) and ``tiny-bloom`` /
+  ``tiny-bloom-q8_0`` (2 layers, hidden 768, 12 heads of 64: a head count
+  that is not a power of two, so the slopes' tail is used).
+
 Usage:
     python -m llama_cpp_gfx906_tpu_torch.tools.synth_gguf out.gguf [--preset 8b] [--seed 0]
 """
@@ -124,6 +145,13 @@ PRESETS = {
     "tiny-qwen2-q8_0": (2, 256, 4, 2, 128, 512, 2048, "q8_0"),
     "tiny-qwen2moe": (2, 512, 4, 2, 128, 768, 2048, "q4_k_m"),
     "tiny-qwen2moe-q8_0": (2, 512, 4, 2, 128, 384, 2048, "q8_0"),
+    # the ALiBi families (MHA)
+    "mpt-7b-q4_k_m": (32, 4096, 32, 32, 128, 16384, 50432, "q4_k_m"),
+    "bloom-7b1-q4_k_m": (30, 4096, 32, 32, 128, 16384, 250880, "q4_k_m"),
+    "tiny-mpt": (2, 256, 4, 4, 64, 1024, 2048, "q4_k_m"),
+    "tiny-mpt-q8_0": (2, 256, 4, 4, 64, 1024, 2048, "q8_0"),
+    "tiny-bloom": (2, 768, 12, 12, 64, 1024, 2048, "q4_k_m"),
+    "tiny-bloom-q8_0": (2, 768, 12, 12, 64, 1024, 2048, "q8_0"),
 }
 # (experts, experts per token, rope theta) of the MoE presets
 EXPERTS = {"mixtral-q4_k_m": (8, 2, 1e6), "mixtral-q8_0": (8, 2, 1e6),
@@ -143,6 +171,8 @@ QWEN = {"qwen3-8b-q4_k_m": ("qwen3", 0, 0), "tiny-qwen3": ("qwen3", 0, 0),
 # layers or None, training context)
 GEMMA3 = {"gemma3-4b-q4_k_m": (1024, 8.0, 131072), "gemma3-270m-q8_0": (512, None, 32768),
           "tiny-gemma3": (16, 8.0, 8192), "tiny-gemma3-q8_0": (16, None, 8192)}
+ALIBI = {p: p.split("-")[1 if p.startswith("tiny") else 0]
+         for p in PRESETS if "mpt" in p or "bloom" in p}
 GEMMA_TEMPLATE = ("{{ bos_token }}{% for m in messages %}<start_of_turn>{{ m['role'] }}\n"
                   "{{ m['content'] }}<end_of_turn>\n{% endfor %}"
                   "{% if add_generation_prompt %}<start_of_turn>model\n{% endif %}")
@@ -220,7 +250,9 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
     E, K_USED, rope_base = EXPERTS.get(preset, (0, 0, 500000.0))
     gemma = preset in GEMMA3
     arch, dense_ff, shared_ff = QWEN.get(preset, ("gemma3" if gemma else "llama", 0, 0))
+    arch = ALIBI.get(preset, arch)
     qwen = preset in QWEN
+    alibi = preset in ALIBI
     biases = attn_bias and arch in ("qwen2", "qwen2moe")
     rng = np.random.default_rng(seed)
     w = GGUFWriter(path, arch)
@@ -242,6 +274,11 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
         if scaling:
             w.add_string("gemma3.rope.scaling.type", "linear")
             w.add_float32("gemma3.rope.scaling.factor", scaling)
+    elif alibi:
+        w.add_uint32(f"{arch}.context_length", 2048)
+        w.add_float32(f"{arch}.attention.layer_norm_epsilon", 1e-5)
+        if arch == "mpt":
+            w.add_float32("mpt.attention.max_alibi_bias", 8.0)
     elif qwen:
         w.add_uint32(f"{arch}.context_length", 32768)
         w.add_float32(f"{arch}.attention.layer_norm_rms_epsilon", 1e-6)
@@ -300,6 +337,9 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
         emb = (rng.standard_normal((min(V, DISTINCT_ROWS), D)) * 0.02).astype(np.float16)
         w.add_tensor("token_embd.weight", _tile(emb, V).view(np.uint8).reshape(-1),
                      ggml_type=GGMLType.F16, raw_ne=(D, V))
+    if alibi:
+        _alibi_tensors(w, add_q, norm, bias, arch, L, D, H * DH, F, V, side)
+        return w.write()
     w.add_tensor("output_norm.weight", np.ones(D, np.float32))
     if not gemma:  # a qwen head: up to 4096 distinct rows, so the top logits
         # of a tiny vocab do not tie exactly (as the gemma tied head)
@@ -339,6 +379,36 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
         add_q(f"blk.{i}.ffn_up.weight", F, D)
         add_q(f"blk.{i}.ffn_down.weight", D, F)
     return w.write()
+
+
+def _alibi_tensors(w, add_q, norm, bias, arch, L, D, Dq, F, V, side) -> None:
+    """The tensors of an mpt or bloom file after ``token_embd`` (MHA: k and
+    v as wide as q): LayerNorms with varied weights, fused q|k|v, the
+    ungated FFN, and for bloom a bias on each, and the embedding norm."""
+    bloom = arch == "bloom"
+
+    def layer_norm(name, n):
+        w.add_tensor(f"{name}.weight", norm(n, True))
+        if bloom:
+            w.add_tensor(f"{name}.bias", bias(n))
+
+    def proj(name, out_dim, in_dim):
+        add_q(f"{name}.weight", out_dim, in_dim)
+        if bloom:
+            w.add_tensor(f"{name}.bias", bias(out_dim))
+
+    if bloom:
+        layer_norm("token_embd_norm", D)
+    layer_norm("output_norm", D)
+    add_q("output.weight", V, D, side, distinct=EMBD_DISTINCT_ROWS)
+    for i in range(L):
+        b = f"blk.{i}."
+        layer_norm(b + "attn_norm", D)
+        proj(b + "attn_qkv", 3 * Dq, D)
+        proj(b + "attn_output", D, Dq)
+        layer_norm(b + "ffn_norm", D)
+        proj(b + "ffn_up", F, D)
+        proj(b + "ffn_down", D, F)
 
 
 def main(argv=None) -> None:

@@ -30,6 +30,7 @@ from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
 from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention
 from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode
 from llama_cpp_gfx906_tpu_torch.runtime.weights import ParamDict, fuse_projections
+from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
 from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4k_rows, q6k_rows, write_synth
 
 pytestmark = pytest.mark.cuda
@@ -467,6 +468,181 @@ def test_mha_q8_and_shared_dispatch_on_card(cuda_device):
         assert torch.equal(kc.q[:, 30:30 + T], quantize_rows(k[:, :T]).q)
         ref = tatt.attend_einsum(q, kc, vc, npast, 0.125, **(sh if shared else {}))
         assert _rel(out, ref) < TOL
+
+
+def _k3_modes_run(q, k, v, npast, scale, name, **kw):
+    """K3 twice and its plain version once on the same inputs; the wrapper's
+    and the device's counts of mode ``name`` each move by 2."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode_plain
+
+    count = flash_decode.modes[name]
+    before, on_device = count.launches, kernels.device_counts()
+    got = flash_decode(q, k, v, npast, scale, **kw)
+    again = flash_decode(q, k, v, npast, scale, **kw)
+    ref = flash_decode_plain(q, k, v, npast, scale, **kw)
+    torch.cuda.synchronize()
+    ran = {c: n - on_device[c] for c, n in kernels.device_counts().items()}
+    assert count.launches == before + 2 and ran[f"flash_decode_{name}"] == 2
+    assert torch.equal(got, again)
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    return _rel(got, ref)
+
+
+def _ladder(n_past, S, T, group, dev):
+    """Row i at logical i // group, the T new tokens continuing the ladder
+    (tests/test_flash_decode.py ``_self_extend_pos``)."""
+    n = torch.tensor(n_past)
+    kv_pos = (torch.arange(S)[None, :] // group).expand(len(n_past), S)
+    q_pos = (n[:, None] + torch.arange(T)[None, :]) // group
+    return (kv_pos.to(dev, torch.int32).contiguous(), q_pos.to(dev, torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case,T,Hkv,S,extra", [
+    ("alibi", 1, 2, 256, {}), ("alibi", 3, 4, 256, {}),
+    ("alibi", 1, 2, 384, dict(logit_softcap=25.0, sliding_window=96)),
+    ("int8_alibi", 1, 2, 256, {}), ("shared_alibi", 1, 2, 384, dict(sliding_window=160)),
+    ("pos", 1, 2, 256, {}), ("pos", 4, 2, 384, dict(sliding_window=32)),
+    ("int8_pos", 1, 2, 256, {}), ("alibi_pos", 1, 2, 256, {})])
+def test_k3_alibi_and_pos_modes_match_plain(cuda_device, dtype, case, T, Hkv, S, extra):
+    """K3's ALiBi and self-extend modes at the JAX kernel tests' shapes
+    (tests/test_flash_decode.py:157-230: B 2, Hq 4, D 64; ALiBi with GQA,
+    MHA at T 3, with softcap 25 and window 96, over an int8 cache, after 96
+    shared rows with window 160; logical positions i // 2, i // 3 at T 4 with
+    window 32, int8, with ALiBi) against the plain version, bit-identical
+    over two launches, counted in their modes."""
+    from llama_cpp_gfx906_tpu_torch.ops.attention import alibi_slopes_for
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import quantize_rows
+
+    n_past = (37, S - T - 9)
+    q, k, v, npast, _ = _attn_case(31, 2, T, 4, Hkv, 64, S, n_past, cuda_device, dtype)
+    kw = dict(extra)
+    if "alibi" in case:
+        kw["alibi_slopes"] = alibi_slopes_for(4).to(cuda_device)
+    if "pos" in case:
+        kw["kv_pos"], kw["q_pos"] = _ladder(n_past, S, T, 3 if T == 4 else 2, cuda_device)
+    if "shared" in case:
+        g = torch.Generator().manual_seed(32)
+        kw.update({n: (torch.randn((1, 96, Hkv, 64), generator=g) * 0.3).to(cuda_device,
+                                                                             dtype)
+                   for n in ("shared_k", "shared_v")})
+    if "int8" in case:
+        k, v = quantize_rows(k), quantize_rows(v)
+    assert _k3_modes_run(q, k, v, npast, 0.125, case, **kw) < TOL
+
+
+@pytest.mark.parametrize("index", [
+    i for i, c in enumerate(kt.K3_CASES) if "alibi" in c[0] or "pos" in c[0]],
+    ids=lambda i: kt.K3_CASES[i][1])
+def test_k3_alibi_and_pos_at_model_shapes(cuda_device, index):
+    """K3's ALiBi and self-extend cases of ``kernel_times.K3_CASES``, the
+    main paths' shapes (Dh 128, 4096 rows): ALiBi at MPT-7B's and
+    BLOOM-7B1's 32/32 heads (decode at B 1 and 4, n_past 700 and 3000,
+    after 512 shared rows; prefill chunks of 101 tokens at n_past 0 and 128
+    at 700), self-extend at the 8B's 32/8 heads (rows at i // 4 or at the
+    CLI's ``-gan 4 -gaw 1024`` ladder, T 1 and 4); bf16 and int8; and both
+    at the JAX tests' shape."""
+    c = kt.k3_case(torch, cuda_device, kt.K3_CASES[index], 17 + index)
+    assert _k3_modes_run(c["q"], c["k"], c["v"], c["npast"], c["scale"], c["mode"],
+                         **c["kw"]) < TOL
+
+
+def test_mha_alibi_and_pos_dispatch_on_card(cuda_device):
+    """ALiBi or logical positions: G*T <= 128 takes K3 in its mode, more
+    takes the counted einsum (no kernel, as in JAX); nothing raises."""
+    from llama_cpp_gfx906_tpu_torch.ops.attention import alibi_slopes_for
+
+    slopes = alibi_slopes_for(4).to(cuda_device)
+    for T, pos, kern in ((2, False, flash_decode.modes["alibi"]),
+                         (140, False, tatt.attend_einsum),
+                         (2, True, flash_decode.modes["alibi_pos"]),
+                         (140, True, tatt.attend_einsum)):
+        q, k, v, npast, _ = _attn_case(9, 1, T, 4, 4, 64, 256, (30,), cuda_device,
+                                       torch.bfloat16)
+        kw = dict(alibi_slopes=slopes)
+        if pos:
+            kw["kv_pos"], kw["q_pos"] = _ladder((30,), 256, T, 2, cuda_device)
+        before = kern.launches
+        out, _, _ = tatt.mha_with_cache(q, k[:, :T].clone(), v[:, :T].clone(), k, v, npast,
+                                        0.125, **kw)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        assert _rel(out, tatt.attend(q, k, v, npast, 0.125, **kw)) < TOL
+
+
+@pytest.mark.parametrize("preset", ["tiny-mpt", "tiny-bloom-q8_0"])
+def test_engine_alibi_card_matches_cpu(cuda_device, tmp_path, preset):
+    """An ALiBi model on the card (the loop, K3's ALiBi mode; the fused loop
+    captured in a graph) against the CPU's plain loop: prefill and 6 decode
+    steps' logits within the Q4_K_M check (allclose at 8e-2), greedy tokens
+    where the CPU's margin is clear, and ``decode_fused`` gives the card's
+    ``decode_one`` tokens."""
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+
+    path = write_synth(str(tmp_path / f"{preset}.gguf"), preset, seed=0)
+    card = Engine.from_gguf(path, max_seq=256, device="cuda")
+    cpu = Engine.from_gguf(path, max_seq=256, device="cpu")
+    assert tllama.decode_route(card.params, card.cfg, card.kv) is None
+    ids = list(range(3, 60))
+    a, b = card.prefill(ids), cpu.prefill(ids)
+    toks = []
+    for _ in range(6):
+        np.testing.assert_allclose(a, b, rtol=8e-2, atol=8e-2)
+        tok = int(np.argmax(b))
+        toks.append(tok)
+        a, b = card.decode_one(tok), cpu.decode_one(tok)
+    before = flash_decode.modes["alibi"].launches
+    card.reset()
+    first = int(np.argmax(card.prefill(ids)))
+    fused = card.decode_fused(first, n_steps=5)
+    card.reset()
+    card.prefill(ids)
+    loop, tok = [], first
+    for _ in range(5):
+        tok = int(np.argmax(card.decode_one(tok)))
+        loop.append(tok)
+    assert fused == loop
+    assert flash_decode.modes["alibi"].launches > before
+
+
+def test_engine_self_extend_card_matches_cpu(cuda_device, tmp_path):
+    """Self-extend on the card: after ``seq_div`` the route is the loop with
+    K3's positions mode, the fused step is captured anew (it was captured
+    before ``seq_div``) and gives ``decode_one``'s tokens; the logits are
+    held to the CPU's within the Q4_K_M check."""
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+
+    path = write_synth(str(tmp_path / "small.gguf"), "small", seed=0)
+    card = Engine.from_gguf(path, max_seq=256, device="cuda")
+    cpu = Engine.from_gguf(path, max_seq=256, device="cpu")
+    ids = list(range(3, 70))
+    first = int(np.argmax(card.prefill(ids)))
+    card.decode_fused(first, n_steps=4)  # captured without positions
+    outs = []
+    for eng in (card, cpu):
+        eng.reset()
+        eng.prefill(ids)
+        eng.seq_div(0, len(ids), 4)
+        outs.append([eng.decode_one(t) for t in (5, 6, 7)])
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a, b, rtol=8e-2, atol=8e-2)
+    assert tllama.decode_route(card.params, card.cfg, card.kv) is None
+    fused_tokens = []
+    for fused in (True, False):
+        card.reset()
+        card.prefill(ids)
+        card.seq_div(0, len(ids), 4)
+        if fused:
+            before = kernels.device_counts()["flash_decode_pos"]
+            fused_tokens.append(card.decode_fused(first, n_steps=6))
+            assert kernels.device_counts()["flash_decode_pos"] - before >= 6 * 2
+        else:
+            tok, toks = first, []
+            for _ in range(6):
+                tok = int(np.argmax(card.decode_one(tok)))
+                toks.append(tok)
+            fused_tokens.append(toks)
+    assert fused_tokens[0] == fused_tokens[1]
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "q8"])
