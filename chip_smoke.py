@@ -27,7 +27,11 @@ Phases, each printing JSON lines:
      (B 1, n_past 3000, rows at i // 4 and at the ``-gan 4 -gaw 1024``
      ladder's positions, T 1 and 4), each with an SDPA yardstick whose
      float mask holds the bias and the mask, and both at the JAX kernel
-     tests' shape;
+     tests' shape; at gpt-oss-20b's shapes (``oss_cases``): K5's nib4 mode
+     on a gate expert (2880 x 3072 stored, M 101 / 256 / 1000) and K8's
+     (P 4 / 8 pairs of 32 experts, with mins), K1 at K 2880 (q|k|v with
+     mins, the head), K2 at N 2880, K5-int8 at K 2880, K3 / K4 at 64/8
+     heads of 64 with sinks, window 128 and full;
   2. the 8B Q4_K_M model end to end (synthetic weights from a seed, full
      width and depth): ``Engine.from_gguf``, a greedy ``generate`` (decode
      through K6), the per-layer loop called as a function (K1-K4), and a
@@ -100,7 +104,15 @@ Phases, each printing JSON lines:
  16. ``bloom_7b1``: BLOOM-7B1 Q4_K_M at full width, 4 of 30 layers, every
      bias and the embedding norm, through the loop on the card held
      against the CPU's plain loop;
- 17. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
+ 17. ``gpt_oss_20b``: gpt-oss-20b with Q4_0 experts (synthetic, full width,
+     6 of 24 layers): a ragged 997-token prefill (K5-int8 on q|k|v,
+     K5-nib4 on every expert's gate and up, K4 with sinks), 32 greedy
+     tokens through the per-layer loop and ``decode_fused`` (the loop in a
+     graph: K8-nib4 twice a layer per token), launches per prefill and per
+     token held on the host and the device; then a cut of the same preset
+     (4 layers, 8,192 tokens) against the CPU's plain loop, the CPU
+     following the card's routes (``kernel_times.RouteLog``);
+ 18. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
      and held-out perplexity, through ``Engine`` and, all prompts at once,
      through ``BatchedEngine`` with an f32 and a q8 cache.
 Kernel launch counts are set to 0 before each path and read after it.  A
@@ -114,19 +126,23 @@ it exits non-zero and prints no result.
 Usage: python3 chip_smoke.py
 
 ``python3 chip_smoke.py --plant-faults [fault ...]`` shows instead whether
-the K3 and K6/K7 checks can fail: it copies the package and this script
-into temporary directories, plants one known fault (``FAULTS``; all of
-them unless some are named) in each copy's ``csrc/decode_stream.cu`` or,
-for K3's (``K3_FAULTS``), ``csrc/flash_decode.cu``, builds the copies,
-and prints K3's error against plain on each ALiBi and self-extend case
-(``k3_mode_cases``) and the errors that ``decode_errors`` reads for each
+the K3, K6/K7 and nib4 checks can fail: it copies the package and this
+script into temporary directories, plants one known fault (``FAULTS`` and
+``NIB4_FAULTS``; all of them unless some are named) in each copy's
+``csrc/decode_stream.cu``, for K3's (``K3_FAULTS``) ``csrc/flash_decode.cu``,
+for K5's and K8's nib4 modes ``csrc/qmm.cu``, ``csrc/rqmm.cu`` and K5's
+wrapper, builds the copies, and prints K5-nib4's and K8-nib4's errors
+against plain on their gpt-oss cases (``nib4_cases``), K3's on each ALiBi
+and self-extend case (``k3_mode_cases``) and the errors that
+``decode_errors`` reads for each
 (K6 on two 8B layers and on two Mixtral
 Q4_K_M layers, K7 on the 18 layers of the 270M shape, K6's gemma mode on 6
 Gemma-3-4B layers, K7's on the 18 of Gemma-3-270M, K6's qwen modes on 2
 layers each of Qwen3-8B, Qwen3-30B-A3B and bias-free Qwen1.5-MoE; B = 1,
-n_past 700), the unmodified source first; the ``moe_qk_norm_skipped`` copy
-also runs the ``qwen3moe_30b_a3b`` phase's 8-step comparison at full
-depth, with its one-ulp control.
+n_past 700), the unmodified source first (on the kernels of the named
+faults); the ``moe_qk_norm_skipped`` copy also runs the
+``qwen3moe_30b_a3b`` phase's 8-step comparison at full depth, with its
+one-ulp control.
 """
 
 from __future__ import annotations
@@ -196,6 +212,23 @@ FAULTS = {
         "const int lo = window > 0 ? max(0, n_past + 1 - window) : 0;"),
 }
 K3_FAULTS = ("alibi_physical_under_pos", "pos_window_skip")  # csrc/flash_decode.cu
+# --plant-faults of K5's and K8's nib4 modes: name -> its edits, each (file
+# under the package, text, what replaces it); each plants the fault in both
+NIB4_FAULTS = {
+    # the low and the high nibble read as the other K half's
+    "nib4_halves_swapped": (
+        ("csrc/qmm.cu", "h ? byte >> 4 : byte & 0x0Fu", "h ? byte & 0x0Fu : byte >> 4"),
+        ("csrc/rqmm.cu", "v8[0] = words[i] & 0x0F0F0F0Fu;\n            v8[H - 1] = (",
+         "v8[H - 1] = words[i] & 0x0F0F0F0Fu;\n            v8[0] = (")),
+    # the mins left out: K5 takes them after the kernel (its wrapper, as
+    # the JAX wrapper does), K8 inside
+    "nib4_mins_dropped": (
+        ("ops/quant_matmul.py", 'out = _qmm_launch(x2, qt, "nib4")',
+         'out = _qmm_launch(x2, QuantTensor(qt.q, qt.s, None, qt.fmt, qt.group, qt.shape), '
+         '"nib4")'),
+        ("csrc/rqmm.cu", "return launch<true>(x, q, s, m, idx,",
+         "return launch<true>(x, q, s, nullptr, idx,")),
+}
 
 KERNEL_INFO = {
     "gemv_int8": ("llama_cpp_gfx906_tpu_torch/csrc/gemv.cu",
@@ -226,6 +259,10 @@ KERNEL_INFO = {
                                   "llama_cpp_gfx906_tpu/ops/decode_stream.py:676"),
     "decode_stream_shexp": ("llama_cpp_gfx906_tpu_torch/csrc/decode_stream.cu",
                             "llama_cpp_gfx906_tpu/ops/decode_stream.py:683"),
+    "qmm_nib4": ("llama_cpp_gfx906_tpu_torch/csrc/qmm.cu",
+                 "llama_cpp_gfx906_tpu/ops/quant_matmul.py:948"),
+    "rqmm_nib4": ("llama_cpp_gfx906_tpu_torch/csrc/rqmm.cu",
+                  "llama_cpp_gfx906_tpu/ops/quant_matmul.py:1253"),
 }
 # the count a summary entry reads where its name is not a count of its own:
 # qwen3's qk-norm is K6's gemma instantiation with has_post 0; qwen3moe's
@@ -252,7 +289,8 @@ KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
                "decode_stream_qk_norm": "qwen3_8b",
                "decode_stream_moe_qk_norm": "qwen3moe_30b_a3b",
                "decode_stream_shexp": "qwen2moe_shexp",
-               "flash_decode_alibi": "mpt_7b_fused", "flash_decode_pos": "8b_self_extend"}
+               "flash_decode_alibi": "mpt_7b_fused", "flash_decode_pos": "8b_self_extend",
+               "qmm_nib4": "gpt_oss_20b_prefill", "rqmm_nib4": "gpt_oss_20b_fused"}
 SERVE_PROMPT_LENS = (256, 384, 512, 640, 768, 896, 1024, 320)
 # the serve path's launches per 4-slot decode step
 SERVE_PER_STEP = {"q8": {"flash_decode_int8": 32, "flash_decode": 32, "gemv_nib4c": 128,
@@ -348,6 +386,36 @@ MPT_PROMPT_TOKENS = 1531  # the mpt_7b prefill (ragged)
 MPT_PER_TOKEN = {"flash_decode_alibi": 32, "flash_decode": 32, "gemv_nib4c": 128,
                  "gemv_int8": 1, "decode_stream": 0, "decode_step": 0}
 BLOOM_LAYERS = 4  # the bloom_7b1 phase's cut depth (of 30)
+# the gpt_oss_20b phase's depth (of 24): at full depth the whole run took
+# 1,045-1,086 s, past its 1,050 s budget; the shapes and launches per layer
+# do not change with depth
+OSS_LAYERS = 6
+OSS_CPU_LAYERS = 4  # its cut held against the CPU's plain loop, with the
+OSS_CPU_VOCAB = 8192  # first 8,192 tokens (the CPU's head costs ~3 s a step
+# at the full 201,088: the whole run neared its 1,200 s limit)
+OSS_PROMPT_TOKENS = 997  # its prefill (ragged)
+OSS_E = 32  # gpt-oss-20b's experts
+
+
+def oss_per_token(L: int) -> dict:
+    """gpt-oss's launches per decode token through the per-layer loop: per
+    layer K1 on the fused q|k|v (int8 with mins at K 2880), K2 on o, K3
+    (sinks; window 128 on the even layers), K8-nib4 on the chosen pairs'
+    gate and up (the nib4c down experts take the quantized gather); the
+    head's K1.  No K6/K7 (refused, as in JAX)."""
+    return {"rqmm_nib4": 2 * L, "gemv_int8": L + 1, "gemv_nib4c": L, "flash_decode": L,
+            "decode_stream": 0, "decode_step": 0, "qmm_nib4": 0, "flash_attention": 0}
+
+
+def oss_per_prefill(L: int, T: int) -> dict:
+    """gpt-oss's launches for a prefill of T > 8 tokens: per layer K5-int8 on
+    q|k|v, K5-nib4 on every expert's gate and up (the all-experts path; o
+    and the nib4c down experts take the dequant matmul), K4 where
+    8 T > 128 (else K3); the head's K1 on the last row."""
+    attn = "flash_decode" if 8 * T <= 128 else "flash_attention"
+    other = "flash_attention" if attn == "flash_decode" else "flash_decode"
+    return {"qmm_nib4": 2 * OSS_E * L, "qmm_int8": L, attn: L, other: 0, "gemv_int8": 1,
+            "gemv_nib4c": 0, "rqmm_nib4": 0}
 
 
 FAILURES: list[str] = []
@@ -563,7 +631,142 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
     expert_cases(torch, dev, g, flush, record)
     decode_cases(torch, g, flush, record, tmp,
                  [c for c in kt.DECODE_CASES if c not in llama_gemma])
+    oss_cases(torch, dev, flush, record)
     del flush
+
+
+def nib4_cases(torch, dev):
+    """K5-nib4 and K8-nib4 at gpt-oss-20b's gate experts
+    (``kernel_times.QMM_NIB4_CASES``: one expert, M 101 / 256 / 1000;
+    ``RQMM_NIB4_CASES``: 32 experts, P 4 / 8), inputs from their own seeds
+    (13, 14): per case its name, case, kernel call, plain call, bytes (each
+    distinct expert's packed slice, scales and mins once; x in, f32 out),
+    operations and a library call (``torch.matmul`` on the expert
+    dequantized to bf16 beforehand; K8: a gather of such experts and
+    ``torch.bmm``)."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+
+    qt = kt.oss_experts(dev)
+    K, Np = qt.K, qt.q.shape[-1]
+    one = sum(t[0].numel() * t.element_size() for t in (qt.q, qt.s, qt.m))
+    e0 = qmm.qt_expert(qt, 3)
+    w0 = qmm.dequantize_qt(e0, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(13)
+    for case, M in kt.QMM_NIB4_CASES:
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        yield dict(name="qmm_nib4", case=case, kern=lambda x=x: qmm.qmm_nib4(x, e0),
+                   plain=lambda x=x: qmm.qmm_nib4_plain(x, e0),
+                   lib=lambda x=x: torch.matmul(x, w0),
+                   nbytes=one + M * K * 2 + M * Np * 4, flops=2 * M * K * Np,
+                   library="torch.matmul on the expert dequantized to bf16 beforehand")
+    wb = qmm.dequantize_qt_experts(qt, torch.bfloat16)
+    rng = np.random.default_rng(14)
+    for case, P in kt.RQMM_NIB4_CASES:
+        ids = kt.oss_pair_ids(rng, P)
+        idx = torch.tensor(ids, dtype=torch.int32, device=dev)
+        x = torch.randn((P, K), generator=g, device=dev).to(torch.bfloat16)
+        distinct = len(set(ids.tolist()))
+        yield dict(name="rqmm_nib4", case=case,
+                   kern=lambda x=x, idx=idx: qmm.rqmm_nib4(x, qt, idx),
+                   plain=lambda x=x, idx=idx: qmm.rqmm_nib4_plain(x, qt, idx),
+                   lib=lambda x=x, idx=idx: torch.bmm(x[:, None, :], wb[idx.long()]),
+                   nbytes=distinct * one + P * K * 2 + P * Np * 4, flops=2 * P * K * Np,
+                   library="gather of pre-dequantized bf16 experts + torch.bmm",
+                   distinct_experts=distinct)
+
+
+def oss_cases(torch, dev, flush, record) -> None:
+    """The kernels of the gpt_oss_20b phase at its shapes, each against its
+    plain version and launched twice (the same bits): K5's and K8's nib4
+    modes (``nib4_cases``); K1 at K 2880 (the fused q|k|v with mins, the
+    head's 2880 rows) and K2 at N 2880 (the o projection: a ragged last
+    128-column tile), ``kernel_times.OSS_GEMV_CASES``; K5-int8 on the
+    fused q|k|v at K 2880 (``OSS_QMM_INT8_CASES``); K3 and K4 at 64/8 heads
+    of 64 with sinks, window 128 and full (``OSS_ATTN_CASES``).  Inputs
+    from their own generators (seeds 15, 16 and 40 + the attention case's
+    index), after every earlier case, so those draw as before."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import (flash_attention,
+                                                              flash_attention_plain)
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4_0_rows
+
+    for c in nib4_cases(torch, dev):
+        got = c["kern"]()
+        err = check(f"{c['name']} {c['case']}", got, c["plain"](), torch)
+        same = bit_identical(f"{c['name']} {c['case']}", got, c["kern"](), torch)
+        extra = {k: c[k] for k in ("library", "distinct_experts") if k in c}
+        record(c["name"], c["case"], err, device_ms(c["kern"], torch, flush),
+               device_ms(c["plain"], torch, flush), c["nbytes"], c["flops"],
+               device_ms(c["lib"], torch, flush), bit_identical=same, **extra)
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(15)
+    g = torch.Generator(device=dev).manual_seed(16)
+    for name, case, gtype, K, N, pad in kt.OSS_GEMV_CASES:
+        qt = kt.gemv_weights(rng, gtype, K, N, pad, dev)
+        x = torch.randn((1, K), generator=g, device=dev).to(torch.bfloat16)
+        kern = getattr(qmm, name)
+        got = kern(x, qt)
+        err = check(f"{name} {case}", got, qmm.gemv_plain(x, qt), torch)
+        same = bit_identical(f"{name} {case}", got, kern(x, qt), torch)
+        w = qmm.dequantize_qt(qt, torch.bfloat16)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (qt.q, qt.s, qt.m, qt.sd, qt.md, x) if t is not None) + N * 4
+        record(name, case, err, device_ms(lambda: kern(x, qt), torch, flush),
+               device_ms(lambda: qmm.gemv_plain(x, qt), torch, flush), nbytes, 2 * K * N,
+               device_ms(lambda: torch.matmul(x, w), torch, flush), bit_identical=same,
+               segment=qmm._gemv_segment(qt)[0], splits=qmm.gemv_splits(
+                   qt, torch.cuda.get_device_properties(dev).multi_processor_count))
+        del w, qt
+    qt = qmm.pack_gguf_tensor(q4_0_rows(rng, 5120, 2880).reshape(-1), GGMLType.Q4_0,
+                              (5120, 2880), device=dev)
+    w = qmm.dequantize_qt(qt, torch.bfloat16)
+    for case, M in kt.OSS_QMM_INT8_CASES:
+        x = torch.randn((M, 2880), generator=g, device=dev).to(torch.bfloat16)
+        got = qmm.qmm_int8(x, qt)
+        err = check(f"qmm_int8 {case}", got, qmm.qmm_plain(x, qt), torch)
+        same = bit_identical(f"qmm_int8 {case}", got, qmm.qmm_int8(x, qt), torch)
+        record("qmm_int8", case, err, device_ms(lambda: qmm.qmm_int8(x, qt), torch, flush),
+               device_ms(lambda: qmm.qmm_plain(x, qt), torch, flush),
+               M * 2880 * 2 + 2880 * 5120 + 2 * 90 * 5120 * 4 + M * 5120 * 4,
+               2 * M * 2880 * 5120, device_ms(lambda: torch.matmul(x, w), torch, flush),
+               bit_identical=same)
+    del qt, w
+
+    for i, (name, case, T, n_past, window) in enumerate(kt.OSS_ATTN_CASES):
+        c = kt.oss_attn_case(torch, dev, T, n_past, window, 40 + i)
+        args = (c["q"], c["k"], c["v"], c["npast"], c["scale"], window, 0.0, c["sinks"])
+        kern, plain = ((flash_decode, flash_decode_plain) if name == "flash_decode"
+                       else (flash_attention, flash_attention_plain))
+        got = kern(*args)
+        err = check(f"{name} {case}", got, plain(*args), torch)
+        same = bit_identical(f"{name} {case}", got, kern(*args), torch)
+        qpos = n_past + torch.arange(T, device=dev)[:, None]
+        keys = torch.arange(n_past + T, device=dev)[None, :]
+        seen = (keys <= qpos) & ((keys > qpos - window) if window else True)
+        live = int(seen.any(0).sum())
+        # SDPA has no sink: the yardstick is the same attention without one
+        qs = c["q"].transpose(1, 2).contiguous()
+        kl = c["k"][:, :n_past + T].transpose(1, 2).contiguous()
+        vl = c["v"][:, :n_past + T].transpose(1, 2).contiguous()
+        record(name, case, err, device_ms(lambda: kern(*args), torch, flush),
+               device_ms(lambda: plain(*args), torch, flush),
+               live * 8 * 2 * 64 * 2 + 2 * c["q"].numel() * 2, 4 * 64 * 64 * int(seen.sum()),
+               device_ms(lambda: F.scaled_dot_product_attention(
+                   qs, kl, vl, attn_mask=seen, scale=c["scale"], enable_gqa=True),
+                   torch, flush), bit_identical=same,
+               library="SDPA with the window's boolean mask, without the sinks")
+        del c, args
+    torch.cuda.empty_cache()
 
 
 def expert_cases(torch, dev, g, flush, record) -> None:
@@ -2750,6 +2953,147 @@ def phase_bloom_7b1(torch, paths: dict, tmp: Path) -> None:
     Path(path).unlink()
 
 
+def oss_vs_cpu(torch, path: str, n_prompt: int, steps: int = 4) -> dict:
+    """A gpt-oss stack through the per-layer loop on the card and on the CPU
+    (the plain versions) from the same ragged prompt: the prefill and
+    ``steps`` decode steps, fed the CPU's greedy tokens, the CPU following
+    the card's routes (``kernel_times.RouteLog``: the devices round the
+    bf16 activations differently, so a router near-tie may pick another
+    expert on each).  Held: every expert of the card's that the CPU ranks
+    below its own top k explained by the two devices' router logits
+    (``RouteLog.unexplained`` <= 1), the logits with the Q4_K_M check
+    (allclose at TOL_Q4KM), the greedy token where the CPU's margin is
+    clear; reported: the tokens whose experts the CPU would have chosen
+    otherwise and how far below its top k they ranked."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+
+    card, cpu = (Engine.from_gguf(path, max_seq=4096),
+                 Engine.from_gguf(path, max_seq=4096, device="cpu"))
+    ids = prompt_ids(card, 300)[:n_prompt]
+    tok, rows = None, []
+    for step in range(steps + 1):
+        with kt.RouteLog() as routes:
+            a = card.prefill(ids) if tok is None else card.decode_one(tok)
+        with kt.RouteLog(replay=routes.calls) as replayed:
+            b = cpu.prefill(ids) if tok is None else cpu.decode_one(tok)
+        err = float(np.abs(a - b).max())
+        top2 = np.sort(b)[-2:]
+        row = dict(step=step, rel=err / float(np.abs(b).max()),
+                   allclose_ratio=float((np.abs(a - b) / (TOL_Q4KM + TOL_Q4KM * np.abs(b))
+                                         ).max()),
+                   route_deficit=replayed.deficit(), tokens_rerouted=replayed.replaced(),
+                   route_unexplained=replayed.unexplained(routes),
+                   greedy_agree=int(np.argmax(a)) == int(np.argmax(b)),
+                   greedy_margin_clear=bool(top2[1] - top2[0] > 2 * err))
+        if not (np.isfinite(a).all() and row["allclose_ratio"] <= 1
+                and row["route_unexplained"] <= 1
+                and (row["greedy_agree"] or not row["greedy_margin_clear"])):
+            fail(f"gpt_oss_20b vs cpu, step {step}: {row}")
+        rows.append(row)
+        tok = int(np.argmax(b))
+    return dict(prompt_tokens=len(ids), steps=rows)
+
+
+def phase_gpt_oss_20b(torch, paths: dict, tmp: Path) -> None:
+    """gpt-oss-20b with Q4_0 experts (synthetic, full width, ``OSS_LAYERS``
+    of 24 layers): synth write and load; a ragged 997-token prefill (per
+    layer K5-int8 on q|k|v, K5-nib4 on every expert's gate and up: 2 x 32,
+    K4 with sinks; the nib4c o and down take the dequant matmul), its
+    launches held on the host and the device (``oss_per_prefill``); 32
+    greedy tokens through the per-layer loop (``decode_one``) and then
+    ``decode_fused`` (the loop captured in a graph), launches per token
+    held to ``oss_per_token`` (K8-nib4 twice a layer), tok/s, device ms per
+    token and the idle share; then a cut of the same preset (4 layers, the
+    first 8,192 tokens) against the CPU's plain loop (``oss_vs_cpu``)."""
+    import os
+
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.models.llama import decode_route
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    path = tmp / "synth-gpt-oss-20b-q4_0.gguf"
+    t0 = time.perf_counter()
+    write_synth(str(path), "gpt-oss-20b-q4_0", seed=0, n_layers=OSS_LAYERS)
+    t_write = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine.from_gguf(str(path), max_seq=4096)
+    t_load = time.perf_counter() - t0
+    mem_weights = torch.cuda.memory_allocated()
+    L = eng.cfg.n_layers
+    p0 = eng.params["layers"][0]
+    fmts = {k: (p0[k].fmt, p0[k].m is not None)
+            for k in ("wqkv_fused", "wo", "moe_gate", "moe_up", "moe_down")}
+    want_fmts = {"wqkv_fused": ("int8", True), "wo": ("nib4c", True),
+                 "moe_gate": ("nib4", True), "moe_up": ("nib4", True),
+                 "moe_down": ("nib4c", True)}
+    if fmts != want_fmts or "sinks" not in p0:
+        raise AssertionError(f"gpt_oss_20b: planes {fmts}, want {want_fmts} and sinks")
+    if decode_route(eng.params, eng.cfg, eng.kv) is not None:
+        raise AssertionError("gpt_oss_20b: a decode kernel's gate takes the stack")
+    ids = prompt_ids(eng, 600)[:OSS_PROMPT_TOKENS]
+    eng.reset()
+    kernel_counts(reset=True)
+    before = kernels.device_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = eng.prefill(ids)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = kernel_counts()
+    paths["gpt_oss_20b_prefill"] = prefill_device = launches_since(before)
+    want = oss_per_prefill(L, len(ids))
+    if any(prefill_launches.get(k) != v or prefill_device.get(k) != v
+           for k, v in want.items()):
+        fail(f"gpt_oss_20b: prefill launched {prefill_launches} (device {prefill_device}),"
+             f" want {want}")
+    kernel_counts(reset=True)
+    tok, toks = int(np.argmax(logits)), []
+    t0 = time.perf_counter()
+    for _ in range(32):
+        logits = eng.decode_one(tok)
+        tok = int(np.argmax(logits))
+        toks.append(tok)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    paths["gpt_oss_20b"] = launches = kernel_counts()
+    want = {k: 32 * v for k, v in oss_per_token(L).items()}
+    want["routed_gather"] = 32 * L  # the nib4c down experts (host count)
+    if any(launches.get(k) != v for k, v in want.items()):
+        fail(f"gpt_oss_20b: 32 decode steps launched {launches}, want {want}")
+    if not (np.isfinite(logits).all() and logits.shape == (eng.cfg.n_vocab,)
+            and all(0 <= t < eng.cfg.n_vocab for t in toks)):
+        raise AssertionError("gpt_oss_20b: bad logits or tokens")
+    fused = fused_run(torch, eng, ids, "rqmm_nib4",
+                      want={k: float(v) for k, v in oss_per_token(L).items()})
+    paths["gpt_oss_20b_fused"] = fused["launches"]
+    emit(phase="gpt_oss_20b", layers=L, synth_write_s=t_write,
+         gguf_bytes=os.path.getsize(path), load_s=t_load, prompt_tokens=len(ids),
+         prefill_s=prefill_s, prefill_tok_s=len(ids) / prefill_s,
+         prefill_launches=prefill_launches, prefill_device_launches=prefill_device,
+         decode_loop_tok_s=32 / loop_s, decode_loop_launches=launches,
+         weights_and_cache_bytes=mem_weights,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), **fused)
+    del eng, p0
+    path.unlink()
+    torch.cuda.empty_cache()
+    cut = tmp / "synth-gpt-oss-20b-q4_0-cut.gguf"
+    t0 = time.perf_counter()
+    write_synth(str(cut), "gpt-oss-20b-q4_0", seed=0, n_layers=OSS_CPU_LAYERS,
+                n_vocab=OSS_CPU_VOCAB)
+    out = oss_vs_cpu(torch, str(cut), 150)
+    emit(phase="gpt_oss_20b_vs_cpu", layers=OSS_CPU_LAYERS, vocab=OSS_CPU_VOCAB,
+         seconds=time.perf_counter() - t0, **out)
+    cut.unlink()
+    torch.cuda.empty_cache()
+
+
 def phase_tinydoc(torch, paths: dict) -> None:
     import numpy as np
 
@@ -2851,50 +3195,71 @@ def phase_tinydoc_batched(torch, paths: dict) -> None:
 
 def plant_faults(names: list[str]) -> None:
     """``--plant-faults [fault ...]`` (see the module docstring): the named
-    faults (all of ``FAULTS`` when none is named) and the unmodified
-    source."""
-    unknown = set(names) - set(FAULTS)
+    faults (all of ``FAULTS`` and ``NIB4_FAULTS`` when none is named) and
+    the unmodified source."""
+    known = {**FAULTS, **NIB4_FAULTS}
+    unknown = set(names) - set(known)
     if unknown:
-        raise SystemExit(f"unknown faults {sorted(unknown)}; known: {sorted(FAULTS)}")
+        raise SystemExit(f"unknown faults {sorted(unknown)}; known: {sorted(known)}")
     with tempfile.TemporaryDirectory() as tmp:
         roots = {}
-        for fault, edit in FAULTS.items():
+        for fault, edit in known.items():
             if names and fault not in names and edit is not None:
                 continue
             root = Path(tmp) / fault
             shutil.copytree(ROOT / PKG, root / PKG,
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy(ROOT / "chip_smoke.py", root)
-            if edit is not None:
-                src = root / PKG / "csrc" / f"{fault_source(fault)}.cu"
-                text = src.read_text()
-                if text.count(edit[0]) != 1:
+            for rel, text, planted in fault_edits(fault):
+                src = root / PKG / rel
+                body = src.read_text()
+                if body.count(text) != 1:
                     raise RuntimeError(f"{fault}: the text to replace is not in "
                                        f"{src.name} once")
-                src.write_text(text.replace(edit[0], edit[1]))
+                src.write_text(body.replace(text, planted))
             roots[fault] = root
+        # the control reads the kernels of the named faults (all: every kernel)
+        groups = sorted({fault_group(f) for f in names} if names else {"k3", "k6", "nib4"})
         procs = []
         for fault, root in roots.items():
-            libs = ("decode_stream", "flash_decode") if fault == "none" else (
-                fault_source(fault),)
-            build = f"from {PKG} import kernels; kernels.build_all({libs!r})"
+            libs = sorted({lib for grp in (groups if fault == "none" else
+                                           [fault_group(fault)]) for lib in GROUP_LIBS[grp]})
+            build = f"from {PKG} import kernels; kernels.build_all({tuple(libs)!r})"
             procs.append(subprocess.Popen([sys.executable, "-c", build], cwd=root))
         if any(p.wait() != 0 for p in procs):
             raise RuntimeError("a copy failed to build")
         for fault, root in roots.items():
-            subprocess.run([sys.executable, "chip_smoke.py", "--decode-errors", fault],
+            group = ",".join(groups) if fault == "none" else fault_group(fault)
+            subprocess.run([sys.executable, "chip_smoke.py", "--decode-errors", fault, group],
                            cwd=root, check=True)
 
 
-def fault_source(fault: str) -> str:
-    """The source under ``csrc/`` that a planted fault edits."""
-    return "flash_decode" if fault in K3_FAULTS else "decode_stream"
+GROUP_LIBS = {"nib4": ("qmm", "rqmm"), "k3": ("flash_decode",),
+              "k6": ("decode_stream",)}  # the libraries a group's kernels need
 
 
-def decode_errors_of_copy(torch, fault: str) -> None:
-    """The K3 errors (the unmodified source and K3's faults) and the K6 and
-    K7 errors (the unmodified source and K6/K7's faults) of this copy's
-    kernels, one JSON line each."""
+def fault_group(fault: str) -> str:
+    """The kernels a planted fault's copy is read on: "nib4" (K5-nib4 and
+    K8-nib4), "k3" or "k6" (K6 and K7)."""
+    return "nib4" if fault in NIB4_FAULTS else "k3" if fault in K3_FAULTS else "k6"
+
+
+def fault_edits(fault: str) -> tuple:
+    """The edits that plant ``fault``: (file under the package, text, what
+    replaces it) each; none for the unmodified source."""
+    if fault in NIB4_FAULTS:
+        return NIB4_FAULTS[fault]
+    if FAULTS[fault] is None:
+        return ()
+    src = "flash_decode" if fault in K3_FAULTS else "decode_stream"
+    return ((f"csrc/{src}.cu", *FAULTS[fault]),)
+
+
+def decode_errors_of_copy(torch, fault: str, groups: list[str]) -> None:
+    """The errors against plain of this copy's kernels in ``groups``
+    (``fault_group``), one JSON line each: K5-nib4 and K8-nib4
+    (``nib4_cases``), K3 (``k3_mode_cases``), K6 and K7 (``decode_errors``
+    on ``kernel_times.DECODE_CASES``)."""
     from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
     from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
@@ -2902,7 +3267,12 @@ def decode_errors_of_copy(torch, fault: str) -> None:
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
     from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
 
-    if fault == "none" or fault in K3_FAULTS:
+    if "nib4" in groups:
+        for c in nib4_cases(torch, torch.device("cuda")):
+            emit(phase="planted_fault", fault=fault, kernel=c["name"], case=c["case"],
+                 rel_err=rel_of(torch, c["kern"](), c["plain"]()), tol=TOL)
+        torch.cuda.empty_cache()
+    if "k3" in groups:
         for c in k3_mode_cases(torch, torch.device("cuda")):
             args = (c["q"], c["k"], c["v"], c["npast"], c["scale"])
             got = flash_decode(*args, **c["kw"])
@@ -2910,7 +3280,7 @@ def decode_errors_of_copy(torch, fault: str) -> None:
             emit(phase="planted_fault", fault=fault, kernel=c["name"], case=c["case"],
                  rel_err=rel_of(torch, got, ref), tol=TOL)
         torch.cuda.empty_cache()
-    if fault in K3_FAULTS:
+    if "k6" not in groups:
         return
     with tempfile.TemporaryDirectory() as tmp:
         for name, preset, L, _, synth in kt.DECODE_CASES:
@@ -2950,7 +3320,7 @@ def main() -> None:
         plant_faults(sys.argv[2:])
         return
     if sys.argv[1:2] == ["--decode-errors"]:
-        decode_errors_of_copy(torch, sys.argv[2])
+        decode_errors_of_copy(torch, sys.argv[2], sys.argv[3].split(","))
         return
 
     smi = subprocess.run(
@@ -2995,6 +3365,8 @@ def main() -> None:
         run_phase("mpt_7b", phase_mpt_7b, torch, paths, tmp)
         torch.cuda.empty_cache()
         run_phase("bloom_7b1", phase_bloom_7b1, torch, paths, tmp)
+        torch.cuda.empty_cache()
+        run_phase("gpt_oss_20b", phase_gpt_oss_20b, torch, paths, tmp)
     run_phase("tinydoc", phase_tinydoc, torch, paths)
     run_phase("tinydoc_batched", phase_tinydoc_batched, torch, paths)
 
@@ -3017,7 +3389,8 @@ def main() -> None:
             "decode_stream_qk_norm": "B=1 n_past=3000",
             "decode_stream_moe_qk_norm": "n_past=3000", "decode_stream_shexp": "n_past=3000 gate",
             "flash_decode_alibi": "mpt B=1 bf16 n_past=3000",
-            "flash_decode_pos": "8b gan4 gaw1024 T=1 bf16"}
+            "flash_decode_pos": "8b gan4 gaw1024 T=1 bf16",
+            "qmm_nib4": "M=1000", "rqmm_nib4": "P=4"}
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = next(r for r in results[name] if pick[name] in r["case"])

@@ -20,7 +20,12 @@ take the JAX ALiBi branches (``models/config.py:369-391``): LayerNorm with
 the eps of ``{arch}.attention.layer_norm_epsilon``, no positional
 embedding, ALiBi slopes on the attention scores and an ungated FFN
 (gelu-erf for mpt; gelu-tanh, biases everywhere and a norm after the
-embedding for bloom).
+embedding for bloom).  ``gpt-oss`` takes the JAX branch
+(``models/config.py:321-329``): NEOX rope, alternating sliding windows
+(``swa_pattern`` 2: even layers windowed), a router whose top-k logits
+are softmaxed, and the ``swiglu_oai`` expert activation (gate clamped
+above and up clamped to +-``swiglu_limit``, ``(up + 1) g sigmoid(1.702 g)``);
+its attention sinks, router bias and expert biases come from its tensors.
 """
 
 from __future__ import annotations
@@ -66,7 +71,8 @@ class ModelConfig:
     post_attn_norm: bool = False  # RMS norm of the attention output
     post_ffn_norm: bool = False  # RMS norm of the FFN output
     embedding_scale: float = 1.0  # gemma multiplies the embedding by sqrt(D)
-    act_fn: str = "silu"  # "silu" | "gelu" / "gelu_tanh" (tanh form) | "gelu_erf"
+    # "silu" | "gelu" / "gelu_tanh" (tanh form) | "gelu_erf" | "swiglu_oai" (experts)
+    act_fn: str = "silu"
     attn_logit_softcap: float = 0.0  # gemma2's; the port refuses it (gates)
     n_experts: int = 0  # > 0: every layer's FFN is routed (ops/moe.py)
     n_experts_used: int = 0
@@ -74,10 +80,9 @@ class ModelConfig:
     expert_weights_norm: bool = False  # renormalise the top-k probabilities
     expert_weights_scale: float = 1.0
     expert_gating_func: int = 1  # 1 softmax, 2 sigmoid (LLAMA_EXPERT_GATING_FUNC_*)
-    # routing variants of other families (gpt-oss, llama4): ops/moe.py
-    # refuses them until those families are ported
-    moe_topk_softmax: bool = False
-    moe_scale_input: bool = False
+    moe_topk_softmax: bool = False  # gpt-oss: softmax over the top-k logits
+    moe_scale_input: bool = False  # llama4's variant: ops/moe.py refuses it
+    swiglu_limit: float = 7.0  # gpt-oss's swiglu_oai clamp
     attn_bias: bool = False  # q/k/v biases (qwen2, qwen2moe, bloom)
     norm_type: str = "rms"  # "rms" | "layer" (LayerNorm, with optional bias)
     pos_emb: str = "rope"  # "rope" | "none" (mpt, bloom: ALiBi only)
@@ -117,11 +122,11 @@ def sub_config(cfg: ModelConfig, first: int, n: int) -> ModelConfig:
 
 
 # the archs the port loads: the llama graph under its names, gemma3, qwen,
-# the ALiBi families
+# the ALiBi families, gpt-oss
 LLAMA_ARCHS = ("llama", "llama2", "llama3", "mistral", "mixtral", "tinyllama")
 QWEN_ARCHS = ("qwen2", "qwen2moe", "qwen3", "qwen3moe")
 ALIBI_ARCHS = ("mpt", "bloom")
-ARCHS = LLAMA_ARCHS + ("gemma3",) + QWEN_ARCHS + ALIBI_ARCHS
+ARCHS = LLAMA_ARCHS + ("gemma3",) + QWEN_ARCHS + ALIBI_ARCHS + ("gpt-oss",)
 
 
 def config_from_gguf(reader) -> ModelConfig:
@@ -190,4 +195,7 @@ def config_from_gguf(reader) -> ModelConfig:
             pos_emb="none", alibi=True, ffn_gated=False,
             act_fn="gelu_erf" if arch == "mpt" else "gelu_tanh",
             attn_bias=arch == "bloom")
+    if arch == "gpt-oss":  # JAX models/config.py:321-329
+        cfg = replace(cfg, rope_interleaved=False, swa_pattern=2,
+                      moe_topk_softmax=True, act_fn="swiglu_oai")
     return cfg

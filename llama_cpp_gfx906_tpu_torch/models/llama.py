@@ -18,7 +18,9 @@ scaled by a sigmoid gate, to the routed FFN (:func:`shared_expert`).  The
 ALiBi families (mpt, bloom) take LayerNorms (with biases where the file
 has them), no rope, ALiBi slopes on the attention scores, the output
 projection's bias, an ungated FFN with its biases, bloom's norm after the
-embedding and biases on the final norm and the head.
+embedding and biases on the final norm and the head.  gpt-oss rides it too:
+q/k/v and o biases, attention sinks, alternating sliding windows (even
+layers windowed) and the routed FFN with its router and expert biases.
 
 Single-token decode on the card goes through one decode kernel for the
 whole stack where the JAX forward sends it to one on its accelerator: K7
@@ -294,7 +296,8 @@ def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
         if kv.shared_k is not None:
             shared = dict(shared_k=kv.shared_k[li], shared_v=kv.shared_v[li])
         attn, _, _ = mha_with_cache(q, k, v, kv.k[li], kv.v[li], kv.n_past, scale,
-                                    sliding_window=windows[li], **shared, **pos_args)
+                                    sliding_window=windows[li], sinks=_opt(p, "sinks"),
+                                    **shared, **pos_args)
         attn = linear(attn.reshape(B, T, Dq), p["wo"])
         if "bo" in p:
             attn = attn + p["bo"]
@@ -304,7 +307,9 @@ def layers_forward(params, cfg: ModelConfig, x: torch.Tensor,
         h = norm(x, p["ffn_norm"], _opt(p, "ffn_norm_b"), cfg)
         if "moe_gate_inp" in p:
             mlp = moe_ffn(h, p["moe_gate_inp"], p["moe_gate"], p["moe_up"],
-                          p["moe_down"], cfg)
+                          p["moe_down"], cfg, router_b=_opt(p, "moe_gate_inp_b"),
+                          gate_b=_opt(p, "moe_gate_b"), up_b=_opt(p, "moe_up_b"),
+                          down_b=_opt(p, "moe_down_b"))
             if "shexp_gateup_fused" in p or "shexp_gate" in p:
                 mlp = mlp + shared_expert(h, p, cfg)
         else:

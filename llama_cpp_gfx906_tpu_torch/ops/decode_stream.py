@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .quant_matmul import QuantTensor, _gemv_segment, _unpack_nib4c
+from .quant_matmul import QuantTensor, _gemv_segment, values
 from .rope import inv_freq_for, rope_frequencies
 
 NEG_INF = -1e30
@@ -300,7 +300,7 @@ def qlinear_plain(xb: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     as an f32 product (rounded to bf16 for int8 weights), f32 sums, mins as
     (per-group sum of x) * m."""
     s, m = _scale_planes(qt)
-    vals = _unpack_nib4c(qt.q, qt.K) if qt.fmt == "nib4c" else qt.q
+    vals = values(qt.q, qt)
     w = vals.float() * s.repeat_interleave(qt.group, 0)
     if qt.fmt == "int8":
         w = _bf16r(w)
@@ -350,7 +350,7 @@ def _qlinear_experts_plain(xb: torch.Tensor, qt: QuantTensor,
     """Row b of xb (B, K) f32 through expert e[b] of a stacked QuantTensor,
     as :func:`qlinear_plain` computes one projection (the ids stay on the
     device: no host sync)."""
-    vals = _unpack_nib4c(qt.q[e], qt.K) if qt.fmt == "nib4c" else qt.q[e]
+    vals = values(qt.q[e], qt)
     w = vals.float() * qt.s[e].float().repeat_interleave(qt.group, -2)
     if qt.fmt == "int8":
         w = _bf16r(w)

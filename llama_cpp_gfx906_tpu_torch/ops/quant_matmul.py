@@ -7,6 +7,9 @@ byte-identical to the JAX package's (so parity compares the same bytes):
 - ``nib4c`` : q int8 (K/2, N), chunk-local biased 4-bit packing: within each
   CK-row chunk, logical row k pairs with k + CK/2 in one byte stored as
   ``(lo | hi << 4) ^ 0x80``.
+- ``nib4``  : q int8 (K/2, N), split-K 4-bit packing of stacked experts whose
+  K has no nib4c chunk: byte row r holds logical row r (low nibble) and
+  K/2 + r (high nibble), stored ``lo | hi << 4``.
 
 Scales are plain f32 (K/g, N) planes, or folded: int8 sub-scales times f32
 super-planes ``sd`` at K/128 rows (each per-256 ``d`` repeated twice), and
@@ -16,12 +19,12 @@ Compute: a matmul with M <= 8 rows of x goes to the hand-written GEMV
 kernels (K1 ``gemv_int8``, K2 ``gemv_nib4c``, ``csrc/gemv.cu``) for every
 weight size; the JAX package's ``K*N >= 2**23`` gate is a TPU launch-overhead
 heuristic and is not carried over.  M > 8 (prefill) on the card goes to the
-tiled dequant matmul K5 (``qmm_int8``, ``csrc/qmm.cu``) for the weights the
-JAX package gives its K5 (int8 with plain scales, on its tile grid:
-:func:`qmm_tileable`); every other weight, and every M > 8 matmul on the
-CPU, dequantizes to bf16 and calls ``torch.matmul``, as the JAX package
-leaves those to XLA's dequant-dot.  Grid decoding runs in torch, so it runs
-on the card when the planes are built there.
+tiled dequant matmul K5 (``qmm_int8`` and ``qmm_nib4``, ``csrc/qmm.cu``) for
+the weights the JAX package gives its K5 (int8 with plain scales, or split-K
+nib4, on its tile grid: :func:`qmm_tileable`); every other weight, and every
+M > 8 matmul on the CPU, dequantizes to bf16 and calls ``torch.matmul``, as
+the JAX package leaves those to XLA's dequant-dot.  Grid decoding runs in
+torch, so it runs on the card when the planes are built there.
 """
 
 from __future__ import annotations
@@ -229,15 +232,28 @@ def pad_qt_n(qt: QuantTensor, multiple: int = 2048) -> QuantTensor:
                        qt.shape, pad(qt.sd), pad(qt.md), qt.sgroup)
 
 
-def _unpack_nib4c(q: torch.Tensor, K: int) -> torch.Tensor:
-    """Packed nib4c (..., K/2, N) -> int8 values (..., K, N) in logical row
-    order."""
-    p = q.view(torch.uint8) ^ 0x80
+PACKED4 = ("nib4", "nib4c")  # the 4-bit formats: two logical rows per byte
+
+
+def unpack4(q: torch.Tensor, fmt: str, K: int) -> torch.Tensor:
+    """Packed 4-bit planes (..., K/2, N) of format ``fmt`` (nib4c or nib4)
+    -> int8 values (..., K, N) in logical row order (JAX ``_unpack4_jnp``)."""
+    p = q.view(torch.uint8)
+    if fmt == "nib4c":
+        p = p ^ 0x80  # undo the bias
+    lo, hi = p & 0x0F, p >> 4
+    if fmt == "nib4":
+        return torch.cat([lo, hi], -2).to(torch.int8)
     ck = nib4c_chunk(K)
     lead = q.shape[:-2]
     sh = (*lead, K // ck, ck // 2, q.shape[-1])
-    return torch.cat([(p & 0x0F).reshape(sh), (p >> 4).reshape(sh)], -2
+    return torch.cat([lo.reshape(sh), hi.reshape(sh)], -2
                      ).reshape(*lead, K, -1).to(torch.int8)
+
+
+def values(q: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """The int8 values (..., K, N) of ``qt``'s q plane (or a gather of it)."""
+    return unpack4(q, qt.fmt, qt.K) if qt.fmt in PACKED4 else q
 
 
 def dequantize_qt(qt: QuantTensor, dtype=torch.bfloat16) -> torch.Tensor:
@@ -247,7 +263,7 @@ def dequantize_qt(qt: QuantTensor, dtype=torch.bfloat16) -> torch.Tensor:
         rep = qt.sgroup // qt.group
         s = s.float() * qt.sd.repeat_interleave(rep, 0)
         m = m.float() * qt.md.repeat_interleave(rep, 0) if m is not None else None
-    vals = _unpack_nib4c(qt.q, qt.K) if qt.fmt == "nib4c" else qt.q
+    vals = values(qt.q, qt)
     w = vals.float() * s.repeat_interleave(qt.group, 0)
     if m is not None:
         w = w - m.repeat_interleave(qt.group, 0)
@@ -272,13 +288,15 @@ def gemv_plain(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 
 def _gemv_segment(qt: QuantTensor) -> tuple[int, int]:
     """(packed rows per block, nib4c chunk) for the kernel's K split: each
-    thread owns seg/32 rows, a multiple of 4 inside one quant group."""
+    thread owns seg/32 rows inside one quant group (an int8 K that is 64
+    rows past a multiple of 128, such as gpt-oss's 2880, takes 64-row
+    segments: 2 rows a thread)."""
     if qt.fmt == "nib4c":
         ck = nib4c_chunk(qt.K)
         seg = min(512, ck // 2)
     else:
         ck = 0
-        seg = next((t for t in (512, 256, 128) if qt.K % t == 0), 0)
+        seg = next((t for t in (512, 256, 128, 64) if qt.K % t == 0), 0)
     if not seg or qt.group % (seg // 32):
         raise ValueError(f"gemv kernel: unsupported K={qt.K}, group={qt.group}")
     return seg, ck
@@ -368,17 +386,19 @@ def gemv_nib4c(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K5: the prefill-shape dequant matmul (int8 weights, plain scales)
+# K5: the prefill-shape dequant matmul (int8 or split-K nib4, plain scales)
 # ---------------------------------------------------------------------------
 
 
 def qmm_tileable(qt: QuantTensor) -> bool:
-    """The JAX package's K5 gate for the int8 format (``_pallas_tileable``
-    and no folded scales): the stored N a multiple of 128, and K split into
-    512- or 256-row tiles of at least 8 groups, or at most 8192 rows whole."""
-    if qt.fmt != "int8" or qt.sd is not None or qt.q.shape[-1] % 128:
+    """The JAX package's K5 gate (``_pallas_tileable`` and no folded scales),
+    which K8 shares: an int8 or split-K nib4 weight, the stored N a multiple
+    of 128, and K (nib4: each K half) split into 512- or 256-row tiles of
+    at least 8 groups, or at most 8192 rows whole.  nib4c is refused, as
+    the JAX gate refuses it."""
+    if qt.fmt not in ("int8", "nib4") or qt.sd is not None or qt.q.shape[-1] % 128:
         return False
-    K = qt.K
+    K = qt.K // 2 if qt.fmt == "nib4" else qt.K
     tk = next((t for t in (512, 256) if K % t == 0 and t >= 8 * qt.group), K)
     return tk != K or K <= 8192
 
@@ -392,11 +412,40 @@ def _sub_mins(y: torch.Tensor, xb: torch.Tensor, qt: QuantTensor) -> torch.Tenso
 
 def qmm_plain(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """Plain version of K5: x (M, K) -> f32 (M, N) with the kernel's
-    rounding points (x in bf16, each weight the f32 product rounded to
-    bf16, f32 sums)."""
+    rounding points (x in bf16, each weight the f32 product of its value
+    and scale rounded to bf16, f32 sums, the mins taken after the product
+    as (per-group sums of x) @ m).  Both formats: int8 and split-K nib4."""
     xb = x2.to(torch.bfloat16).float()
-    w = (qt.q.float() * qt.s.repeat_interleave(qt.group, 0)).to(torch.bfloat16)
+    w = (values(qt.q, qt).float() * qt.s.repeat_interleave(qt.group, 0)).to(torch.bfloat16)
     return _sub_mins(xb @ w.float(), xb, qt)[:, : qt.N]
+
+
+qmm_nib4_plain = qmm_plain  # K5-nib4's plain version (JAX _qmm_nib4_kernel's math)
+
+
+def _qmm_launch(x2: torch.Tensor, qt: QuantTensor, fmt: str) -> torch.Tensor:
+    """One K5 launch (``csrc/qmm.cu`` ``lcg_qmm_<fmt>``), mins subtracted
+    after it; f32 (M, N)."""
+    M, K = x2.shape
+    step = 64 if fmt == "nib4" else 32  # the kernel's K step (nib4: two halves)
+    if qt.fmt != fmt or not qmm_tileable(qt) or K != qt.K or K % step:
+        raise ValueError(f"qmm_{fmt} kernel: M={M}, K={K}, {qt.fmt} {qt.shape}")
+    if any(t.device != x2.device or not t.is_contiguous() or t.data_ptr() % 16
+           or t.ndim != 2 for t in (qt.q, qt.s)) or qt.s.dtype != torch.float32:
+        raise ValueError(f"qmm_{fmt} kernel: planes must be 2-D, contiguous, 16-byte "
+                         "aligned, f32 scales, on x's device")
+    Np = qt.q.shape[-1]
+    xb = x2.to(torch.bfloat16).contiguous()
+    out = torch.empty((-(-M // 64) * 64, Np), dtype=torch.float32, device=x2.device)
+    so = kernels.lib("qmm")
+    fn = getattr(so, f"lcg_qmm_{fmt}")
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    err = fn(*map(kernels.ptr, (xb, qt.q, qt.s, out)), M, K, Np, qt.group,
+             kernels.stream(x2.device))
+    kernels.check(so, err, f"qmm_{fmt}")
+    return _sub_mins(out[:M], xb.float(), qt)[:, : qt.N]
 
 
 @kernels.counted("qmm_int8", lib="qmm", slot=0)
@@ -404,37 +453,35 @@ def qmm_int8(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """K5: x (M, K) @ int8 plain-scale QuantTensor -> f32 (M, N)."""
     if x2.device.type == "cpu":
         return qmm_plain(x2, qt)
-    M, K = x2.shape
-    if not qmm_tileable(qt) or K != qt.K or K % 32:
-        raise ValueError(f"qmm_int8 kernel: M={M}, K={K}, {qt.fmt} {qt.shape}")
-    if any(t.device != x2.device or not t.is_contiguous() or t.data_ptr() % 16
-           for t in (qt.q, qt.s)):
-        raise ValueError("qmm_int8 kernel: planes must be contiguous, 16-byte "
-                         "aligned and on x's device")
-    Np = qt.q.shape[-1]
-    xb = x2.to(torch.bfloat16).contiguous()
-    out = torch.empty((-(-M // 64) * 64, Np), dtype=torch.float32, device=x2.device)
-    so = kernels.lib("qmm")
-    if so.lcg_qmm_int8.argtypes is None:
-        so.lcg_qmm_int8.restype = ctypes.c_int
-        so.lcg_qmm_int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-    err = so.lcg_qmm_int8(*map(kernels.ptr, (xb, qt.q, qt.s, out)), M, K, Np,
-                          qt.group, kernels.stream(x2.device))
-    kernels.check(so, err, "qmm_int8")
+    out = _qmm_launch(x2, qt, "int8")
     qmm_int8.launches += 1
-    return _sub_mins(out[:M], xb.float(), qt)[:, : qt.N]
+    return out
+
+
+@kernels.counted("qmm_nib4", lib="qmm", slot=1)
+def qmm_nib4(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """K5's nib4 mode: x (M, K) @ split-K nib4 QuantTensor -> f32 (M, N):
+    per K half its own x columns and scale rows, two products into one f32
+    sum; the mins subtracted after the kernel, as the JAX wrapper does.  On
+    the CPU, :func:`qmm_nib4_plain`."""
+    if x2.device.type == "cpu":
+        return qmm_nib4_plain(x2, qt)
+    out = _qmm_launch(x2, qt, "nib4")
+    qmm_nib4.launches += 1
+    return out
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """x (..., K) @ quantized (K, N): the GEMV kernels for M <= 8; for
-    M > 8, K5 on the card where its gate holds, else the dequant matmul.
-    Returns x.dtype."""
+    """x (..., K) @ quantized (K, N): the GEMV kernels for M <= 8 (int8,
+    nib4c); for M > 8, K5 on the card where its gate holds, else the
+    dequant matmul (which also takes a split-K nib4 weight at M <= 8, as
+    the JAX package leaves it to XLA).  Returns x.dtype."""
     lead = x.shape[:-1]
     M = int(np.prod(lead)) if lead else 1
-    if M > 8:
-        if x.is_cuda and qmm_tileable(qt):
-            return qmm_int8(x.reshape(M, qt.K), qt).reshape(*lead, qt.N).to(x.dtype)
+    if M > 8 or qt.fmt == "nib4":
+        if M > 8 and x.is_cuda and qmm_tileable(qt):
+            k5 = qmm_nib4 if qt.fmt == "nib4" else qmm_int8
+            return k5(x.reshape(M, qt.K), qt).reshape(*lead, qt.N).to(x.dtype)
         return dequant_matmul(x, qt)
     gemv = gemv_nib4c if qt.fmt == "nib4c" else gemv_int8
     return gemv(x.reshape(M, qt.K), qt).reshape(*lead, qt.N).to(x.dtype)
@@ -451,7 +498,7 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
 # Stacked experts (MoE) and the routed matmul, K8
 # ---------------------------------------------------------------------------
 # Expert planes carry a leading expert axis: q (E, K, N) int8 or (E, K/2, N)
-# nib4c, s/m (E, K/g, N) f32, never folded; ``shape`` is one expert's
+# nib4c / nib4, s/m (E, K/g, N) f32, never folded; ``shape`` is one expert's
 # (K, N).  ``qt.q[e]`` is expert e's slice, at base + e * (its byte stride).
 
 
@@ -483,26 +530,31 @@ def _pad_experts(q, s, m, g: int, pad_k: bool, pad_n: bool):
 def pack_gguf_experts(raw, ggml_type, shape, pad_k: bool = False,
                       pad_n: bool = False, device="cpu") -> QuantTensor:
     """Decode a stacked-expert GGUF tensor (E, N, K) into a QuantTensor with
-    leaves q (E, K, N) int8 or (E, K/2, N) nib4c and s/m (E, K/g, N) f32
+    leaves q (E, K, N) int8 or (E, K/2, N) 4-bit and s/m (E, K/g, N) f32
     (JAX ``pack_gguf_experts``, byte-identical planes).
 
     ``pad_k`` / ``pad_n`` zero-pad that dim up to a multiple of 512, so
     every expert slice factors into K6's chunk grid; the loader pads the
-    expert-FF dim only (gate/up ``pad_n``, down ``pad_k``).  A 4-bit tensor
-    whose K has no nib4c chunk is stored as int8 values with mins, as
-    :func:`pack_gguf_tensor` stores such a dense weight (the JAX package
-    packs it split-K ``nib4``, a layout the port does not have)."""
+    expert-FF dim only (gate/up ``pad_n``, down ``pad_k``).  A 4-bit type
+    packs nib4c where K has a chunk, else split-K ``nib4`` (the first K
+    half in the low nibbles, the second in the high ones: K5's and K8's
+    nib4 modes read it); other types stay int8."""
     ggml_type = GGMLType(ggml_type)
     q, s, m, g = _expert_grids(raw, ggml_type, shape, device)
     q, s, m = _pad_experts(q, s, m, g, pad_k, pad_n)
     E, K, N = q.shape
     s = s.float().contiguous()
     m = m.float().contiguous() if m is not None else None
-    ck = nib4c_chunk(K) if ggml_type in _NIB4_TYPES and K % (2 * g) == 0 else None
+    is4 = ggml_type in _NIB4_TYPES and K % (2 * g) == 0
+    ck = nib4c_chunk(K) if is4 else None
     if ck is not None and ck % (2 * g) == 0:
         packed = _pack_nib4c(q.reshape(E * K, N).to(torch.uint8), ck)
         return QuantTensor(packed.reshape(E, K // 2, N).contiguous(), s, m,
                            "nib4c", g, (K, N))
+    if is4:
+        qu = q.to(torch.uint8)
+        packed = (qu[:, : K // 2] | (qu[:, K // 2:] << 4)).view(torch.int8)
+        return QuantTensor(packed.contiguous(), s, m, "nib4", g, (K, N))
     return QuantTensor(q.contiguous(), s, m, "int8", g, (K, N))
 
 
@@ -522,16 +574,16 @@ def pack_experts_int8_g16(raw, ggml_type, shape, pad_k: bool = False,
 
 
 def qt_expert(qt: QuantTensor, e: int) -> QuantTensor:
-    """Expert e of a stacked QuantTensor (views of its planes)."""
+    """Expert e of a stacked QuantTensor (views of its planes, any format)."""
     take = (lambda a: None if a is None else a[e])  # noqa: E731
     return QuantTensor(take(qt.q), take(qt.s), take(qt.m), qt.fmt, qt.group,
                        qt.shape, take(qt.sd), take(qt.md), qt.sgroup)
 
 
 def _expert_weights(q, s, m, qt: QuantTensor) -> torch.Tensor:
-    """Gathered expert planes (..., K[/2], N) -> f32 weights (..., K, N)."""
-    vals = _unpack_nib4c(q, qt.K) if qt.fmt == "nib4c" else q
-    w = vals.float() * s.float().repeat_interleave(qt.group, -2)
+    """Gathered expert planes (..., K[/2], N) of any format -> f32 weights
+    (..., K, N)."""
+    w = values(q, qt).float() * s.float().repeat_interleave(qt.group, -2)
     if m is not None:
         w = w - m.float().repeat_interleave(qt.group, -2)
     return w
@@ -562,6 +614,44 @@ def routed_quant_matmul_plain(x: torch.Tensor, qt: QuantTensor,
     return out.to(x.dtype)
 
 
+def _rqmm_launch(x: torch.Tensor, qt: QuantTensor, idx: torch.Tensor,
+                 fmt: str) -> torch.Tensor:
+    """One K8 launch (``csrc/rqmm.cu`` ``lcg_rqmm_<fmt>``); f32 (P, N)."""
+    P, K = x.shape
+    E, _, Np = qt.q.shape
+    step = 64 if fmt == "nib4" else 16
+    if qt.fmt != fmt or not qmm_tileable(qt) or K != qt.K or K % step:
+        raise ValueError(f"rqmm_{fmt} kernel: P={P}, K={K}, {qt.fmt} {qt.shape}")
+    planes = [t for t in (qt.q, qt.s, qt.m) if t is not None]
+    if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16
+           for t in planes) or qt.s.dtype != torch.float32:
+        raise ValueError(f"rqmm_{fmt} kernel: planes must be contiguous, 16-byte "
+                         "aligned, f32 scales, on x's device")
+    if idx.dtype != torch.int32 or idx.device != x.device or idx.shape != (P,):
+        raise ValueError(f"rqmm_{fmt} kernel: idx must be (P,) int32 on x's device")
+    xb = x.to(torch.bfloat16).contiguous()
+    so = kernels.lib("rqmm")
+    fn = getattr(so, f"lcg_rqmm_{fmt}")
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    if so.lcg_rqmm_splits.argtypes is None:
+        so.lcg_rqmm_splits.restype = ctypes.c_int
+        so.lcg_rqmm_splits.argtypes = [ctypes.c_int] * 4
+    # the split runs over packed rows (nib4: K/2, each carrying both halves)
+    splits = so.lcg_rqmm_splits(P, qt.q.shape[1], Np, _sms(x.device))
+    # each split's partial sums (scratch) and one arrival counter per (pair,
+    # 128-column tile): the kernel adds the splits in order
+    out = torch.empty((P, Np), dtype=torch.float32, device=x.device)
+    part = torch.empty(splits * P * Np if splits > 1 else 1, dtype=torch.float32,
+                       device=x.device)
+    cnt = kernels.tile_counters(x.device, P * (Np // 128))
+    err = fn(*map(kernels.ptr, (xb, qt.q, qt.s, qt.m, idx.contiguous(), out, part, cnt)),
+             P, K, Np, qt.group, E, splits, kernels.stream(x.device))
+    kernels.check(so, err, f"rqmm_{fmt}")
+    return out[:, : qt.N]
+
+
 @kernels.counted("rqmm_int8", lib="rqmm", slot=0)
 def rqmm_int8(x: torch.Tensor, qt: QuantTensor, idx: torch.Tensor) -> torch.Tensor:
     """K8: out[p] = x[p] @ experts[idx[p]] for int8 experts with plain
@@ -571,56 +661,46 @@ def rqmm_int8(x: torch.Tensor, qt: QuantTensor, idx: torch.Tensor) -> torch.Tens
     plain version of the same rounding points (:func:`rqmm_plain`)."""
     if x.device.type == "cpu":
         return rqmm_plain(x, qt, idx)
-    P, K = x.shape
-    E, _, Np = qt.q.shape
-    if not qmm_tileable(qt) or K != qt.K or K % 16:
-        raise ValueError(f"rqmm_int8 kernel: P={P}, K={K}, {qt.fmt} {qt.shape}")
-    planes = [t for t in (qt.q, qt.s, qt.m) if t is not None]
-    if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16
-           for t in planes) or qt.s.dtype != torch.float32:
-        raise ValueError("rqmm_int8 kernel: planes must be contiguous, 16-byte "
-                         "aligned, f32 scales, on x's device")
-    if idx.dtype != torch.int32 or idx.device != x.device or idx.shape != (P,):
-        raise ValueError("rqmm_int8 kernel: idx must be (P,) int32 on x's device")
-    xb = x.to(torch.bfloat16).contiguous()
-    so = kernels.lib("rqmm")
-    if so.lcg_rqmm_int8.argtypes is None:
-        so.lcg_rqmm_int8.restype = ctypes.c_int
-        so.lcg_rqmm_int8.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        so.lcg_rqmm_splits.restype = ctypes.c_int
-        so.lcg_rqmm_splits.argtypes = [ctypes.c_int] * 4
-    splits = so.lcg_rqmm_splits(P, K, Np, _sms(x.device))
-    # each split's partial sums (scratch) and one arrival counter per (pair,
-    # 128-column tile): the kernel adds the splits in order
-    out = torch.empty((P, Np), dtype=torch.float32, device=x.device)
-    part = torch.empty(splits * P * Np if splits > 1 else 1, dtype=torch.float32,
-                       device=x.device)
-    cnt = kernels.tile_counters(x.device, P * (Np // 128))
-    err = so.lcg_rqmm_int8(*map(kernels.ptr, (xb, qt.q, qt.s, qt.m, idx.contiguous(),
-                                              out, part, cnt)),
-                           P, K, Np, qt.group, E, splits, kernels.stream(x.device))
-    kernels.check(so, err, "rqmm_int8")
+    out = _rqmm_launch(x, qt, idx, "int8")
     rqmm_int8.launches += 1
-    return out[:, : qt.N]
+    return out
+
+
+@kernels.counted("rqmm_nib4", lib="rqmm", slot=1)
+def rqmm_nib4(x: torch.Tensor, qt: QuantTensor, idx: torch.Tensor) -> torch.Tensor:
+    """K8's nib4 mode: out[p] = x[p] @ experts[idx[p]] for split-K nib4
+    experts, f32 (P, N): per K half, x rounded to bf16 and each weight
+    ``bf16(nibble*s - m)`` with that half's scales and mins, both halves
+    summed into one f32 total.  On the CPU, :func:`rqmm_nib4_plain`."""
+    if x.device.type == "cpu":
+        return rqmm_nib4_plain(x, qt, idx)
+    out = _rqmm_launch(x, qt, idx, "nib4")
+    rqmm_nib4.launches += 1
+    return out
 
 
 def rqmm_plain(x: torch.Tensor, qt: QuantTensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain version of K8 with its rounding points: f32 (P, N)."""
+    """Plain version of K8 with its rounding points, f32 (P, N): the mins
+    folded into each weight before its bf16 rounding (int8 and nib4)."""
     w = _expert_weights(qt.q[idx.long()], qt.s[idx.long()],
                         qt.m[idx.long()] if qt.m is not None else None, qt)
     xb = x.to(torch.bfloat16).float()
     return torch.einsum("pk,pkn->pn", xb, w.to(torch.bfloat16).float())[:, : qt.N]
 
 
+rqmm_nib4_plain = rqmm_plain  # K8-nib4's plain version (JAX _rqmm_nib4_kernel's math)
+
+
 def routed_quant_matmul(x: torch.Tensor, qt: QuantTensor,
                         idx: torch.Tensor) -> torch.Tensor:
     """out[p] = x[p] @ experts[idx[p]] with the experts kept quantized
-    (JAX ``routed_quant_matmul``): K8 on the card where its gate holds, the
-    quantized gather (:func:`routed_quant_matmul_plain`) elsewhere.  K8's
-    gate is the JAX package's, ``_pallas_tileable`` and no folded scales:
-    K5's (:func:`qmm_tileable`); it refuses nib4c experts, as the JAX
-    kernel does.  Returns x.dtype."""
+    (JAX ``routed_quant_matmul``): K8 on the card where its gate holds
+    (int8 or split-K nib4 experts), the quantized gather
+    (:func:`routed_quant_matmul_plain`) elsewhere.  K8's gate is the JAX
+    package's, ``_pallas_tileable`` and no folded scales: K5's
+    (:func:`qmm_tileable`); it refuses nib4c experts, as the JAX kernel
+    does.  Returns x.dtype."""
     if x.is_cuda and qmm_tileable(qt):
-        return rqmm_int8(x, qt, idx.to(torch.int32)).to(x.dtype)
+        k8 = rqmm_nib4 if qt.fmt == "nib4" else rqmm_int8
+        return k8(x, qt, idx.to(torch.int32)).to(x.dtype)
     return routed_quant_matmul_plain(x, qt, idx)

@@ -26,7 +26,13 @@ parts are the file's own bytes) and fuses them again as the other families
 (``attn_norm_b``, ``ffn_norm_b``, f32), a norm after the embedding
 (``tok_norm``, ``tok_norm_b``) and the final norm's and the head's biases
 (``out_norm_b``, ``lm_head_b``), all f32 as the JAX loader keeps them.
-Both have an ungated FFN (``w_up``, ``w_down``).
+Both have an ungated FFN (``w_up``, ``w_down``).  gpt-oss adds, in the
+compute dtype, the attention sinks ``sinks`` (Hq,), the o bias ``bo``, the
+router's bias ``moe_gate_inp_b`` (E,) and the experts' biases
+``moe_gate_b``, ``moe_up_b`` (E, EF, zero-padded as the experts are) and
+``moe_down_b`` (E, D); its FFN pre-norm is the file's
+``post_attention_norm`` (:func:`effective_tensors`).  Its Q4_0 gate and up
+experts (K = D = 2880: no nib4c chunk) pack split-K nib4.
 """
 
 from __future__ import annotations
@@ -42,12 +48,12 @@ from ..ops.quant_matmul import (
     QuantTensor,
     _SCALE_PART_DECODERS,
     _fold_streams,
-    _unpack_nib4c,
     pack_experts_int8_g16,
     pack_gguf_experts,
     pack_gguf_tensor,
     pad_qt_n,
     supported_qmm_types,
+    values,
 )
 
 EMBD = "token_embd.weight"
@@ -80,9 +86,14 @@ _LAYER_NAMES = {
     "b_up": "ffn_up.bias",
     "b_down": "ffn_down.bias",
     "moe_gate_inp": "ffn_gate_inp.weight",
+    "moe_gate_inp_b": "ffn_gate_inp.bias",
     "moe_gate": "ffn_gate_exps.weight",
     "moe_up": "ffn_up_exps.weight",
     "moe_down": "ffn_down_exps.weight",
+    "moe_gate_b": "ffn_gate_exps.bias",
+    "moe_up_b": "ffn_up_exps.bias",
+    "moe_down_b": "ffn_down_exps.bias",
+    "sinks": "attn_sinks.weight",
     "shexp_gate_inp": "ffn_gate_inp_shexp.weight",
     "shexp_gate": "ffn_gate_shexp.weight",
     "shexp_up": "ffn_up_shexp.weight",
@@ -95,7 +106,8 @@ _MATMUL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "shexp_gate",
 # tensor but the norms, their biases included); the shared expert's gate
 # transposes to (D, 1)
 _BIASES = ("bq", "bk", "bv")
-_VECTORS = _BIASES + ("bo", "b_up", "b_down")
+_VECTORS = _BIASES + ("bo", "b_up", "b_down", "sinks", "moe_gate_inp_b", "moe_gate_b",
+                      "moe_up_b", "moe_down_b")
 # stacked experts (E, out, in) -> (E, in, out); the expert-FF dim pads to
 # the streamed chunk grid (gate/up out, down in: both round the same EF)
 _EXPERTS = {"moe_gate": dict(pad_n=True), "moe_up": dict(pad_n=True),
@@ -167,12 +179,17 @@ def _f32_info(name: str, arr: np.ndarray) -> TensorInfo:
 
 def effective_tensors(reader, cfg: ModelConfig) -> dict:
     """The file's tensors with a fused ``attn_qkv.{weight,bias}`` split into
-    ``attn_{q,k,v}`` (JAX ``effective_tensors``, mpt / bloom)."""
+    ``attn_{q,k,v}`` (mpt / bloom), and an MoE layer's ``post_attention_norm``
+    also named ``ffn_norm`` where the file has no ``ffn_norm`` (gpt-oss names
+    its FFN pre-norm so; JAX ``effective_tensors``)."""
     src = dict(reader.tensors)
     Dq, Dkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     bounds = {"q": (0, Dq), "k": (Dq, Dq + Dkv), "v": (Dq + Dkv, Dq + 2 * Dkv)}
     for i in range(cfg.n_layers):
         b = f"blk.{i}."
+        if (b + "ffn_norm.weight" not in src and b + "post_attention_norm.weight" in src
+                and b + "ffn_gate_inp.weight" in src):
+            src[b + "ffn_norm.weight"] = src[b + "post_attention_norm.weight"]
         w = src.get(b + "attn_qkv.weight")
         if w is not None and b + "attn_q.weight" not in src:
             for n, (r0, r1) in bounds.items():
@@ -198,8 +215,21 @@ def _top_vectors(params, t, device) -> None:
             params[key] = _dense(t[name], torch.float32, device)
 
 
+def _pad_expert_biases(p: dict) -> dict:
+    """The gate and up experts' biases (E, F) zero-padded to the experts'
+    width, which the quantized loader pads to a multiple of 512: the pad
+    lanes then carry g = u = 0, which every expert activation maps to 0.
+    (The JAX loader pads the experts but not their biases, so its forward
+    fails on a file whose expert FF is not a multiple of 512, such as
+    gpt-oss-20b's 2880.)"""
+    for b, w in (("moe_gate_b", "moe_gate"), ("moe_up_b", "moe_up")):
+        if b in p and w in p and p[b].shape[-1] < p[w].shape[-1]:
+            p[b] = torch.nn.functional.pad(p[b], (0, p[w].shape[-1] - p[b].shape[-1]))
+    return p
+
+
 def _put_layers(layers: list[dict], fuse: bool) -> nn.ModuleList:
-    return nn.ModuleList(ParamDict(fuse_projections(p) if fuse else p)
+    return nn.ModuleList(ParamDict(fuse_projections(_pad_expert_biases(p)) if fuse else p)
                          for p in layers)
 
 
@@ -311,7 +341,7 @@ def repack_nib4c_to_int8(qt: QuantTensor) -> QuantTensor:
     ``repack_nib4_to_int8``)."""
     if qt.fmt != "nib4c":
         return qt
-    return QuantTensor(_unpack_nib4c(qt.q, qt.K).contiguous(), qt.s, qt.m, "int8",
+    return QuantTensor(values(qt.q, qt).contiguous(), qt.s, qt.m, "int8",
                        qt.group, qt.shape, qt.sd, qt.md, qt.sgroup)
 
 
@@ -508,7 +538,7 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, device="cpu") -> ParamDic
         p = {k: conv(v, i) for k, v in np_params["layers"].items()}
         if "moe_gate_inp" in p:  # the port's router is f32 (same values)
             p["moe_gate_inp"] = p["moe_gate_inp"].float()
-        return ParamDict(p)
+        return ParamDict(_pad_expert_biases(p))
 
     params = ParamDict({k: conv(np_params[k])
                         for k in ("tok_emb", "out_norm", "lm_head", *_TOP_VECTORS)

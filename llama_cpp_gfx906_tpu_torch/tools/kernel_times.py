@@ -1,4 +1,4 @@
-"""Device times of the split-K kernels and of K3 of a checkout, at the main paths' shapes.
+"""Device times of the split-K kernels, K3 and the nib4 modes, at the main paths' shapes.
 
 The cases live here, and ``chip_smoke.py`` builds its kernel cases from the
 same lists: K1 / K2 (``GEMV_CASES``: the 8B head, ``attn_v`` and Q4_K
@@ -6,7 +6,10 @@ projections), K8 (``EXPERT_CASES``: Mixtral's experts at 2 and 8 pairs)
 and K6 / K7 in each mode (``DECODE_CASES``: a few full-width layers of
 each model, or a small model's whole stack) and K3 in each mode
 (``K3_CASES``: the 8B's, MPT-7B's and BLOOM-7B1's heads and the JAX tests'
-shape; :func:`k3_case` makes their inputs).
+shape; :func:`k3_case` makes their inputs); at gpt-oss-20b's shapes, K5's
+and K8's nib4 modes (``QMM_NIB4_CASES``, ``RQMM_NIB4_CASES`` on
+:func:`oss_experts`), K1 / K2 (``OSS_GEMV_CASES``), K5's int8 mode
+(``OSS_QMM_INT8_CASES``) and K3 / K4 with sinks (``OSS_ATTN_CASES``).
 Each is timed as ``chip_smoke.py`` times a kernel (:func:`device_ms`).
 Synthetic weights from seed 0; caches of random rows filled to n_past
 3000.  With ``--splits``, K1 / K2 are also timed at every split count the
@@ -101,8 +104,31 @@ K3_CASES = (
      dict(_JAX_SHAPE, pos=("div", 2))),
     ("pos", "jax shape window=32 i//3 T=4", (4, 2), (300, 120), 4,
      dict(_JAX_SHAPE, pos=("div", 3), window=32)))
+# gpt-oss-20b: Q4_0 experts (32), K = D = 2880, the expert FF 2880 padded
+# to 3072 (gate and up: split-K nib4, no nib4c chunk at 2880)
+OSS_D, OSS_EF, OSS_E = 2880, 2880, 32
+# (case, M): K5-nib4 on one gate expert at the prefill chunks of the
+# gpt_oss_20b phase (101 and 256 rows: ragged chunks; 1000: its prompt)
+QMM_NIB4_CASES = tuple((f"gate 2880x3072 M={M}", M) for M in (101, 256, 1000))
+# (case, P): K8-nib4 on the gate experts for one token's 4 pairs and two
+# tokens' 8, distinct experts per token, with mins (Q4_0: m = 8 d)
+RQMM_NIB4_CASES = tuple((f"gate 2880x3072 with mins P={P}", P) for P in (4, 8))
+# K1 at K 2880 (q|k|v with mins, the head's 2880 rows) and K2 at N 2880
+OSS_GEMV_CASES = (
+    ("gemv_int8", "attn_qkv 2880x5120 with mins", "Q4_0", 2880, 5120, False),
+    ("gemv_int8", "lm_head 2880x201088", "Q8_0", 2880, 201088, True),
+    ("gemv_nib4c", "attn_output 4096x2880", "Q4_0", 4096, 2880, False))
+# K5's int8 mode at K 2880: the fused q|k|v with mins at the prefill chunks
+OSS_QMM_INT8_CASES = tuple((f"attn_qkv 2880x5120 with mins M={M}", M) for M in (101, 1000))
+# (kernel, case, T, n_past, window): K3 / K4 at 64/8 heads of 64 with sinks,
+# window 128 (the even layers) and full, one slot of 4096 rows
+OSS_ATTN_CASES = tuple(
+    (kern, f"gpt-oss 64/8 Dh64 sinks T={T} n_past={n} window={w}", T, n, w)
+    for kern, Tn in (("flash_decode", ((1, 700), (1, 3000))),
+                     ("flash_attention", ((101, 0), (256, 0), (44, 256))))
+    for T, n in Tn for w in (128, 0))
 GROUPS = {"gemv": ("gemv",), "rqmm": ("rqmm",), "decode": ("decode_stream",),
-          "k3": ("flash_decode",)}
+          "k3": ("flash_decode",), "nib4": ("qmm", "rqmm")}
 
 
 def device_ms(fn, torch, flush, n: int = 10) -> float:
@@ -139,13 +165,14 @@ def device_ms(fn, torch, flush, n: int = 10) -> float:
 
 
 def gemv_weights(rng, gtype: str, K: int, N: int, pad: bool, device):
-    """A GEMV_CASES weight: rows from ``rng``, packed with folded scales."""
+    """A GEMV_CASES (or OSS_GEMV_CASES) weight: rows from ``rng``, packed
+    with folded scales where the type has them."""
     from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
-    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4k_rows, q6k_rows
+    from llama_cpp_gfx906_tpu_torch.tools import synth_gguf
 
     t = GGMLType[gtype]
-    rows = (q6k_rows if t == GGMLType.Q6_K else q4k_rows)(rng, N, K)
+    rows = synth_gguf._ROWS[t](rng, N, K)
     qt = qmm.pack_gguf_tensor(rows.reshape(-1), t, (N, K), fold_scales=True, device=device)
     return qmm.pad_qt_n(qt) if pad else qt
 
@@ -164,6 +191,127 @@ def expert_weights(gtype: str, N: int, K: int, device):
     raw = np.concatenate([rows(np.random.default_rng([5, e]), N, K) for e in range(EXPERTS)])
     pack = qmm.pack_gguf_experts if t == GGMLType.Q8_0 else qmm.pack_experts_int8_g16
     return pack(raw.reshape(-1), t, (EXPERTS, N, K), device=device)
+
+
+def oss_experts(device, seed: int = 9):
+    """gpt-oss-20b's gate experts: ``OSS_E`` Q4_0 experts of OSS_EF x OSS_D
+    (expert e's rows from seed [seed, e]), packed as the loader packs them:
+    split-K nib4, N padded to 3072."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4_0_rows
+
+    raw = np.concatenate([q4_0_rows(np.random.default_rng([seed, e]), OSS_EF, OSS_D)
+                          for e in range(OSS_E)])
+    return qmm.pack_gguf_experts(raw.reshape(-1), GGMLType.Q4_0, (OSS_E, OSS_EF, OSS_D),
+                                 pad_n=True, device=device)
+
+
+def oss_pair_ids(rng, P: int):
+    """Expert ids of P pairs: 4 distinct experts of OSS_E for each token."""
+    import numpy as np
+
+    return np.concatenate([rng.choice(OSS_E, 4, replace=False) for _ in range(P // 4)])
+
+
+def oss_attn_case(torch, dev, T: int, n_past: int, window: int, seed: int) -> dict:
+    """The inputs of an OSS_ATTN_CASES entry on ``dev``: q (1, T, 64, 64),
+    a bf16 cache of 4096 rows of 8 KV heads, n_past, sinks (64,) and the
+    window, from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*size):
+        return (torch.randn(size, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+
+    return dict(q=rnd(1, T, 64, 64), k=rnd(1, 4096, 8, 64), v=rnd(1, 4096, 8, 64),
+                npast=torch.tensor([n_past], dtype=torch.int32, device=dev),
+                scale=64 ** -0.5, window=window,
+                sinks=torch.randn((64,), generator=g, device=dev).to(torch.bfloat16))
+
+
+class RouteLog:
+    """The port's MoE routes while on (``with RouteLog() as log``): per
+    ``ops.moe.route`` call (one per MoE layer and forward) the chosen
+    expert ids (N, k) and, per token, how far the least of their router
+    logits lies below this run's own k-th largest (0 where the ids are the
+    run's own top k), on the host; not for a graph capture.
+
+    With ``replay`` (another log's ``calls``), each call takes that log's
+    ids instead of its own top k, weighted by the softmax of this run's
+    logits at them (gpt-oss's router, ``moe_topk_softmax``): two devices
+    round the activations differently, so a router near-tie can pick
+    another expert on each, and a replay holds them to one set of experts.
+    The replayed ids are a valid choice for this run where each token's
+    deficit is explained by the two runs' own router logits
+    (:meth:`unexplained`)."""
+
+    def __init__(self, replay: list | None = None):
+        from llama_cpp_gfx906_tpu_torch.ops import moe
+
+        self.calls, self.replay, self._moe, self._route = [], replay, moe, moe.route
+
+    def __enter__(self):
+        import torch
+
+        def spy(logits, cfg):
+            if self.replay is None:
+                w, i = self._route(logits, cfg)
+            else:
+                if not cfg.moe_topk_softmax:
+                    raise NotImplementedError("a route replay needs moe_topk_softmax")
+                i = self.replay[len(self.calls)][0].to(logits.device)
+                w = torch.softmax(torch.gather(logits, -1, i), -1)
+            lf = logits.float()
+            kth = torch.sort(lf, -1, descending=True).values[:, cfg.n_experts_used - 1]
+            least = torch.gather(lf, -1, i).min(-1).values
+            self.calls.append((i.cpu(), (kth - least).cpu(), lf.cpu()))
+            return w, i
+
+        self.calls = []
+        self._moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+    def deficit(self) -> float:
+        """The largest deficit over every routed token of every call."""
+        return max(float(d.max()) for _, d, _ in self.calls)
+
+    def margin(self) -> float:
+        """The least gap, over every routed token of every call, between
+        its k-th and (k+1)-th router logit: how far the run is from a
+        near-tie."""
+        import torch
+
+        gaps = []
+        for i, _, lf in self.calls:
+            top = torch.sort(lf, -1, descending=True).values
+            gaps.append(float((top[:, i.shape[-1] - 1] - top[:, i.shape[-1]]).min()))
+        return min(gaps)
+
+    def replaced(self) -> int:
+        """The tokens (over every call) whose experts were not this run's
+        own top k."""
+        return sum(int((d > 0).sum()) for _, d, _ in self.calls)
+
+    def unexplained(self, source: "RouteLog") -> float:
+        """For a replay of ``source``: the largest ratio, over the tokens
+        whose replayed experts were not this run's own top k, of the
+        deficit to twice the largest difference between the two runs'
+        logits of that token.  A source that ranked expert e above e' while
+        this run ranks e' higher by d had logits apart by at least d / 2 at
+        e or e', so a ratio above 1 is a route no rounding explains; 0 where
+        every route was this run's own."""
+        worst = 0.0
+        for (_, d, la), (_, _, ls) in zip(self.calls, source.calls):
+            rows = d > 0
+            if rows.any():
+                gap = 2 * (la[rows] - ls[rows]).abs().amax(-1)
+                worst = max(worst, float((d[rows] / gap.clamp(min=1e-30)).max()))
+        return worst
 
 
 def pair_ids(rng, P: int):
@@ -349,6 +497,32 @@ def main(argv=None) -> None:
             torch.cuda.empty_cache()
     if "k3" in groups:
         k3_times(torch, dev, flush, emit)
+    if "nib4" in groups:
+        nib4_times(torch, dev, flush, emit)
+
+
+def nib4_times(torch, dev, flush, emit) -> None:
+    """K5-nib4 on QMM_NIB4_CASES and K8-nib4 on RQMM_NIB4_CASES (gpt-oss's
+    gate experts, inputs from seeds 11 and 12), where the checkout has
+    them."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+
+    if not hasattr(qmm, "qmm_nib4"):
+        emit("qmm_nib4", "gpt-oss", None, left_out="no nib4 mode in this checkout")
+        return
+    qt = oss_experts(dev)
+    e0 = qmm.qt_expert(qt, 0)
+    g = torch.Generator(device=dev).manual_seed(11)
+    for case, M in QMM_NIB4_CASES:
+        x = torch.randn((M, OSS_D), generator=g, device=dev).to(torch.bfloat16)
+        emit("qmm_nib4", case, device_ms(lambda: qmm.qmm_nib4(x, e0), torch, flush))
+    rng = np.random.default_rng(12)
+    for case, P in RQMM_NIB4_CASES:
+        idx = torch.tensor(oss_pair_ids(rng, P), dtype=torch.int32, device=dev)
+        x = torch.randn((P, OSS_D), generator=g, device=dev).to(torch.bfloat16)
+        emit("rqmm_nib4", case, device_ms(lambda: qmm.rqmm_nib4(x, qt, idx), torch, flush))
 
 
 def k3_times(torch, dev, flush, emit) -> None:

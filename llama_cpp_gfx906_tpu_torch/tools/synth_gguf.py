@@ -1,4 +1,4 @@
-"""Write a structurally valid synthetic llama, gemma3, qwen, mpt or bloom GGUF at a chosen scale.
+"""Write a structurally valid synthetic llama-family, gemma3, qwen, ALiBi or gpt-oss GGUF.
 
 For loading and timing the engine where no real checkpoint is at hand:
 block payloads are valid (finite f16 scales, random quants), so the engine
@@ -101,6 +101,29 @@ projection).  Widths of the public ``config.json`` files:
   ``tiny-bloom-q8_0`` (2 layers, hidden 768, 12 heads of 64: a head count
   that is not a power of two, so the slopes' tail is used).
 
+The gpt-oss presets write arch ``gpt-oss`` with the keys and tensors
+llama.cpp's converter writes for it: q/k/v and o biases, per-head
+``attn_sinks`` (f32, N(0, 1)), the FFN pre-norm named
+``post_attention_norm``, a router ``ffn_gate_inp`` with its bias, stacked
+experts with their biases ``ffn_{gate,up,down}_exps.bias`` (biases 0.1
+N(0, 1), norms 1 + 0.1 N(0, 1)), rms eps 1e-5, rope theta 150000 with YaRN
+scaling 32 over a 4096 original context, a sliding window on the even
+layers, and ``expert_feed_forward_length``.  Projections and experts are
+Q4_0 (w = d (q - 8), the sign of d drawn per block so the weights are
+zero-mean); ``token_embd`` and ``output`` Q8_0 (4096 distinct rows each);
+router, sinks, norms and biases F32.  The published checkpoint stores its
+experts as MXFP4 and its vocabulary as BPE (``gpt2``); here the experts are
+Q4_0, whose gate and up (K = D, no 256-row chunk) pack split-K nib4, and
+the vocabulary stays SPM.
+- ``gpt-oss-20b-q4_0``: the widths of ``openai/gpt-oss-20b``'s
+  ``config.json`` (24 layers, hidden 2880, 64 / 8 heads of 64, 32 experts of
+  2880, 4 per token, window 128, vocab 201,088);
+- ``tiny-gpt-oss``: 4 layers, hidden 320 (64-aligned, not 256-aligned, so
+  its gate and up experts pack nib4), 4 / 2 heads of 64, 4 experts of 512,
+  2 per token, window 16, vocab 2048.  Its expert FF is a multiple of 512:
+  the JAX loader pads the expert FF to one but not the experts' biases, so
+  the JAX forward (the tests' oracle) fails on any other width.
+
 Usage:
     python -m llama_cpp_gfx906_tpu_torch.tools.synth_gguf out.gguf [--preset 8b] [--seed 0]
 """
@@ -152,13 +175,17 @@ PRESETS = {
     "tiny-mpt-q8_0": (2, 256, 4, 4, 64, 1024, 2048, "q8_0"),
     "tiny-bloom": (2, 768, 12, 12, 64, 1024, 2048, "q4_k_m"),
     "tiny-bloom-q8_0": (2, 768, 12, 12, 64, 1024, 2048, "q8_0"),
+    # gpt-oss: F is the expert FF
+    "gpt-oss-20b-q4_0": (24, 2880, 64, 8, 64, 2880, 201088, "q4_0"),
+    "tiny-gpt-oss": (4, 320, 4, 2, 64, 512, 2048, "q4_0"),
 }
 # (experts, experts per token, rope theta) of the MoE presets
 EXPERTS = {"mixtral-q4_k_m": (8, 2, 1e6), "mixtral-q8_0": (8, 2, 1e6),
            "tiny-moe": (4, 2, 1e6), "tiny-moe-q8_0": (4, 2, 1e6),
            "qwen3moe-30b-a3b-q4_k_m": (128, 8, 1e6), "qwen2moe-a2.7b-q8_0": (60, 4, 1e6),
            "tiny-qwen3moe": (8, 2, 1e6), "tiny-qwen2moe": (8, 2, 1e6),
-           "tiny-qwen2moe-q8_0": (8, 2, 1e6)}
+           "tiny-qwen2moe-q8_0": (8, 2, 1e6),
+           "gpt-oss-20b-q4_0": (32, 4, 150000.0), "tiny-gpt-oss": (4, 2, 150000.0)}
 # qwen presets: (arch, dense FF of the MoE ones, the shared expert's FF)
 QWEN = {"qwen3-8b-q4_k_m": ("qwen3", 0, 0), "tiny-qwen3": ("qwen3", 0, 0),
         "tiny-qwen3-q8_0": ("qwen3", 0, 0),
@@ -173,6 +200,8 @@ GEMMA3 = {"gemma3-4b-q4_k_m": (1024, 8.0, 131072), "gemma3-270m-q8_0": (512, Non
           "tiny-gemma3": (16, 8.0, 8192), "tiny-gemma3-q8_0": (16, None, 8192)}
 ALIBI = {p: p.split("-")[1 if p.startswith("tiny") else 0]
          for p in PRESETS if "mpt" in p or "bloom" in p}
+# gpt-oss presets: (sliding window, YaRN factor, YaRN original context)
+GPT_OSS = {"gpt-oss-20b-q4_0": (128, 32.0, 4096), "tiny-gpt-oss": (16, 32.0, 4096)}
 GEMMA_TEMPLATE = ("{{ bos_token }}{% for m in messages %}<start_of_turn>{{ m['role'] }}\n"
                   "{{ m['content'] }}<end_of_turn>\n{% endfor %}"
                   "{% if add_generation_prompt %}<start_of_turn>model\n{% endif %}")
@@ -235,7 +264,21 @@ def q8_0_rows(rng, n_rows: int, K: int, distinct: int = DISTINCT_ROWS) -> np.nda
     return _tile(blk.reshape(n, nb * 34), n_rows)
 
 
-_ROWS = {GGMLType.Q4_K: q4k_rows, GGMLType.Q6_K: q6k_rows, GGMLType.Q8_0: q8_0_rows}
+def q4_0_rows(rng, n_rows: int, K: int, distinct: int = DISTINCT_ROWS) -> np.ndarray:
+    """(n_rows, K/32*18) valid Q4_0 block bytes: w = d (q - 8), the sign of
+    d drawn per block (q - 8 alone has mean -1/2)."""
+    nb = K // 32
+    n = min(n_rows, distinct)
+    blk = np.zeros((n, nb, 18), np.uint8)
+    d = np.float16(1.0 / (4.637 * np.sqrt(K)))  # rms of q - 8 for q in 0..15
+    sign = np.where(rng.integers(0, 2, (n, nb)) == 1, -1.0, 1.0)
+    blk[:, :, 0:2] = (sign * d).astype(np.float16)[..., None].view(np.uint8)
+    blk[:, :, 2:] = rng.integers(0, 256, (n, nb, 16), dtype=np.uint8)
+    return _tile(blk.reshape(n, nb * 18), n_rows)
+
+
+_ROWS = {GGMLType.Q4_K: q4k_rows, GGMLType.Q6_K: q6k_rows, GGMLType.Q8_0: q8_0_rows,
+         GGMLType.Q4_0: q4_0_rows}
 
 
 def write_synth(path: str, preset: str = "8b", seed: int = 0,
@@ -251,6 +294,8 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
     gemma = preset in GEMMA3
     arch, dense_ff, shared_ff = QWEN.get(preset, ("gemma3" if gemma else "llama", 0, 0))
     arch = ALIBI.get(preset, arch)
+    oss = preset in GPT_OSS
+    arch = "gpt-oss" if oss else arch
     qwen = preset in QWEN
     alibi = preset in ALIBI
     biases = attn_bias and arch in ("qwen2", "qwen2moe")
@@ -279,6 +324,15 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
         w.add_float32(f"{arch}.attention.layer_norm_epsilon", 1e-5)
         if arch == "mpt":
             w.add_float32("mpt.attention.max_alibi_bias", 8.0)
+    elif oss:
+        window, yarn, orig_ctx = GPT_OSS[preset]
+        w.add_uint32("gpt-oss.context_length", 131072)
+        w.add_float32("gpt-oss.attention.layer_norm_rms_epsilon", 1e-5)
+        w.add_float32("gpt-oss.rope.freq_base", rope_base)
+        w.add_string("gpt-oss.rope.scaling.type", "yarn")
+        w.add_float32("gpt-oss.rope.scaling.factor", yarn)
+        w.add_uint32("gpt-oss.rope.scaling.original_context_length", orig_ctx)
+        w.add_uint32("gpt-oss.attention.sliding_window", window)
     elif qwen:
         w.add_uint32(f"{arch}.context_length", 32768)
         w.add_float32(f"{arch}.attention.layer_norm_rms_epsilon", 1e-6)
@@ -290,8 +344,9 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
     if E:
         w.add_uint32(f"{arch}.expert_count", E)
         w.add_uint32(f"{arch}.expert_used_count", K_USED)
-    if qwen and E:
+    if (qwen or oss) and E:
         w.add_uint32(f"{arch}.expert_feed_forward_length", F)
+    if qwen and E:
         w.add_bool(f"{arch}.expert_weights_norm", arch == "qwen3moe")
     if shared_ff:
         w.add_uint32(f"{arch}.expert_shared_feed_forward_length", shared_ff)
@@ -310,8 +365,9 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
     w.add_uint32("tokenizer.ggml.bos_token_id", 0)
     w.add_uint32("tokenizer.ggml.eos_token_id", 1)
 
-    proj, side = ((GGMLType.Q8_0, GGMLType.Q8_0) if q8
-                  else (GGMLType.Q4_K, GGMLType.Q6_K))
+    proj, side = {"q8_0": (GGMLType.Q8_0, GGMLType.Q8_0),
+                  "q4_0": (GGMLType.Q4_0, GGMLType.Q8_0)}.get(
+                      mix, (GGMLType.Q4_K, GGMLType.Q6_K))
 
     def add_q(name, out_dim, in_dim, qtype=proj, distinct=DISTINCT_ROWS):
         rows = _ROWS[qtype](rng, out_dim, in_dim, distinct)
@@ -330,8 +386,8 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
     def bias(n):
         return (0.1 * rng.standard_normal(n)).astype(np.float32)
 
-    if gemma:  # tied head: token_embd is the output, in the side type; its
-        # rows are the logits' too, so more of them differ (up to 4096)
+    if gemma or oss:  # gemma: a tied head, token_embd is the output, in the
+        # side type; its rows are the logits' too, so more of them differ
         add_q("token_embd.weight", V, D, side, distinct=EMBD_DISTINCT_ROWS)
     else:
         emb = (rng.standard_normal((min(V, DISTINCT_ROWS), D)) * 0.02).astype(np.float16)
@@ -339,6 +395,10 @@ def write_synth(path: str, preset: str = "8b", seed: int = 0,
                      ggml_type=GGMLType.F16, raw_ne=(D, V))
     if alibi:
         _alibi_tensors(w, add_q, norm, bias, arch, L, D, H * DH, F, V, side)
+        return w.write()
+    if oss:
+        _gpt_oss_tensors(w, rng, add_q, add_experts, norm, bias, L, D, H, KVH * DH,
+                         H * DH, F, V, E)
         return w.write()
     w.add_tensor("output_norm.weight", np.ones(D, np.float32))
     if not gemma:  # a qwen head: up to 4096 distinct rows, so the top logits
@@ -409,6 +469,34 @@ def _alibi_tensors(w, add_q, norm, bias, arch, L, D, Dq, F, V, side) -> None:
         layer_norm(b + "ffn_norm", D)
         proj(b + "ffn_up", F, D)
         proj(b + "ffn_down", D, F)
+
+
+def _gpt_oss_tensors(w, rng, add_q, add_experts, norm, bias, L, D, H, Dkv, Dq, F, V,
+                     E) -> None:
+    """The tensors of a gpt-oss file after ``token_embd``: varied RMS norms
+    (the FFN pre-norm named ``post_attention_norm``), biased q/k/v and o,
+    attention sinks, the router with its bias, the experts with theirs."""
+    w.add_tensor("output_norm.weight", norm(D, True))
+    add_q("output.weight", V, D, GGMLType.Q8_0, distinct=EMBD_DISTINCT_ROWS)
+    for i in range(L):
+        b = f"blk.{i}."
+        w.add_tensor(b + "attn_norm.weight", norm(D, True))
+        w.add_tensor(b + "post_attention_norm.weight", norm(D, True))
+        for n, out_dim in (("q", Dq), ("k", Dkv), ("v", Dkv)):
+            add_q(f"{b}attn_{n}.weight", out_dim, D)
+            w.add_tensor(f"{b}attn_{n}.bias", bias(out_dim))
+        add_q(b + "attn_output.weight", D, Dq)
+        w.add_tensor(b + "attn_output.bias", bias(D))
+        w.add_tensor(b + "attn_sinks.weight", rng.standard_normal(H).astype(np.float32))
+        router = rng.standard_normal((E, D)) / np.sqrt(D)
+        w.add_tensor(b + "ffn_gate_inp.weight", router.astype(np.float32))
+        w.add_tensor(b + "ffn_gate_inp.bias", bias(E))
+        add_experts(b + "ffn_gate_exps.weight", i, 0, F, D)
+        add_experts(b + "ffn_up_exps.weight", i, 1, F, D)
+        add_experts(b + "ffn_down_exps.weight", i, 2, D, F)
+        w.add_tensor(b + "ffn_gate_exps.bias", bias(E * F).reshape(E, F))
+        w.add_tensor(b + "ffn_up_exps.bias", bias(E * F).reshape(E, F))
+        w.add_tensor(b + "ffn_down_exps.bias", bias(E * D).reshape(E, D))
 
 
 def main(argv=None) -> None:

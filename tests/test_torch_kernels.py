@@ -999,3 +999,162 @@ def test_qwen_decode_kernels_match_plain(cuda_device, tmp_path, preset, bias, ro
     assert _rel(kv.k, ref_kv.k) < TOL and _rel(kv.v, ref_kv.v) < TOL
     if ids is not None:
         assert ids == [i[0].tolist() for i in plain_ids]
+
+
+# ---------------------------------------------------------------------------
+# gpt-oss: K5's and K8's nib4 modes and the other kernels at its shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def oss_gate():
+    """gpt-oss-20b's gate experts on the card (``kernel_times.oss_experts``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return kt.oss_experts(torch.device("cuda"))
+
+
+@pytest.mark.parametrize("case,M", kt.QMM_NIB4_CASES + (("tiny K 320 M=9", 9),))
+def test_qmm_nib4_matches_plain(cuda_device, oss_gate, case, M):
+    """K5-nib4 at gpt-oss's expert shape (and a 320-wide K, 5 steps of 32
+    packed rows) against its plain version, through ``quant_matmul`` too,
+    with mins; two launches give the same bits."""
+    qt = tq.qt_expert(oss_gate, 3)
+    if case.startswith("tiny"):
+        raw = np.concatenate([_raw(GGMLType.Q4_0, 512, 320, 30 + e) for e in range(2)])
+        qt = tq.qt_expert(tq.pack_gguf_experts(raw, GGMLType.Q4_0, (2, 512, 320),
+                                               device=cuda_device), 1)
+    assert qt.fmt == "nib4" and qt.m is not None and tq.qmm_tileable(qt)
+    x = torch.randn((M, qt.K), device=cuda_device).to(torch.bfloat16)
+    before = tq.qmm_nib4.launches
+    got = tq.qmm_nib4(x, qt)
+    again = tq.qmm_nib4(x, qt)
+    via = tq.quant_matmul(x[None], qt)[0]
+    ref = tq.qmm_nib4_plain(x, qt)
+    torch.cuda.synchronize()
+    assert tq.qmm_nib4.launches == before + 3
+    assert got.shape == (M, qt.N) and _rel(got, ref) < TOL and _rel(via, ref) < TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case,P", kt.RQMM_NIB4_CASES + (("ids past E", 3),))
+def test_rqmm_nib4_matches_plain(cuda_device, oss_gate, case, P):
+    """K8-nib4 at gpt-oss's gate experts for 4 and 8 pairs, with mins,
+    through ``routed_quant_matmul`` too; two launches give the same bits; an
+    expert id past E gives a row of zeros."""
+    rng = np.random.default_rng(P)
+    ids = kt.oss_pair_ids(rng, P) if P % 4 == 0 else np.array([5, kt.OSS_E, 5])
+    idx = torch.tensor(ids, dtype=torch.int32, device=cuda_device)
+    x = torch.randn((P, kt.OSS_D), device=cuda_device).to(torch.bfloat16)
+    before = tq.rqmm_nib4.launches
+    got = tq.rqmm_nib4(x, oss_gate, idx)
+    again = tq.rqmm_nib4(x, oss_gate, idx)
+    torch.cuda.synchronize()
+    assert tq.rqmm_nib4.launches == before + 2 and torch.equal(got, again)
+    live = idx < kt.OSS_E
+    ref = tq.rqmm_nib4_plain(x[live], oss_gate, idx[live])
+    assert _rel(got[live], ref) < TOL and not got[~live].any()
+    if live.all():
+        via = tq.routed_quant_matmul(x, oss_gate, idx.long())
+        assert tq.rqmm_nib4.launches == before + 3 and _rel(via, ref) < TOL
+
+
+def test_rqmm_nib4_replays_with_new_ids(cuda_device, oss_gate):
+    """K8-nib4 reads its ids on the device: a captured launch replays with
+    the ids written after the capture (the gpt-oss decode graph)."""
+    x = torch.randn((4, kt.OSS_D), device=cuda_device).to(torch.bfloat16)
+    idx = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=cuda_device)
+    tq.rqmm_nib4(x, oss_gate, idx)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tq.rqmm_nib4(x, oss_gate, idx)
+    idx.copy_(torch.tensor([31, 17, 9, 30], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _rel(out, tq.rqmm_nib4_plain(x, oss_gate, idx)) < TOL
+
+
+@pytest.mark.parametrize("name,case,gtype,K,N,pad", kt.OSS_GEMV_CASES)
+def test_gemv_at_gpt_oss_shapes(cuda_device, name, case, gtype, K, N, pad):
+    """K1 at K 2880 (64-row segments, with mins; the head's one split) and
+    K2 at N 2880 (a ragged last 128-column tile), against the plain
+    version, bit-identical over two launches."""
+    qt = kt.gemv_weights(np.random.default_rng(3), gtype, K, N, pad, cuda_device)
+    x = torch.randn((1, K), device=cuda_device).to(torch.bfloat16)
+    kern = getattr(tq, name)
+    got = kern(x, qt)
+    again = kern(x, qt)
+    torch.cuda.synchronize()
+    assert got.shape == (1, N) and _rel(got, tq.gemv_plain(x, qt)) < TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("case,M", kt.OSS_QMM_INT8_CASES)
+def test_qmm_int8_at_k_2880(cuda_device, case, M):
+    """K5's int8 mode on gpt-oss's fused q|k|v (Q4_0 with mins, K 2880)."""
+    qt = tq.pack_gguf_tensor(_raw(GGMLType.Q4_0, 5120, 2880, 4), GGMLType.Q4_0,
+                             (5120, 2880), device=cuda_device)
+    assert qt.fmt == "int8" and qt.m is not None and tq.qmm_tileable(qt)
+    x = torch.randn((M, 2880), device=cuda_device).to(torch.bfloat16)
+    got = tq.qmm_int8(x, qt)
+    torch.cuda.synchronize()
+    assert _rel(got, tq.qmm_plain(x, qt)) < TOL and torch.equal(got, tq.qmm_int8(x, qt))
+
+
+@pytest.mark.parametrize("index", range(len(kt.OSS_ATTN_CASES)))
+def test_attention_at_gpt_oss_shapes(cuda_device, index):
+    """K3 / K4 at gpt-oss's 64/8 heads of 64 with sinks, window 128 and
+    full, against their plain versions."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention_plain
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode_plain
+
+    kern, _, T, n_past, window = kt.OSS_ATTN_CASES[index]
+    c = kt.oss_attn_case(torch, cuda_device, T, n_past, window, 40 + index)
+    args = (c["q"], c["k"], c["v"], c["npast"], c["scale"], window, 0.0, c["sinks"])
+    fn, plain = ((flash_decode, flash_decode_plain) if kern == "flash_decode"
+                 else (flash_attention, flash_attention_plain))
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert _rel(got, plain(*args)) < TOL and torch.equal(got, fn(*args))
+
+
+def test_engine_gpt_oss_card_matches_cpu(cuda_device, tmp_path):
+    """tiny-gpt-oss on the card (the per-layer loop: K5-nib4 for the gate
+    and up experts at prefill, K8-nib4 at decode; the fused loop captured
+    in a graph) against the CPU's plain loop: the prefill and 6 decode
+    steps, the CPU following the card's routes (``kernel_times.RouteLog``:
+    the devices round the bf16 activations differently, so a router
+    near-tie may pick another expert on each), every expert of the card's
+    that the CPU ranks below its own top k explained by the two devices'
+    router logits, and the logits within the Q4_K_M check (allclose at
+    8e-2); ``decode_fused`` gives the card's ``decode_one`` tokens."""
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+
+    path = write_synth(str(tmp_path / "tiny-gpt-oss.gguf"), "tiny-gpt-oss", seed=0)
+    card = Engine.from_gguf(path, max_seq=256, device="cuda")
+    cpu = Engine.from_gguf(path, max_seq=256, device="cpu")
+    L = card.cfg.n_layers
+    assert tllama.decode_route(card.params, card.cfg, card.kv) is None
+    ids = list(range(3, 60))
+    k5, k8 = tq.qmm_nib4.launches, tq.rqmm_nib4.launches
+    tok = None
+    for _ in range(7):
+        with kt.RouteLog() as routes:
+            a = card.prefill(ids) if tok is None else card.decode_one(tok)
+        with kt.RouteLog(replay=routes.calls) as replayed:
+            b = cpu.prefill(ids) if tok is None else cpu.decode_one(tok)
+        assert replayed.unexplained(routes) <= 1
+        np.testing.assert_allclose(a, b, rtol=8e-2, atol=8e-2)
+        tok = int(np.argmax(b))
+    assert tq.qmm_nib4.launches == k5 + 2 * 4 * L  # gate and up, 4 experts
+    assert tq.rqmm_nib4.launches == k8 + 6 * 2 * L
+    card.reset()
+    first = int(np.argmax(card.prefill(ids)))
+    fused = card.decode_fused(first, n_steps=5)
+    card.reset()
+    card.prefill(ids)
+    loop, tok = [], first
+    for _ in range(5):
+        tok = int(np.argmax(card.decode_one(tok)))
+        loop.append(tok)
+    assert fused == loop

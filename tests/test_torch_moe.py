@@ -4,8 +4,8 @@ version), ``moe_ffn`` on both of its paths, the K6 MoE gate and plain
 version, and the whole ``tiny-moe`` model through both engines.
 
 Inputs come from numpy seeds.  Tolerances (max |port - jax| / max |jax|):
-- expert planes: byte-equal (a Q4 tensor with no nib4c chunk: equal
-  dequantized values, the port storing it as int8 with mins);
+- expert planes: byte-equal (a Q4 tensor with no nib4c chunk too: split-K
+  nib4 in both packages);
 - routed matmul and ``moe_ffn``: 1e-5 where both sides compute in f32 from
   the same planes, 2e-2 against the JAX Pallas kernel (bf16 weights) and
   for ``moe_ffn``'s bf16 activations (as the JAX kernel tests);
@@ -134,14 +134,17 @@ def test_pack_experts_int8_g16_byte_equal(qtype, pad):
 
 
 def test_q4_without_nib4c_chunk_is_int8_with_mins():
-    """K = 320 has no nib4c chunk: the JAX package packs split-K nib4, the
-    port int8 values with mins (its dense precedent); equal dequantized
-    values, and the routed matmul agrees."""
+    """K = 320 has no nib4c chunk: both packages pack split-K nib4 (the port
+    stored int8 values with mins until the nib4 modes of K5 and K8 were
+    ported; the name is kept); the same bytes, equal dequantized values,
+    and the routed matmul agrees."""
     E, N, K = 2, 128, 320
     raw = _raw_experts(np.random.default_rng(3), GGMLType.Q4_0, E, N, K)
     jt = jqmm.pack_gguf_experts(raw, GGMLType.Q4_0, (E, N, K), put=np.asarray)
     tt = tq.pack_gguf_experts(raw, GGMLType.Q4_0, (E, N, K))
-    assert jt.fmt == "nib4" and tt.fmt == "int8" and tt.m is not None
+    assert jt.fmt == tt.fmt == "nib4" and tt.m is not None
+    for name in ("q", "s", "m"):
+        assert np.asarray(getattr(jt, name)).tobytes() == getattr(tt, name).numpy().tobytes()
     np.testing.assert_array_equal(
         tq.dequantize_qt_experts(tt, torch.float32).numpy(),
         np.asarray(jqmm.dequantize_qt_experts(jt, jnp.float32)))
@@ -332,19 +335,38 @@ def test_moe_ffn_dense_experts_match_jax():
 @pytest.mark.parametrize("variant", ["probs_bias", "router_b", "gate_b", "down_b",
                                      "gate_x", "moe_topk_softmax", "moe_scale_input"])
 def test_moe_ffn_unported_variants_raise(variant):
+    """deepseek3's selection bias, smallthinker's router input and llama4's
+    input scaling still raise, naming themselves; gpt-oss's variants (the
+    router bias, the expert biases, the softmax over the top-k logits) are
+    ported since the gpt-oss slice, so their cases (names kept) now hold
+    the port to the JAX ``moe_ffn`` on the routed path at 2e-2 (bf16)."""
     jq, gate_inp = _moe_inputs(GGMLType.Q8_0)
     kw = dict(arch="llama", n_layers=1, n_embd=256, n_heads=2, n_kv_heads=1,
               head_dim=128, n_ff=512, n_vocab=V, n_ctx_train=S, n_experts=4,
               n_experts_used=2)
+    rng = np.random.default_rng(12)
+    shapes = {"router_b": (4,), "gate_b": (4, 512), "down_b": (4, 256)}
     extra = {}
     if variant.startswith("moe_"):
         kw[variant] = True
+    elif variant in shapes:
+        extra[variant] = (0.1 * rng.standard_normal(shapes[variant])).astype(np.float32)
     else:
-        extra[variant] = torch.zeros(4)
-    x = torch.zeros((1, 1, 256), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match=variant):
-        tmoe.moe_ffn(x, torch.from_numpy(gate_inp), _port_qt(jq["g"]), _port_qt(jq["u"]),
-                     _port_qt(jq["d"]), ModelConfig(**kw), **extra)
+        extra[variant] = np.zeros(4, np.float32)
+    xn = rng.standard_normal((1, 2, 256)).astype(np.float32)
+    x = torch.from_numpy(xn).to(torch.bfloat16)
+    port = {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in extra.items()}
+    args = (torch.from_numpy(gate_inp), _port_qt(jq["g"]), _port_qt(jq["u"]),
+            _port_qt(jq["d"]), ModelConfig(**kw))
+    if variant in ("probs_bias", "gate_x", "moe_scale_input"):
+        with pytest.raises(NotImplementedError, match=variant):
+            tmoe.moe_ffn(x, *args, **port)
+        return
+    got = tmoe.moe_ffn(x, *args, **port)
+    ref = jmoe.moe_ffn(jnp.asarray(xn, jnp.bfloat16), jnp.asarray(gate_inp), jq["g"],
+                       jq["u"], jq["d"], JConfig(**kw),
+                       **{k: jnp.asarray(v, jnp.bfloat16) for k, v in extra.items()})
+    assert _rel(got, ref) < 2e-2
 
 
 def test_route_takes_the_first_maximum_on_ties():
