@@ -7,10 +7,13 @@ Phases, each printing JSON lines:
   1. each kernel against its plain PyTorch version at the shapes of the main
      paths, launched twice on the same inputs (the same bits: every split-K
      sum adds in a fixed order), with its time, its bound and a PyTorch
-     yardstick (the cases K1/K2, K8, K6 and K7 share with
-     ``tools/kernel_times.py``): K1-K4 at the 8B Q4_K_M shapes, K3/K4 also
-     at the Qwen group sizes G 7 and G 8 (decode and ragged prefill chunks,
-     bf16 and int8 caches), K5 at the 270M Q8_0 prefill shapes, K6 on two
+     yardstick (the cases K1/K2, K8, K6, K7, K3's modes and K4 share with
+     ``tools/kernel_times.py``): K1-K3 at the 8B Q4_K_M shapes, K3 also
+     at the Qwen group sizes G 7 and G 8 (bf16 and int8 caches); K4 at
+     every model phase's prefill shape (``K4_CASES``: the 8B's T 512, the
+     served q8 chunks, the Qwen group sizes' ragged chunks, gpt-oss's heads
+     of 64 with sinks, Gemma-3-4B's heads of 256, and its FMA body at
+     tinydoc's heads), K5 at the 270M Q8_0 prefill shapes, K6 on two
      full-width 8B layers (B 1 and 8), K7 on the 18 layers of the 270M Q8_0
      shape, K8 at the Mixtral Q8_0 expert shapes (one token's 2 pairs and 4
      slots' 8), K6's MoE branch on two full-width Mixtral layers (nib4c and
@@ -30,8 +33,8 @@ Phases, each printing JSON lines:
      tests' shape; at gpt-oss-20b's shapes (``oss_cases``): K5's nib4 mode
      on a gate expert (2880 x 3072 stored, M 101 / 256 / 1000) and K8's
      (P 4 / 8 pairs of 32 experts, with mins), K1 at K 2880 (q|k|v with
-     mins, the head), K2 at N 2880, K5-int8 at K 2880, K3 / K4 at 64/8
-     heads of 64 with sinks, window 128 and full;
+     mins, the head), K2 at N 2880, K5-int8 at K 2880, K3 at 64/8 heads of
+     64 with sinks, window 128 and full;
   2. the 8B Q4_K_M model end to end (synthetic weights from a seed, full
      width and depth): ``Engine.from_gguf``, a greedy ``generate`` (decode
      through K6), the per-layer loop called as a function (K1-K4), and a
@@ -115,6 +118,10 @@ Phases, each printing JSON lines:
  18. the committed tinydoc fixture at f32 on the card: pinned greedy tokens
      and held-out perplexity, through ``Engine`` and, all prompts at once,
      through ``BatchedEngine`` with an f32 and a q8 cache.
+Then ``k4_bodies``: every K4 launch of the 8B, Qwen3-8B, Gemma-3-4B and
+gpt-oss prefills and of the 8B's served chunks ran the tensor-core body
+(counted as ``flash_attention_mma`` / ``flash_attention_int8_mma``), and
+tinydoc's the FMA body.
 Kernel launch counts are set to 0 before each path and read after it.  A
 replayed CUDA graph bypasses the wrappers' counts, so the fused loop's and
 the batched step's launches are read from the counts the kernels keep on
@@ -126,14 +133,16 @@ it exits non-zero and prints no result.
 Usage: python3 chip_smoke.py
 
 ``python3 chip_smoke.py --plant-faults [fault ...]`` shows instead whether
-the K3, K6/K7 and nib4 checks can fail: it copies the package and this
-script into temporary directories, plants one known fault (``FAULTS`` and
-``NIB4_FAULTS``; all of them unless some are named) in each copy's
-``csrc/decode_stream.cu``, for K3's (``K3_FAULTS``) ``csrc/flash_decode.cu``,
-for K5's and K8's nib4 modes ``csrc/qmm.cu``, ``csrc/rqmm.cu`` and K5's
-wrapper, builds the copies, and prints K5-nib4's and K8-nib4's errors
-against plain on their gpt-oss cases (``nib4_cases``), K3's on each ALiBi
-and self-extend case (``k3_mode_cases``) and the errors that
+the K3, K4, K6/K7 and nib4 checks can fail: it copies the package and this
+script into temporary directories, plants one known fault (``FAULTS``,
+``NIB4_FAULTS`` and ``K4_FAULTS``; all of them unless some are named) in
+each copy's ``csrc/decode_stream.cu``, for K3's (``K3_FAULTS``)
+``csrc/flash_decode.cu``, for K4's ``csrc/flash_attention.cu``, for K5's
+and K8's nib4 modes ``csrc/qmm.cu``, ``csrc/rqmm.cu`` and K5's wrapper,
+builds the copies, and prints K5-nib4's and K8-nib4's errors against plain
+on their gpt-oss cases (``nib4_cases``), K3's on each ALiBi and
+self-extend case (``k3_mode_cases``), K4's on each ``K4_CASES`` entry and
+the errors that
 ``decode_errors`` reads for each
 (K6 on two 8B layers and on two Mixtral
 Q4_K_M layers, K7 on the 18 layers of the 270M shape, K6's gemma mode on 6
@@ -230,6 +239,26 @@ NIB4_FAULTS = {
          "return launch<true>(x, q, s, nullptr, idx,")),
 }
 
+# --plant-faults of K4's tensor-core body: name -> its edits (file under the
+# package, text, what replaces it)
+K4_FAULTS = {
+    # the causal diagonal lets each query see the next key too
+    "k4_causal_one_past": (
+        ("csrc/flash_attention.cu",
+         "const bool live = kp < k_end && kp <= qp && (window <= 0 || kp > qp - window);",
+         "const bool live = kp < k_end && kp <= qp + 1 && (window <= 0 || kp > qp - window);"),),
+    # int8: the key's scale left off its score column
+    "k4_int8_kscale_dropped": (
+        ("csrc/flash_attention.cu", "if constexpr (I8) x *= ksc[col];", ""),),
+    # int8: the value's scale left off p
+    "k4_int8_vscale_dropped": (
+        ("csrc/flash_attention.cu", "if constexpr (I8) s[n][e] *= vsc[8 * n + 2 * tq + (e & 1)];",
+         ""),),
+    # the sink joins the running max but not the denominator
+    "k4_sink_not_in_denominator": (
+        ("csrc/flash_attention.cu", "den = den * alpha + expf(sk - mn);", "den = den * alpha;"),),
+}
+
 KERNEL_INFO = {
     "gemv_int8": ("llama_cpp_gfx906_tpu_torch/csrc/gemv.cu",
                   "llama_cpp_gfx906_tpu/ops/quant_matmul.py:725"),
@@ -272,16 +301,20 @@ COUNT_NAME = {"decode_stream_qk_norm": "decode_stream_gemma",
 # the K3 / K4 modes of the serve path: the same kernels, counted apart
 for _mode in ("int8", "shared", "int8_shared", "alibi", "pos"):
     KERNEL_INFO[f"flash_decode_{_mode}"] = KERNEL_INFO["flash_decode"]
-KERNEL_INFO["flash_attention_int8"] = KERNEL_INFO["flash_attention"]
+# K4's tensor-core body (bf16 q; "flash_attention" alone: the FMA body of an
+# f32 q, whose launches the tinydoc phase counts)
+for _mode in ("mma", "int8_mma"):
+    KERNEL_INFO[f"flash_attention_{_mode}"] = KERNEL_INFO["flash_attention"]
 # the path whose launch count each kernel reports in the summary line (the
 # serve paths' counts are the kernels' device-side counts: the batched
 # decode step is a replayed CUDA graph)
 KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
-               "flash_decode": "8b_layer_loop", "flash_attention": "8b_layer_loop",
+               "flash_decode": "8b_layer_loop", "flash_attention": "tinydoc",
+               "flash_attention_mma": "8b_layer_loop",
                "decode_stream": "8b", "decode_step": "270m_q8_0",
                "qmm_int8": "270m_q8_0",
                "flash_decode_int8": "8b_serve_http_q8",
-               "flash_attention_int8": "8b_serve_http_q8",
+               "flash_attention_int8_mma": "8b_serve_http_q8",
                "flash_decode_int8_shared": "8b_serve_q8_shared",
                "flash_decode_shared": "8b_serve_bf16_shared",
                "decode_stream_moe": "mixtral_q4km", "rqmm_int8": "mixtral_q8_0_serve",
@@ -291,6 +324,23 @@ KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
                "decode_stream_shexp": "qwen2moe_shexp",
                "flash_decode_alibi": "mpt_7b_fused", "flash_decode_pos": "8b_self_extend",
                "qmm_nib4": "gpt_oss_20b_prefill", "rqmm_nib4": "gpt_oss_20b_fused"}
+# one main-path case per kernel in the summary line (K4: also the one case
+# of each body whose plain version is timed, ``k4_cases``)
+SUMMARY_CASE = {"gemv_int8": "lm_head", "gemv_nib4c": "ffn_gate_up",
+                "flash_decode": "n_past=8000 window=0", "flash_attention": "tinydoc f32 T=256",
+                "flash_attention_mma": "8B 32/8 T=512 n_past=256",
+                "decode_stream": "B=1 n_past=3000", "decode_step": "B=1 n_past=3000",
+                "qmm_int8": "ffn_gate_up", "flash_decode_int8": "8b B=4",
+                "flash_decode_shared": "8b B=4", "flash_decode_int8_shared": "8b B=4",
+                "flash_attention_int8_mma": "8b T=256 n_past=700",
+                "rqmm_int8": "gate 4096x14336 P=2", "decode_stream_moe": "n_past=3000 nib4c",
+                "decode_stream_gemma": "B=1 n_past=3000", "decode_step_gemma": "B=1 n_past=3000",
+                "decode_stream_qk_norm": "B=1 n_past=3000",
+                "decode_stream_moe_qk_norm": "n_past=3000",
+                "decode_stream_shexp": "n_past=3000 gate",
+                "flash_decode_alibi": "mpt B=1 bf16 n_past=3000",
+                "flash_decode_pos": "8b gan4 gaw1024 T=1 bf16",
+                "qmm_nib4": "M=1000", "rqmm_nib4": "P=4"}
 SERVE_PROMPT_LENS = (256, 384, 512, 640, 768, 896, 1024, 320)
 # the serve path's launches per 4-slot decode step
 SERVE_PER_STEP = {"q8": {"flash_decode_int8": 32, "flash_decode": 32, "gemv_nib4c": 128,
@@ -300,8 +350,9 @@ SERVE_PER_STEP = {"q8": {"flash_decode_int8": 32, "flash_decode": 32, "gemv_nib4
 N_CHUNK = 256  # the server's prefill chunk: a prompt of n tokens prefills in
 # chunks of 256 and a last one of n % 256
 # per served model, a prefill chunk of T tokens launches, on each of its L
-# layers, the attention kernel T takes (K3 when G * T <= 128, else K4; each
-# also in its int8 mode on a q8 cache) and, for T <= 8, the GEMVs of the
+# layers, the attention kernel T takes (K3 when G * T <= 128, else K4's
+# tensor-core body, mode "mma"; each also in its int8 mode on a q8 cache)
+# and, for T <= 8, the GEMVs of the
 # layer's projections (K2 per nib4c one, K1 per int8 one), else K5 per
 # plain-scale int8 one (nib4c and folded ones take the dequant matmul);
 # then the head's K1 on the chunk's last row where the head is quantized
@@ -311,7 +362,8 @@ SERVE_CHUNK = {"8b": dict(L=32, G=4, gemv={"gemv_nib4c": 4, "gemv_int8": 1}, k5=
                "qwen3_8b": dict(L=36, G=4, gemv={"gemv_nib4c": 4, "gemv_int8": 1}, k5=0,
                                 head=1)}
 CHUNK_KERNELS = ("flash_decode", "flash_decode_int8", "flash_attention",
-                 "flash_attention_int8", "gemv_nib4c", "gemv_int8", "qmm_int8")
+                 "flash_attention_int8", "flash_attention_mma", "flash_attention_int8_mma",
+                 "gemv_nib4c", "gemv_int8", "qmm_int8")
 
 
 def chunk_launches(model: str, kind: str, T: int) -> dict:
@@ -320,8 +372,9 @@ def chunk_launches(model: str, kind: str, T: int) -> dict:
     out = dict.fromkeys(CHUNK_KERNELS, 0)
     attn = "flash_decode" if m["G"] * T <= 128 else "flash_attention"
     out[attn] = m["L"]
-    if kind == "q8":
-        out[f"{attn}_int8"] = m["L"]
+    mode = [f for f, on in (("int8", kind == "q8"), ("mma", attn == "flash_attention")) if on]
+    if mode:
+        out[f"{attn}_{'_'.join(mode)}"] = m["L"]
     if T <= 8:
         for k, n in m["gemv"].items():
             out[k] += n * m["L"]
@@ -508,7 +561,6 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
     from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
     from llama_cpp_gfx906_tpu_torch.ops.attention import attend
-    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
     from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q8_0_rows
@@ -576,33 +628,10 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
                    2 * live * Hkv * D * 2 + 2 * Hq * D * 2,
                    4 * Hq * live * D, lib_ms)
 
-    # K4: prefill of 512 tokens at n_past 0 and 256
-    T = 512
-    for n_past in (0, 256):
-        q = torch.randn((B, T, Hq, D), generator=g, device=dev).to(torch.bfloat16)
-        npast = torch.tensor([n_past], dtype=torch.int32, device=dev)
-        args = (q, kc, vc, npast, scale, 0, 0.0, None)
-        case = f"T={T} n_past={n_past}"
-        err = check(f"flash_attention {case}", flash_attention(*args),
-                    attend(*args), torch)
-        n_keys = n_past + T
-        pairs = T * n_past + T * (T + 1) // 2  # causal (query, key) pairs
-        kl = kc[:, :n_keys].transpose(1, 2).contiguous()
-        vl = vc[:, :n_keys].transpose(1, 2).contiguous()
-        qs = q.transpose(1, 2).contiguous()
-        mask = (torch.arange(n_keys, device=dev)[None, :]
-                <= n_past + torch.arange(T, device=dev)[:, None])
-        record("flash_attention", case, err,
-               device_ms(lambda: flash_attention(*args), torch, flush),
-               device_ms(lambda: attend(*args), torch, flush),
-               2 * (2 * T * Hq * D) + 2 * n_keys * Hkv * D * 2,
-               4 * Hq * pairs * D,
-               device_ms(lambda: F.scaled_dot_product_attention(
-                   qs, kl, vl, attn_mask=mask, scale=scale, enable_gqa=True),
-                   torch, flush))
     del kc, vc
     torch.cuda.empty_cache()
-    kv_mode_cases(torch, dev, g, flush, record)
+    k4_cases(torch, dev, flush, record)
+    kv_mode_cases(torch, dev, torch.Generator(device=dev).manual_seed(8), flush, record)
     gqa_cases(torch, dev, torch.Generator(device=dev).manual_seed(7), flush, record)
     alibi_pos_cases(torch, flush, record)
 
@@ -624,13 +653,8 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
                2 * M * K * N, device_ms(lambda: torch.matmul(x, w), torch, flush))
         del w, qt
 
-    # the cases draw from g in this order: the llama and gemma decode cases,
-    # K8's, then the Mixtral and qwen decode cases
-    llama_gemma = [c for c in kt.DECODE_CASES if c[1].startswith(("8b", "270m", "gemma"))]
-    decode_cases(torch, g, flush, record, tmp, llama_gemma)
-    expert_cases(torch, dev, g, flush, record)
-    decode_cases(torch, g, flush, record, tmp,
-                 [c for c in kt.DECODE_CASES if c not in llama_gemma])
+    decode_cases(torch, flush, record, tmp)
+    expert_cases(torch, dev, flush, record)
     oss_cases(torch, dev, flush, record)
     del flush
 
@@ -684,8 +708,9 @@ def oss_cases(torch, dev, flush, record) -> None:
     modes (``nib4_cases``); K1 at K 2880 (the fused q|k|v with mins, the
     head's 2880 rows) and K2 at N 2880 (the o projection: a ragged last
     128-column tile), ``kernel_times.OSS_GEMV_CASES``; K5-int8 on the
-    fused q|k|v at K 2880 (``OSS_QMM_INT8_CASES``); K3 and K4 at 64/8 heads
-    of 64 with sinks, window 128 and full (``OSS_ATTN_CASES``).  Inputs
+    fused q|k|v at K 2880 (``OSS_QMM_INT8_CASES``); K3 at 64/8 heads of 64
+    with sinks, window 128 and full (``OSS_ATTN_CASES``; K4's are in
+    ``K4_CASES``).  Inputs
     from their own generators (seeds 15, 16 and 40 + the attention case's
     index), after every earlier case, so those draw as before."""
     import numpy as np
@@ -693,8 +718,6 @@ def oss_cases(torch, dev, flush, record) -> None:
 
     from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
-    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import (flash_attention,
-                                                              flash_attention_plain)
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
     from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4_0_rows
@@ -745,8 +768,7 @@ def oss_cases(torch, dev, flush, record) -> None:
     for i, (name, case, T, n_past, window) in enumerate(kt.OSS_ATTN_CASES):
         c = kt.oss_attn_case(torch, dev, T, n_past, window, 40 + i)
         args = (c["q"], c["k"], c["v"], c["npast"], c["scale"], window, 0.0, c["sinks"])
-        kern, plain = ((flash_decode, flash_decode_plain) if name == "flash_decode"
-                       else (flash_attention, flash_attention_plain))
+        kern, plain = flash_decode, flash_decode_plain
         got = kern(*args)
         err = check(f"{name} {case}", got, plain(*args), torch)
         same = bit_identical(f"{name} {case}", got, kern(*args), torch)
@@ -769,20 +791,21 @@ def oss_cases(torch, dev, flush, record) -> None:
     torch.cuda.empty_cache()
 
 
-def expert_cases(torch, dev, g, flush, record) -> None:
+def expert_cases(torch, dev, flush, record) -> None:
     """K8 at the Mixtral expert shapes (``kernel_times.EXPERT_CASES``: 8
     experts; gate 4096 x 14336 and down 14336 x 4096 for one token's 2
     pairs and 4 slots' 8, two distinct experts per token; once with mins,
-    Q4_K experts unified to int8/g16).  K8's bound counts each distinct
-    expert's slice once (``bound_ms_every_pair``: every pair's); its
-    library yardstick is a gather of pre-dequantized bf16 experts and
-    ``torch.bmm``."""
+    Q4_K experts unified to int8/g16), inputs from seeds of their own (5).
+    K8's bound counts each distinct expert's slice once
+    (``bound_ms_every_pair``: every pair's); its library yardstick is a
+    gather of pre-dequantized bf16 experts and ``torch.bmm``."""
     import numpy as np
 
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
 
     rng = np.random.default_rng(5)
+    g = torch.Generator(device=dev).manual_seed(5)
     for case, gtype, N, K, pairs in kt.EXPERT_CASES:
         qt = kt.expert_weights(gtype, N, K, dev)
         wb = qmm.dequantize_qt_experts(qt, torch.bfloat16)
@@ -809,8 +832,9 @@ def expert_cases(torch, dev, g, flush, record) -> None:
         torch.cuda.empty_cache()
 
 
-def decode_cases(torch, g, flush, record, tmp: Path, cases) -> None:
-    """K6 and K7 in every mode (``cases`` of ``kernel_times.DECODE_CASES``), each
+def decode_cases(torch, flush, record, tmp: Path) -> None:
+    """K6 and K7 in every mode (``kernel_times.DECODE_CASES``; each case's
+    tokens from seed 100 + its index), each
     against the plain version at n_past 700 and 3000, with the per-layer
     loop's device time for the same step beside it: K6 on two full-width
     8B Q4_K_M layers (B 1 and 8); K7 on the 18 layers of the 270M Q8_0
@@ -833,8 +857,9 @@ def decode_cases(torch, g, flush, record, tmp: Path, cases) -> None:
     from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
 
-    for name, preset, L, batches, synth in cases:
+    for i, (name, preset, L, batches, synth) in enumerate(kt.DECODE_CASES):
         eng, path = kt.decode_engine(str(tmp), preset, L, **synth)
+        g = torch.Generator(device=eng.device).manual_seed(100 + i)
         if "gemma" in name and (not any(eng.cfg.swa_layers) or all(eng.cfg.swa_layers)):
             raise AssertionError(f"{name}: the stack lacks a local or a global layer")
         kern = (k7.fused_decode_step if name.startswith("decode_step")
@@ -874,20 +899,53 @@ def without_shexp_gate(torch, eng) -> _Stack:
     return _Stack(params, eng.cfg, eng.max_seq, eng.device)
 
 
+def k4_cases(torch, dev, flush, record) -> None:
+    """K4 on ``kernel_times.K4_CASES`` (every prefill shape of the model
+    phases, each mode: inputs from seed 60 + the case's index,
+    ``kernel_times.k4_case``), each against ``flash_attention_plain`` at
+    TOL, launched twice (the same bits), timed beside its bound (bf16
+    tensor cores, or f32 FMA for the FMA body) and SDPA on the same rows
+    without the sinks (an int8 cache dequantized beforehand), under the
+    count name of its mode.  The plain version is timed once per count
+    name, at its ``SUMMARY_CASE`` (or its first case where the summary
+    has none).  Emits the loop's wall time."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import (flash_attention,
+                                                              flash_attention_plain)
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+
+    t0, plain_timed = time.perf_counter(), set()
+    for i, spec in enumerate(kt.K4_CASES):
+        c = kt.k4_case(torch, dev, spec, 60 + i)
+        args, kw, name = c["args"], c["kw"], c["name"]
+        got = flash_attention(*args, **kw)
+        err = check(f"{name} {c['case']}", got, flash_attention_plain(*args, **kw), torch)
+        same = bit_identical(f"{name} {c['case']}", got, flash_attention(*args, **kw), torch)
+        plain_ms = None
+        if name not in plain_timed and SUMMARY_CASE.get(name, c["case"]) in c["case"]:
+            plain_timed.add(name)
+            plain_ms = device_ms(lambda: flash_attention_plain(*args, **kw), torch, flush)
+        record(name, c["case"], err, device_ms(lambda: flash_attention(*args, **kw), torch, flush),
+               plain_ms, c["nbytes"], c["flops"], device_ms(c["sdpa"], torch, flush),
+               flop_s=BF16_FLOP_S if "mma" in c["mode"] else F32_FLOP_S, bit_identical=same,
+               library="SDPA, boolean mask, no sinks" + (", rows dequantized beforehand"
+                                                          if "int8" in c["mode"] else ""))
+        del c, args, kw, got
+        torch.cuda.empty_cache()
+    emit(phase="k4_cases", seconds=time.perf_counter() - t0)
+
+
 def kv_mode_cases(torch, dev, g, flush, record) -> None:
-    """K3's int8, shared and int8 + shared modes and K4's int8 mode at the
-    serve path's shapes: the 8B (Hq 32, Hkv 8, D 128) and tinydoc (Hq 4,
-    Hkv 2, D 64), 4096 rows per slot.  K3: 4 slots at n_past 17 / 700 /
-    1500 / 3000 (int8), or 700 each after 512 shared bf16 rows; K4: one
-    slot, a 256-token chunk at n_past 0 / 256 / 700.  Bounds count each
-    live int8 row once with its two 4-byte scales, and the shared rows once
+    """K3's int8, shared and int8 + shared modes at the serve path's
+    shapes: the 8B (Hq 32, Hkv 8, D 128) and tinydoc (Hq 4, Hkv 2, D 64),
+    4096 rows per slot: 4 slots at n_past 17 / 700 / 1500 / 3000 (int8), or
+    700 each after 512 shared bf16 rows (K4's int8 chunks are in
+    ``kernel_times.K4_CASES``).  Bounds count each live int8 row once with
+    its two 4-byte scales, and the shared rows once
     (what device memory must deliver if L2 serves the other slots' reads).
     The library yardstick is SDPA on rows dequantized to bf16 beforehand
     (and the shared rows put before each slot's own)."""
     import torch.nn.functional as F
 
-    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import (flash_attention,
-                                                              flash_attention_plain)
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
     from llama_cpp_gfx906_tpu_torch.ops.kv_quant import QuantKV, dequantize_rows, quantize_rows
 
@@ -960,48 +1018,19 @@ def kv_mode_cases(torch, dev, g, flush, record) -> None:
              max_abs_err_vs_shared=same[0],
              ms_rows_in_each_slot=device_ms(lambda: flash_decode(q, kd, vd, nd, scale),
                                             torch, flush))
-        del kd, vd
-
-        T = 256
-        for n_past in (0, 256, 700):
-            q = rnd(1, T, Hq, D).to(bf)
-            npast = torch.tensor([n_past], dtype=torch.int32, device=dev)
-            args = (q, kq.q[:1], vq.q[:1], npast, scale, 0, 0.0, None)
-            kw = dict(k_scales=kq.s[:1, ..., 0], v_scales=vq.s[:1, ..., 0])
-            case = f"{shape} T={T} n_past={n_past}"
-            err = check(f"flash_attention_int8 {case}", flash_attention(*args, **kw),
-                        flash_attention_plain(*args, **kw), torch)
-            n_keys = n_past + T
-            pairs = T * n_past + T * (T + 1) // 2
-            kl = dequantize_rows(kq[:1], bf)[:, :n_keys].transpose(1, 2).contiguous()
-            vl = dequantize_rows(vq[:1], bf)[:, :n_keys].transpose(1, 2).contiguous()
-            qs = q.transpose(1, 2).contiguous()
-            mask = (torch.arange(n_keys, device=dev)[None, :]
-                    <= n_past + torch.arange(T, device=dev)[:, None])
-            record("flash_attention_int8", case, err,
-                   device_ms(lambda: flash_attention(*args, **kw), torch, flush),
-                   device_ms(lambda: flash_attention_plain(*args, **kw), torch, flush),
-                   2 * q.numel() * 2 + n_keys * row_i8, 4 * Hq * pairs * D,
-                   device_ms(lambda: F.scaled_dot_product_attention(
-                       qs, kl, vl, attn_mask=mask, scale=scale, enable_gqa=True),
-                       torch, flush), library="SDPA on pre-dequantized bf16")
-        del kq, vq, kb, vb
+        del kd, vd, kq, vq, kb, vb
         torch.cuda.empty_cache()
 
 
 def gqa_cases(torch, dev, g, flush, record) -> None:
-    """K3 and K4 at the Qwen group sizes, Dh 128, one slot of 4096 rows,
-    bf16 and int8 caches: Qwen2.5-7B's 28/4 (G 7) and Qwen3-30B-A3B's 32/4
-    (G 8).  K3 decodes one token at n_past 700 and 3000; K4 takes the
-    ragged prefill chunks those phases run: 101 tokens at n_past 0, and a
-    300-token prompt's 256 at 0 then its 44-token tail at 256 (G·T > 128:
-    K4).  Bytes count each live row once (int8: with its two 4-byte
-    scales); the library yardstick is SDPA on rows dequantized to bf16
-    beforehand."""
+    """K3 at the Qwen group sizes, Dh 128, one slot of 4096 rows, bf16 and
+    int8 caches: Qwen2.5-7B's 28/4 (G 7) and Qwen3-30B-A3B's 32/4 (G 8),
+    one token at n_past 700 and 3000 (K4's chunks at these group sizes are
+    in ``kernel_times.K4_CASES``).  Bytes count each live row once (int8:
+    with its two 4-byte scales); the library yardstick is SDPA on rows
+    dequantized to bf16 beforehand."""
     import torch.nn.functional as F
 
-    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import (flash_attention,
-                                                              flash_attention_plain)
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
     from llama_cpp_gfx906_tpu_torch.ops.kv_quant import dequantize_rows, quantize_rows
 
@@ -1014,34 +1043,26 @@ def gqa_cases(torch, dev, g, flush, record) -> None:
         kd, vd = dequantize_rows(kq, bf), dequantize_rows(vq, bf)
         for kind, row in (("bf16", Hkv * 2 * D * 2), ("int8", Hkv * (2 * D + 2 * 4))):
             i8 = kind == "int8"
-            for T, n_past in ((1, 700), (1, 3000), (101, 0), (256, 0), (44, 256)):
-                q = torch.randn((1, T, Hq, D), generator=g, device=dev).to(bf)
+            name = "flash_decode_int8" if i8 else "flash_decode"
+            for n_past in (700, 3000):
+                q = torch.randn((1, 1, Hq, D), generator=g, device=dev).to(bf)
                 npast = torch.tensor([n_past], dtype=torch.int32, device=dev)
-                if T == 1:
-                    name, kern, plain = "flash_decode", flash_decode, flash_decode_plain
-                    args, kw = (q, kq, vq, npast, scale) if i8 else (q, kb, vb, npast, scale), {}
-                else:
-                    name, kern, plain = ("flash_attention", flash_attention,
-                                         flash_attention_plain)
-                    args = (q, kq.q, vq.q, npast, scale) if i8 else (q, kb, vb, npast, scale)
-                    kw = dict(k_scales=kq.s[..., 0], v_scales=vq.s[..., 0]) if i8 else {}
-                name += "_int8" if i8 else ""
-                case = f"{shape} {kind} T={T} n_past={n_past}"
-                err = check(f"{name} {case}", kern(*args, **kw), plain(*args, **kw), torch)
-                n_keys = n_past + T
-                pairs = T * n_past + T * (T + 1) // 2  # causal (query, key) pairs
+                args = (q, kq, vq, npast, scale) if i8 else (q, kb, vb, npast, scale)
+                case = f"{shape} {kind} T=1 n_past={n_past}"
+                err = check(f"{name} {case}", flash_decode(*args), flash_decode_plain(*args),
+                            torch)
+                n_keys = n_past + 1
                 kl = (kd if i8 else kb)[:, :n_keys].transpose(1, 2).contiguous()
                 vl = (vd if i8 else vb)[:, :n_keys].transpose(1, 2).contiguous()
                 qs = q.transpose(1, 2).contiguous()
-                mask = (torch.arange(n_keys, device=dev)[None, :]
-                        <= n_past + torch.arange(T, device=dev)[:, None])
-                record(name, case, err, device_ms(lambda: kern(*args, **kw), torch, flush),
-                       device_ms(lambda: plain(*args, **kw), torch, flush),
-                       2 * q.numel() * 2 + n_keys * row, 4 * Hq * pairs * D,
+                mask = torch.ones((1, n_keys), dtype=torch.bool, device=dev)
+                record(name, case, err, device_ms(lambda: flash_decode(*args), torch, flush),
+                       device_ms(lambda: flash_decode_plain(*args), torch, flush),
+                       2 * q.numel() * 2 + n_keys * row, 4 * Hq * n_keys * D,
                        device_ms(lambda: F.scaled_dot_product_attention(
                            qs, kl, vl, attn_mask=mask, scale=scale, enable_gqa=True),
-                           torch, flush), library="SDPA on pre-dequantized bf16"
-                       if i8 else "SDPA")
+                           torch, flush),
+                       library="SDPA on pre-dequantized bf16" if i8 else "SDPA")
         del kb, vb, kq, vq, kd, vd
         torch.cuda.empty_cache()
 
@@ -2178,7 +2199,7 @@ def phase_gemma3_4b(torch, paths: dict, tmp: Path):
     eng.prefill(ids)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    prefill_launches = kernel_counts()
+    paths["gemma3_4b_prefill"] = prefill_launches = kernel_counts()
     if prefill_launches["flash_attention"] != G4B or prefill_launches["qmm_int8"] != G4B:
         raise AssertionError(f"gemma3_4b: prefill launches {prefill_launches}")
     prompt = eng.tokenizer.detokenize(ids)
@@ -2464,7 +2485,7 @@ def single_stream(torch, name: str, eng, n_prompt: int, kernel: str, mode: str,
     eng.prefill(ids)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    prefill_launches = kernel_counts()
+    paths[f"{name}_prefill"] = prefill_launches = kernel_counts()
     kernel_counts(reset=True)
     _, toks = eng.generate(eng.tokenizer.detokenize(ids), n_predict=32, stop_on_eog=False)
     torch.cuda.synchronize()
@@ -3193,11 +3214,36 @@ def phase_tinydoc_batched(torch, paths: dict) -> None:
              f"{out['q8_cpu']['ppl']}")
 
 
+# K4's launches by body: the model paths whose every K4 launch must be the
+# body named here (a bf16 q: the tensor-core body, counted as "mma"; q8:
+# "int8_mma"; tinydoc's f32 q: the FMA body, "flash_attention" alone)
+K4_COUNTS = ("flash_attention", "flash_attention_mma", "flash_attention_int8_mma",
+             "flash_attention_int8")
+K4_BODY = {"8b_layer_loop": "flash_attention_mma", "qwen3_8b_prefill": "flash_attention_mma",
+           "gemma3_4b_prefill": "flash_attention_mma",
+           "gpt_oss_20b_prefill": "flash_attention_mma",
+           "8b_serve_http_bf16": "flash_attention_mma",
+           "8b_serve_http_q8": "flash_attention_int8_mma", "tinydoc": "flash_attention"}
+
+
+def check_k4_bodies(paths: dict) -> dict:
+    """Each ``K4_BODY`` path launched K4, and every launch was its body;
+    the paths' K4 counts."""
+    got = {p: {k: paths.get(p, {}).get(k, 0) for k in K4_COUNTS} for p in K4_BODY}
+    emit(phase="k4_bodies", launches=got)
+    for p, body in K4_BODY.items():
+        n = got[p]["flash_attention"]
+        others = sum(v for k, v in got[p].items() if k not in ("flash_attention", body))
+        if not n or got[p][body] != n or others:
+            fail(f"k4_bodies: {p} launched {got[p]}, want every K4 launch as {body}")
+    return got
+
+
 def plant_faults(names: list[str]) -> None:
     """``--plant-faults [fault ...]`` (see the module docstring): the named
     faults (all of ``FAULTS`` and ``NIB4_FAULTS`` when none is named) and
     the unmodified source."""
-    known = {**FAULTS, **NIB4_FAULTS}
+    known = {**FAULTS, **NIB4_FAULTS, **K4_FAULTS}
     unknown = set(names) - set(known)
     if unknown:
         raise SystemExit(f"unknown faults {sorted(unknown)}; known: {sorted(known)}")
@@ -3219,7 +3265,8 @@ def plant_faults(names: list[str]) -> None:
                 src.write_text(body.replace(text, planted))
             roots[fault] = root
         # the control reads the kernels of the named faults (all: every kernel)
-        groups = sorted({fault_group(f) for f in names} if names else {"k3", "k6", "nib4"})
+        groups = sorted({fault_group(f) for f in names} if names
+                        else {"k3", "k4", "k6", "nib4"})
         procs = []
         for fault, root in roots.items():
             libs = sorted({lib for grp in (groups if fault == "none" else
@@ -3234,21 +3281,23 @@ def plant_faults(names: list[str]) -> None:
                            cwd=root, check=True)
 
 
-GROUP_LIBS = {"nib4": ("qmm", "rqmm"), "k3": ("flash_decode",),
+GROUP_LIBS = {"nib4": ("qmm", "rqmm"), "k3": ("flash_decode",), "k4": ("flash_attention",),
               "k6": ("decode_stream",)}  # the libraries a group's kernels need
 
 
 def fault_group(fault: str) -> str:
     """The kernels a planted fault's copy is read on: "nib4" (K5-nib4 and
-    K8-nib4), "k3" or "k6" (K6 and K7)."""
-    return "nib4" if fault in NIB4_FAULTS else "k3" if fault in K3_FAULTS else "k6"
+    K8-nib4), "k3", "k4" or "k6" (K6 and K7)."""
+    if fault in NIB4_FAULTS:
+        return "nib4"
+    return "k4" if fault in K4_FAULTS else "k3" if fault in K3_FAULTS else "k6"
 
 
 def fault_edits(fault: str) -> tuple:
     """The edits that plant ``fault``: (file under the package, text, what
     replaces it) each; none for the unmodified source."""
-    if fault in NIB4_FAULTS:
-        return NIB4_FAULTS[fault]
+    if fault in NIB4_FAULTS or fault in K4_FAULTS:
+        return {**NIB4_FAULTS, **K4_FAULTS}[fault]
     if FAULTS[fault] is None:
         return ()
     src = "flash_decode" if fault in K3_FAULTS else "decode_stream"
@@ -3258,8 +3307,8 @@ def fault_edits(fault: str) -> tuple:
 def decode_errors_of_copy(torch, fault: str, groups: list[str]) -> None:
     """The errors against plain of this copy's kernels in ``groups``
     (``fault_group``), one JSON line each: K5-nib4 and K8-nib4
-    (``nib4_cases``), K3 (``k3_mode_cases``), K6 and K7 (``decode_errors``
-    on ``kernel_times.DECODE_CASES``)."""
+    (``nib4_cases``), K3 (``k3_mode_cases``), K4 (``kernel_times.K4_CASES``),
+    K6 and K7 (``decode_errors`` on ``kernel_times.DECODE_CASES``)."""
     from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
     from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
@@ -3279,6 +3328,18 @@ def decode_errors_of_copy(torch, fault: str, groups: list[str]) -> None:
             ref = flash_decode_plain(*args, **c["kw"])
             emit(phase="planted_fault", fault=fault, kernel=c["name"], case=c["case"],
                  rel_err=rel_of(torch, got, ref), tol=TOL)
+        torch.cuda.empty_cache()
+    if "k4" in groups:
+        from llama_cpp_gfx906_tpu_torch.ops.flash_attention import (flash_attention,
+                                                                  flash_attention_plain)
+
+        for i, spec in enumerate(kt.K4_CASES):
+            c = kt.k4_case(torch, torch.device("cuda"), spec, 60 + i)
+            got = flash_attention(*c["args"], **c["kw"])
+            ref = flash_attention_plain(*c["args"], **c["kw"])
+            emit(phase="planted_fault", fault=fault, kernel=c["name"], case=c["case"],
+                 rel_err=rel_of(torch, got, ref), tol=TOL)
+            del c, got, ref
         torch.cuda.empty_cache()
     if "k6" not in groups:
         return
@@ -3370,6 +3431,7 @@ def main() -> None:
     run_phase("tinydoc", phase_tinydoc, torch, paths)
     run_phase("tinydoc_batched", phase_tinydoc_batched, torch, paths)
 
+    k4_bodies = check_k4_bodies(paths)
     idle = [k for k, p in KERNEL_PATH.items()
             if not paths.get(p, {}).get(COUNT_NAME.get(k, k))]
     if idle:
@@ -3377,29 +3439,17 @@ def main() -> None:
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} failed check(s)", file=sys.stderr)
         sys.exit(1)
-    # one main-path shape per kernel in the summary line
-    pick = {"gemv_int8": "lm_head", "gemv_nib4c": "ffn_gate_up",
-            "flash_decode": "n_past=8000 window=0", "flash_attention": "n_past=256",
-            "decode_stream": "B=1 n_past=3000", "decode_step": "B=1 n_past=3000",
-            "qmm_int8": "ffn_gate_up", "flash_decode_int8": "8b B=4",
-            "flash_decode_shared": "8b B=4", "flash_decode_int8_shared": "8b B=4",
-            "flash_attention_int8": "8b T=256 n_past=700",
-            "rqmm_int8": "gate 4096x14336 P=2", "decode_stream_moe": "n_past=3000 nib4c",
-            "decode_stream_gemma": "B=1 n_past=3000", "decode_step_gemma": "B=1 n_past=3000",
-            "decode_stream_qk_norm": "B=1 n_past=3000",
-            "decode_stream_moe_qk_norm": "n_past=3000", "decode_stream_shexp": "n_past=3000 gate",
-            "flash_decode_alibi": "mpt B=1 bf16 n_past=3000",
-            "flash_decode_pos": "8b gan4 gaw1024 T=1 bf16",
-            "qmm_nib4": "M=1000", "rqmm_nib4": "P=4"}
     summary = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        r = next(r for r in results[name] if pick[name] in r["case"])
+        r = next(r for r in results[name] if SUMMARY_CASE[name] in r["case"])
         summary.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paths[KERNEL_PATH[name]][COUNT_NAME.get(name, name)],
             max_abs_err=max(x["max_abs_err"] for x in results[name]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+        if name.startswith("flash_attention"):  # which body each K4 path took
+            summary[-1]["launches_by_path"] = k4_bodies
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

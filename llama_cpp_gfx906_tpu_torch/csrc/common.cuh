@@ -70,4 +70,27 @@ __device__ __forceinline__ void load8(const int8_t* p, float* out) {
   unpack_s8x4(w.y, out + 4);
 }
 
+// cp.async copies into shared memory; valid = false fills with zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 }  // namespace lcg

@@ -110,27 +110,10 @@ struct __align__(16) Shared {
   float m[QT], l[QT], alpha[QT];
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using lcg::cp_async16;  // common.cuh
+using lcg::cp_async4;
+using lcg::cp_async_commit;
+using lcg::cp_async_wait;
 
 // n consecutive elements (n = 2, 4 or 8, aligned to their size) as f32
 template <int N>

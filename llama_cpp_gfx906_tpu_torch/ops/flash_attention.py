@@ -3,11 +3,14 @@
 Port of ``llama_cpp_gfx906_tpu/ops/flash_attention.py::flash_attention`` for
 a bf16, f32 or int8 cache (int8 with ``k_scales``/``v_scales`` (B, S, Hkv)
 f32, the JAX wrapper's arguments), with GQA, the ``n_past`` offset, sliding
-window, softcap and sinks.  The kernel (``csrc/flash_attention.cu``) tiles
-(query tile, query head, batch), reads K and V strided from the stored
-(B, S, Hkv, D) layout (no (B, H, S, D) transpose copy), dequantizes int8
-rows as it stages them and skips key tiles that are wholly masked; see the
-source for its design and bound.
+window, softcap and sinks.  The kernel (``csrc/flash_attention.cu``) reads K
+and V from the stored (B, S, Hkv, D) layout (no (B, H, S, D) transpose copy)
+and skips key tiles that are wholly masked.  It has two bodies: a bf16 q
+runs the tensor-core body (``mma.sync``, bf16 operands, f32 sums; an int8
+cache is widened to bf16 in shared memory and its scales go on the scores
+and on p, as the JAX kernel does), counted also as the mode ``mma``; an f32
+q runs the FMA body (full f32 products; int8 rows dequantized to f32).  See
+the source for the design and the bound.
 
 In the int8 mode the JAX kernel returns bf16; this one returns q's dtype,
 rounded once from the f32 accumulator.
@@ -36,7 +39,7 @@ def flash_attention_plain(q, k_cache, v_cache, n_past, scale: float,
                   logit_softcap, sinks)
 
 
-@kernels.counted("flash_attention", lib="flash_attention", modes=("int8",))
+@kernels.counted("flash_attention", lib="flash_attention", modes=("int8", "mma"))
 def flash_attention(q, k_cache, v_cache, n_past, scale: float,
                     sliding_window: int = 0, logit_softcap: float = 0.0,
                     sinks=None, k_scales=None, v_scales=None) -> torch.Tensor:
@@ -66,6 +69,8 @@ def flash_attention(q, k_cache, v_cache, n_past, scale: float,
         if ks.numel() != B * S * Hkv or vs.numel() != ks.numel():
             raise ValueError("flash_attention: scales must be (B, S, Hkv)")
     qc = q.to(dt).contiguous()
+    if dt == torch.bfloat16 and any(t.data_ptr() % 16 for t in (qc, k_cache, v_cache)):
+        raise ValueError("flash_attention: q and the cache must start 16-byte aligned")
     out = torch.empty((B, T, Hq, D), dtype=dt, device=q.device)
     npast = n_past.to(device=q.device, dtype=torch.int32).contiguous()
     sk = sinks.float().contiguous() if sinks is not None else None
@@ -81,5 +86,5 @@ def flash_attention(q, k_cache, v_cache, n_past, scale: float,
         B, T, S, Hq, Hkv, float(scale), int(sliding_window),
         float(logit_softcap), kernels.stream(q.device))
     kernels.check(so, err, "flash_attention")
-    kernels.count(flash_attention, quant)
+    kernels.count(flash_attention, quant, dt == torch.bfloat16)
     return out.to(q.dtype)

@@ -1,4 +1,4 @@
-"""Device times of the split-K kernels, K3 and the nib4 modes, at the main paths' shapes.
+"""Device times of the split-K kernels, K3, K4 and the nib4 modes, at the main paths' shapes.
 
 The cases live here, and ``chip_smoke.py`` builds its kernel cases from the
 same lists: K1 / K2 (``GEMV_CASES``: the 8B head, ``attn_v`` and Q4_K
@@ -6,11 +6,15 @@ projections), K8 (``EXPERT_CASES``: Mixtral's experts at 2 and 8 pairs)
 and K6 / K7 in each mode (``DECODE_CASES``: a few full-width layers of
 each model, or a small model's whole stack) and K3 in each mode
 (``K3_CASES``: the 8B's, MPT-7B's and BLOOM-7B1's heads and the JAX tests'
-shape; :func:`k3_case` makes their inputs); at gpt-oss-20b's shapes, K5's
+shape; :func:`k3_case` makes their inputs) and K4 in each mode
+(``K4_CASES``: every prefill shape of the model phases; :func:`k4_case`
+makes their inputs); at gpt-oss-20b's shapes, K5's
 and K8's nib4 modes (``QMM_NIB4_CASES``, ``RQMM_NIB4_CASES`` on
 :func:`oss_experts`), K1 / K2 (``OSS_GEMV_CASES``), K5's int8 mode
-(``OSS_QMM_INT8_CASES``) and K3 / K4 with sinks (``OSS_ATTN_CASES``).
+(``OSS_QMM_INT8_CASES``) and K3 with sinks (``OSS_ATTN_CASES``).
 Each is timed as ``chip_smoke.py`` times a kernel (:func:`device_ms`).
+The ``prefill`` group times the model phases' whole prefills instead
+(``PREFILL_CASES``, :func:`prefill_times`), by the host's clock.
 Synthetic weights from seed 0; caches of random rows filled to n_past
 3000.  With ``--splits``, K1 / K2 are also timed at every split count the
 kernel takes (``gemv_splits`` picks one of them).  ``--kernels`` picks
@@ -120,15 +124,47 @@ OSS_GEMV_CASES = (
     ("gemv_nib4c", "attn_output 4096x2880", "Q4_0", 4096, 2880, False))
 # K5's int8 mode at K 2880: the fused q|k|v with mins at the prefill chunks
 OSS_QMM_INT8_CASES = tuple((f"attn_qkv 2880x5120 with mins M={M}", M) for M in (101, 1000))
-# (kernel, case, T, n_past, window): K3 / K4 at 64/8 heads of 64 with sinks,
-# window 128 (the even layers) and full, one slot of 4096 rows
+# (kernel, case, T, n_past, window): K3 at 64/8 heads of 64 with sinks,
+# window 128 (the even layers) and full, one slot of 4096 rows (K4's
+# gpt-oss cases are in ``K4_CASES``)
 OSS_ATTN_CASES = tuple(
-    (kern, f"gpt-oss 64/8 Dh64 sinks T={T} n_past={n} window={w}", T, n, w)
-    for kern, Tn in (("flash_decode", ((1, 700), (1, 3000))),
-                     ("flash_attention", ((101, 0), (256, 0), (44, 256))))
-    for T, n in Tn for w in (128, 0))
+    ("flash_decode", f"gpt-oss 64/8 Dh64 sinks T=1 n_past={n} window={w}", 1, n, w)
+    for n in (700, 3000) for w in (128, 0))
+# (mode, case, (query heads, KV heads), head dim, T, n_past, options): K4
+# over 4096 rows of random K/V of one slot.  The mode is the wrapper's
+# (``flash_attention.modes``: "mma" for the tensor-core body, "int8" for an
+# int8 cache, "" for the FMA body of an f32 q).  Options: ``window``,
+# ``sinks``.  The 8B's prefill (T 512 at n_past 0 and 256); the served q8
+# chunks at the 8B's and tinydoc's heads (T 256 at n_past 0 / 256 / 700);
+# the Qwen group sizes G 7 and G 8 (ragged chunks: 101 and 256 tokens at 0,
+# a 44-token tail at 256), bf16 and int8; gpt-oss-20b's 64/8 heads of 64
+# with sinks, window 128 and full; Gemma-3-4B's 8/4 heads of 256 (T 512,
+# window 1024 and full, and its 1,500-token prefill in the window); the FMA
+# body at tinydoc's heads (an f32 and an int8 cache).
+K4_CASES = (
+    *(("mma", f"8B 32/8 T=512 n_past={n}", (32, 8), 128, 512, n, {}) for n in (0, 256)),
+    *(("int8_mma", f"{shape} T=256 n_past={n}", heads, D, 256, n, {})
+      for shape, heads, D in (("8b", (32, 8), 128), ("tinydoc", (4, 2), 64))
+      for n in (0, 256, 700)),
+    *((f"{i8}mma", f"{shape} {kind} T={T} n_past={n}", heads, 128, T, n, {})
+      for shape, heads in (("G7 28/4", (28, 4)), ("G8 32/4", (32, 4)))
+      for i8, kind in (("", "bf16"), ("int8_", "int8"))
+      for T, n in ((101, 0), (256, 0), (44, 256))),
+    *(("mma", f"gpt-oss 64/8 Dh64 sinks T={T} n_past={n} window={w}", (64, 8), 64, T, n,
+       dict(window=w, sinks=True))
+      for T, n in ((101, 0), (256, 0), (44, 256)) for w in (128, 0)),
+    *(("mma", f"gemma3-4b 8/4 Dh256 T={T} n_past=0 window={w}", (8, 4), 256, T, 0,
+       dict(window=w)) for T, w in ((512, 1024), (512, 0), (1500, 1024))),
+    ("", "tinydoc f32 T=256 n_past=0", (4, 2), 64, 256, 0, {}),
+    ("int8", "tinydoc f32 int8 T=256 n_past=256", (4, 2), 64, 256, 256, {}))
+# (synth preset, layers (None: all), prompt tokens): the model phases'
+# prefills, timed end to end (``prefill_times``)
+PREFILL_CASES = (("8b", None, 676), ("qwen3-8b-q4_k_m", None, 1499),
+                 ("gemma3-4b-q4_k_m", None, 1500), ("gpt-oss-20b-q4_0", 6, 997))
+PREFILL_REPEATS = 5
 GROUPS = {"gemv": ("gemv",), "rqmm": ("rqmm",), "decode": ("decode_stream",),
-          "k3": ("flash_decode",), "nib4": ("qmm", "rqmm")}
+          "k3": ("flash_decode",), "k4": ("flash_attention",), "nib4": ("qmm", "rqmm"),
+          "prefill": ("gemv", "qmm", "flash_attention")}
 
 
 def device_ms(fn, torch, flush, n: int = 10) -> float:
@@ -401,6 +437,53 @@ def k3_case(torch, dev, spec, seed: int) -> dict:
     return dict(mode=mode, case=case, q=q, k=k, v=v, npast=npast, scale=D ** -0.5, kw=kw)
 
 
+def k4_case(torch, dev, spec, seed: int) -> dict:
+    """The inputs of the ``K4_CASES`` entry ``spec`` on ``dev``, from
+    ``seed``: a dict of its name (the wrapper's count name), mode, case,
+    the wrapper's arguments and keywords, the (T, keys) mask of live
+    pairs, the bytes (q in, out, each live row once; int8 with its two
+    scales) and flops (4 D per live pair and query head) of the bound, and
+    ``sdpa``: SDPA on the same rows (an int8 cache dequantized to bf16
+    beforehand) with the boolean mask, without sinks."""
+    import torch.nn.functional as F
+
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import dequantize_rows, quantize_rows
+
+    mode, case, (Hq, Hkv), D, T, n_past, opts = spec
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = torch.bfloat16 if "mma" in mode else torch.float32
+    int8 = "int8" in mode
+
+    def rnd(*size):
+        return torch.randn(size, generator=g, device=dev).to(dt)
+
+    q, k, v = rnd(1, T, Hq, D), rnd(1, 4096, Hkv, D), rnd(1, 4096, Hkv, D)
+    window = opts.get("window", 0)
+    sinks = torch.randn((Hq,), generator=g, device=dev) if opts.get("sinks") else None
+    kw, kd, vd = {}, k, v
+    if int8:
+        kq, vq = quantize_rows(k.float()), quantize_rows(v.float())
+        kd, vd = dequantize_rows(kq, dt), dequantize_rows(vq, dt)
+        k, v = kq.q, vq.q
+        kw = dict(k_scales=kq.s[..., 0], v_scales=vq.s[..., 0])
+    npast = torch.tensor([n_past], dtype=torch.int32, device=dev)
+    qpos = n_past + torch.arange(T, device=dev)[:, None]
+    keys = torch.arange(n_past + T, device=dev)[None, :]
+    seen = (keys <= qpos) & ((keys > qpos - window) if window else True)
+    live = int(seen.any(0).sum())
+    row = Hkv * (2 * D + 2 * 4) if int8 else Hkv * 2 * D * q.element_size()
+    qs = q.transpose(1, 2).contiguous()
+    kl = kd[:, :n_past + T].transpose(1, 2).contiguous()
+    vl = vd[:, :n_past + T].transpose(1, 2).contiguous()
+    return dict(
+        name="flash_attention" + (f"_{mode}" if mode else ""), mode=mode, case=case,
+        args=(q, k, v, npast, D ** -0.5, window, 0.0, sinks), kw=kw, seen=seen,
+        nbytes=2 * q.numel() * q.element_size() + live * row,
+        flops=4 * D * Hq * int(seen.sum()),
+        sdpa=lambda: F.scaled_dot_product_attention(qs, kl, vl, attn_mask=seen,
+                                                    scale=D ** -0.5, enable_gqa=True))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -497,8 +580,12 @@ def main(argv=None) -> None:
             torch.cuda.empty_cache()
     if "k3" in groups:
         k3_times(torch, dev, flush, emit)
+    if "k4" in groups:
+        k4_times(torch, dev, flush, emit)
     if "nib4" in groups:
         nib4_times(torch, dev, flush, emit)
+    if "prefill" in groups:
+        prefill_times(torch, emit)
 
 
 def nib4_times(torch, dev, flush, emit) -> None:
@@ -539,6 +626,67 @@ def k3_times(torch, dev, flush, emit) -> None:
         emit("flash_decode", c["case"],
              device_ms(lambda: flash_decode(*args, **c["kw"]), torch, flush), mode=c["mode"])
         del c, args
+        torch.cuda.empty_cache()
+
+
+def k4_times(torch, dev, flush, emit) -> None:
+    """K4 on ``K4_CASES`` (inputs from seed 60 + the case's index), through
+    whichever body the checkout's wrapper takes for the case's dtypes (a
+    checkout without the ``mma`` mode has one body for both), each case
+    with the launch counts its call added."""
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention
+
+    for i, spec in enumerate(K4_CASES):
+        c = k4_case(torch, dev, spec, 60 + i)
+        before = kernels.counts()
+        flash_attention(*c["args"], **c["kw"])
+        counted = sorted(k for k, n in kernels.counts().items() if n != before[k])
+        emit(c["name"], c["case"],
+             device_ms(lambda: flash_attention(*c["args"], **c["kw"]), torch, flush),
+             mode=c["mode"], counted=counted)
+        del c
+        torch.cuda.empty_cache()
+
+
+def prefill_times(torch, emit) -> None:
+    """``Engine.prefill`` of each ``PREFILL_CASES`` prompt (random token
+    ids from seed 0) ``PREFILL_REPEATS`` times after one warm-up, by the
+    host's clock between two synchronizations, with the launch counts of
+    one prefill; synthetic weights from seed 0, written once under this
+    script's checkout (``build/prefill_ggufs``) and reused by later runs
+    and by other ``--root``s.  One prefill's time moves by tens of percent
+    from run to run on some models: alternate the checkouts compared."""
+    import statistics
+
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    gguf_dir = Path(__file__).resolve().parents[2] / "build" / "prefill_ggufs"
+    gguf_dir.mkdir(parents=True, exist_ok=True)
+    for preset, n_layers, n in PREFILL_CASES:
+        path = gguf_dir / f"{preset}-{n_layers or 'all'}.gguf"
+        if not path.exists():
+            write_synth(str(path), preset, seed=0, n_layers=n_layers)
+        eng = Engine.from_gguf(str(path), max_seq=4096)
+        ids = [int(t) for t in np.random.default_rng(0).integers(3, eng.cfg.n_vocab, n)]
+        times = []
+        for i in range(PREFILL_REPEATS + 1):
+            eng.reset()
+            kernels.set_counts({})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.prefill(ids)
+            torch.cuda.synchronize()
+            if i:  # the first is the warm-up
+                times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        emit("prefill", f"{preset} L={eng.cfg.n_layers} T={n}", med * 1e3, tok_s=n / med,
+             times_s=times, launches={k: v for k, v in kernels.counts().items() if v})
+        del eng
         torch.cuda.empty_cache()
 
 

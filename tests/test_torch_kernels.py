@@ -439,12 +439,89 @@ def test_k4_int8_mode_matches_plain(cuda_device, dtype, D, T, n_past, window):
     kq, vq = quantize_rows(k), quantize_rows(v)
     args = (q, kq.q, vq.q, npast, D ** -0.5, window, 0.0, None)
     kw = dict(k_scales=kq.s[..., 0], v_scales=vq.s[..., 0])
-    before = flash_attention.modes["int8"].launches
+    mode = flash_attention.modes["int8_mma" if dtype == torch.bfloat16 else "int8"]
+    before = mode.launches
     got = flash_attention(*args, **kw)
     ref = flash_attention_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert flash_attention.modes["int8"].launches == before + 1
+    assert mode.launches == before + 1
     assert got.shape == q.shape and got.dtype == q.dtype and _rel(got, ref) < TOL
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("variant", ["plain", "window", "softcap", "sinks"])
+@pytest.mark.parametrize("T", [17, 130, 257])
+def test_k4_tensor_core_body_matches_plain(cuda_device, kv, D, variant, T):
+    """K4's tensor-core body (a bf16 q) on a bf16 or int8 cache at every
+    head dim, ragged T at B 2 with differing n_past: within TOL of the plain
+    version, the same bits over two launches, counted in its mode on the
+    host and on the device."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention_plain
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import quantize_rows
+
+    q, k, v, npast, sinks = _attn_case(31, 2, T, 8, 2, D, 700, (5, 300), cuda_device,
+                                       torch.bfloat16)
+    kw = {}
+    if kv == "int8":
+        kq, vq = quantize_rows(k), quantize_rows(v)
+        k, v, kw = kq.q, vq.q, dict(k_scales=kq.s[..., 0], v_scales=vq.s[..., 0])
+    args = (q, k, v, npast, D ** -0.5, 48 if variant == "window" else 0,
+            20.0 if variant == "softcap" else 0.0, sinks if variant == "sinks" else None)
+    name = "int8_mma" if kv == "int8" else "mma"
+    before, on_device = flash_attention.modes[name].launches, kernels.device_counts()
+    got = flash_attention(*args, **kw)
+    again = flash_attention(*args, **kw)
+    ref = flash_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.modes[name].launches == before + 2
+    ran = {c: n - on_device[c] for c, n in kernels.device_counts().items()}
+    assert (ran["flash_attention"], ran[f"flash_attention_{name}"]) == (2, 2)
+    assert torch.equal(got, again)
+    assert got.shape == q.shape and got.dtype == q.dtype and _rel(got, ref) < TOL
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_k4_f32_q_takes_the_fma_body(cuda_device, kv):
+    """An f32 q (f32 or int8 cache) runs K4's FMA body: no tensor-core
+    launch, full f32 products."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention_plain
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import quantize_rows
+
+    q, k, v, npast, _ = _attn_case(32, 2, 130, 8, 2, 128, 700, (5, 300), cuda_device,
+                                   torch.float32)
+    kw = {}
+    if kv == "int8":
+        kq, vq = quantize_rows(k), quantize_rows(v)
+        k, v, kw = kq.q, vq.q, dict(k_scales=kq.s[..., 0], v_scales=vq.s[..., 0])
+    args = (q, k, v, npast, 128 ** -0.5)
+    on_device = kernels.device_counts()
+    got = flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    ran = {c: n - on_device[c] for c, n in kernels.device_counts().items()
+           if c.startswith("flash_attention")}
+    want = {c: 0 for c in ran}
+    want["flash_attention"] = 1
+    if kv == "int8":
+        want["flash_attention_int8"] = 1
+    assert ran == want
+    assert got.dtype == torch.float32 and _rel(got, flash_attention_plain(*args, **kw)) < 1e-5
+
+
+@pytest.mark.parametrize("index", range(len(kt.K4_CASES)))
+def test_k4_at_model_shapes(cuda_device, index):
+    """K4 on each ``kernel_times.K4_CASES`` entry (the model phases'
+    prefill shapes, each mode) against its plain version, twice."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    c = kt.k4_case(torch, cuda_device, kt.K4_CASES[index], 60 + index)
+    count = flash_attention.modes[c["mode"]] if c["mode"] else flash_attention
+    before = count.launches
+    got = flash_attention(*c["args"], **c["kw"])
+    torch.cuda.synchronize()
+    assert count.launches == before + 1
+    assert _rel(got, flash_attention_plain(*c["args"], **c["kw"])) < TOL
+    assert torch.equal(got, flash_attention(*c["args"], **c["kw"]))
 
 
 def test_mha_q8_and_shared_dispatch_on_card(cuda_device):
@@ -1103,19 +1180,16 @@ def test_qmm_int8_at_k_2880(cuda_device, case, M):
 
 @pytest.mark.parametrize("index", range(len(kt.OSS_ATTN_CASES)))
 def test_attention_at_gpt_oss_shapes(cuda_device, index):
-    """K3 / K4 at gpt-oss's 64/8 heads of 64 with sinks, window 128 and
-    full, against their plain versions."""
-    from llama_cpp_gfx906_tpu_torch.ops.flash_attention import flash_attention_plain
+    """K3 at gpt-oss's 64/8 heads of 64 with sinks, window 128 and full,
+    against its plain version (K4's gpt-oss cases: ``test_k4_at_model_shapes``)."""
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode_plain
 
-    kern, _, T, n_past, window = kt.OSS_ATTN_CASES[index]
+    _, _, T, n_past, window = kt.OSS_ATTN_CASES[index]
     c = kt.oss_attn_case(torch, cuda_device, T, n_past, window, 40 + index)
     args = (c["q"], c["k"], c["v"], c["npast"], c["scale"], window, 0.0, c["sinks"])
-    fn, plain = ((flash_decode, flash_decode_plain) if kern == "flash_decode"
-                 else (flash_attention, flash_attention_plain))
-    got = fn(*args)
+    got = flash_decode(*args)
     torch.cuda.synchronize()
-    assert _rel(got, plain(*args)) < TOL and torch.equal(got, fn(*args))
+    assert _rel(got, flash_decode_plain(*args)) < TOL and torch.equal(got, flash_decode(*args))
 
 
 def test_engine_gpt_oss_card_matches_cpu(cuda_device, tmp_path):
