@@ -8,8 +8,11 @@ Phases, each printing JSON lines:
      paths, launched twice on the same inputs (the same bits: every split-K
      sum adds in a fixed order), with its time, its bound and a PyTorch
      yardstick (the cases K1/K2, K8, K6, K7, K3's modes and K4 share with
-     ``tools/kernel_times.py``): K1-K3 at the 8B Q4_K_M shapes, K3 also
-     at the Qwen group sizes G 7 and G 8 (bf16 and int8 caches); K4 at
+     ``tools/kernel_times.py``): K1/K2 at the 8B Q4_K_M shapes; K3 at
+     every decode shape of the model phases (``K3_CASES``: the 8B's over
+     4096 and 8192 rows, the serve modes at the 8B's and tinydoc's heads,
+     the Qwen group sizes G 7 and G 8, gpt-oss's heads of 64 with sinks,
+     Gemma-3-4B's heads of 256; bf16 and int8 caches); K4 at
      every model phase's prefill shape (``K4_CASES``: the 8B's T 512, the
      served q8 chunks, the Qwen group sizes' ragged chunks, gpt-oss's heads
      of 64 with sinks, Gemma-3-4B's heads of 256, and its FMA body at
@@ -33,8 +36,7 @@ Phases, each printing JSON lines:
      tests' shape; at gpt-oss-20b's shapes (``oss_cases``): K5's nib4 mode
      on a gate expert (2880 x 3072 stored, M 101 / 256 / 1000) and K8's
      (P 4 / 8 pairs of 32 experts, with mins), K1 at K 2880 (q|k|v with
-     mins, the head), K2 at N 2880, K5-int8 at K 2880, K3 at 64/8 heads of
-     64 with sinks, window 128 and full;
+     mins, the head), K2 at N 2880, K5-int8 at K 2880;
   2. the 8B Q4_K_M model end to end (synthetic weights from a seed, full
      width and depth): ``Engine.from_gguf``, a greedy ``generate`` (decode
      through K6), the per-layer loop called as a function (K1-K4), and a
@@ -140,8 +142,8 @@ each copy's ``csrc/decode_stream.cu``, for K3's (``K3_FAULTS``)
 ``csrc/flash_decode.cu``, for K4's ``csrc/flash_attention.cu``, for K5's
 and K8's nib4 modes ``csrc/qmm.cu``, ``csrc/rqmm.cu`` and K5's wrapper,
 builds the copies, and prints K5-nib4's and K8-nib4's errors against plain
-on their gpt-oss cases (``nib4_cases``), K3's on each ALiBi and
-self-extend case (``k3_mode_cases``), K4's on each ``K4_CASES`` entry and
+on their gpt-oss cases (``nib4_cases``), K3's on each
+``kernel_times.K3_CASES`` entry, K4's on each ``K4_CASES`` entry and
 the errors that
 ``decode_errors`` reads for each
 (K6 on two 8B layers and on two Mixtral
@@ -219,8 +221,16 @@ FAULTS = {
     "pos_window_skip": (
         "const int lo = (window > 0 && kv_pos == nullptr) ? max(0, n_past + 1 - window) : 0;",
         "const int lo = window > 0 ? max(0, n_past + 1 - window) : 0;"),
+    # K3: the sink joins every partial state's denominator (each warp's and
+    # each split's), not once at the last merge
+    "k3_sink_per_split": ("L += w * l;",
+                          "L += w * (l > 0.f ? l + expf(sk - sh.mw[i][qi]) : l);"),
+    # K3: the partial states summed without their rescale exp(m_s - M)
+    "k3_merge_unrescaled": ("const float w = l > 0.f ? expf(m - M) : 0.f;",
+                            "const float w = l > 0.f ? 1.f : 0.f;"),
 }
-K3_FAULTS = ("alibi_physical_under_pos", "pos_window_skip")  # csrc/flash_decode.cu
+K3_FAULTS = ("alibi_physical_under_pos", "pos_window_skip", "k3_sink_per_split",
+             "k3_merge_unrescaled")  # csrc/flash_decode.cu
 # --plant-faults of K5's and K8's nib4 modes: name -> its edits, each (file
 # under the package, text, what replaces it); each plants the fault in both
 NIB4_FAULTS = {
@@ -327,11 +337,12 @@ KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
 # one main-path case per kernel in the summary line (K4: also the one case
 # of each body whose plain version is timed, ``k4_cases``)
 SUMMARY_CASE = {"gemv_int8": "lm_head", "gemv_nib4c": "ffn_gate_up",
-                "flash_decode": "n_past=8000 window=0", "flash_attention": "tinydoc f32 T=256",
+                "flash_decode": "S=8192 n_past=8000 window=0", "flash_attention": "tinydoc f32 T=256",
                 "flash_attention_mma": "8B 32/8 T=512 n_past=256",
                 "decode_stream": "B=1 n_past=3000", "decode_step": "B=1 n_past=3000",
-                "qmm_int8": "ffn_gate_up", "flash_decode_int8": "8b B=4",
-                "flash_decode_shared": "8b B=4", "flash_decode_int8_shared": "8b B=4",
+                "qmm_int8": "ffn_gate_up", "flash_decode_int8": "8b B=4 int8 n_past=17/",
+                "flash_decode_shared": "8b B=4 bf16 S0=512 n_past=700",
+                "flash_decode_int8_shared": "8b B=4 int8 S0=512",
                 "flash_attention_int8_mma": "8b T=256 n_past=700",
                 "rqmm_int8": "gate 4096x14336 P=2", "decode_stream_moe": "n_past=3000 nib4c",
                 "decode_stream_gemma": "B=1 n_past=3000", "decode_step_gemma": "B=1 n_past=3000",
@@ -556,12 +567,8 @@ def phase_build(torch):
 
 
 def phase_kernels(torch, results: dict, tmp: Path) -> None:
-    import torch.nn.functional as F
-
     from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
-    from llama_cpp_gfx906_tpu_torch.ops.attention import attend
-    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
     from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q8_0_rows
     import numpy as np
@@ -602,38 +609,8 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
                    dev).multi_processor_count))
         del w, qt
 
-    # K3: decode attention over an 8192-row bf16 cache, GQA 32/8, D = 128
-    B, Hq, Hkv, D, S = 1, 32, 8, 128, 8192
-    kc = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
-    vc = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(torch.bfloat16)
-    sinks = torch.randn((Hq,), generator=g, device=dev)
-    scale = D ** -0.5
-    for n_past in (17, 3000, 8000):
-        for window, sk in ((0, None), (1024, sinks)):
-            q = torch.randn((B, 1, Hq, D), generator=g, device=dev).to(torch.bfloat16)
-            npast = torch.tensor([n_past], dtype=torch.int32, device=dev)
-            args = (q, kc, vc, npast, scale, window, 0.0, sk)
-            case = f"n_past={n_past} window={window} sinks={sk is not None}"
-            err = check(f"flash_decode {case}", flash_decode(*args), attend(*args), torch)
-            live = min(n_past + 1, window) if window else n_past + 1
-            kl = kc[:, :n_past + 1].transpose(1, 2).contiguous()
-            vl = vc[:, :n_past + 1].transpose(1, 2).contiguous()
-            qs = q.transpose(1, 2)
-            lib_ms = (device_ms(lambda: F.scaled_dot_product_attention(
-                qs, kl, vl, scale=scale, enable_gqa=True), torch, flush)
-                if not window and sk is None else None)
-            record("flash_decode", case, err,
-                   device_ms(lambda: flash_decode(*args), torch, flush),
-                   device_ms(lambda: attend(*args), torch, flush),
-                   2 * live * Hkv * D * 2 + 2 * Hq * D * 2,
-                   4 * Hq * live * D, lib_ms)
-
-    del kc, vc
-    torch.cuda.empty_cache()
     k4_cases(torch, dev, flush, record)
-    kv_mode_cases(torch, dev, torch.Generator(device=dev).manual_seed(8), flush, record)
-    gqa_cases(torch, dev, torch.Generator(device=dev).manual_seed(7), flush, record)
-    alibi_pos_cases(torch, flush, record)
+    k3_cases(torch, dev, flush, record)
 
     # K5: the 270M Q8_0 prefill projections at the smoke prompt's 676 rows
     M = 676
@@ -708,17 +685,13 @@ def oss_cases(torch, dev, flush, record) -> None:
     modes (``nib4_cases``); K1 at K 2880 (the fused q|k|v with mins, the
     head's 2880 rows) and K2 at N 2880 (the o projection: a ragged last
     128-column tile), ``kernel_times.OSS_GEMV_CASES``; K5-int8 on the
-    fused q|k|v at K 2880 (``OSS_QMM_INT8_CASES``); K3 at 64/8 heads of 64
-    with sinks, window 128 and full (``OSS_ATTN_CASES``; K4's are in
-    ``K4_CASES``).  Inputs
-    from their own generators (seeds 15, 16 and 40 + the attention case's
-    index), after every earlier case, so those draw as before."""
+    fused q|k|v at K 2880 (``OSS_QMM_INT8_CASES``).  K3's and K4's gpt-oss
+    cases are in ``kernel_times.K3_CASES`` and ``K4_CASES``.  Inputs from
+    their own generators (seeds 15 and 16)."""
     import numpy as np
-    import torch.nn.functional as F
 
     from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
-    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
     from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4_0_rows
 
@@ -764,30 +737,6 @@ def oss_cases(torch, dev, flush, record) -> None:
                2 * M * 2880 * 5120, device_ms(lambda: torch.matmul(x, w), torch, flush),
                bit_identical=same)
     del qt, w
-
-    for i, (name, case, T, n_past, window) in enumerate(kt.OSS_ATTN_CASES):
-        c = kt.oss_attn_case(torch, dev, T, n_past, window, 40 + i)
-        args = (c["q"], c["k"], c["v"], c["npast"], c["scale"], window, 0.0, c["sinks"])
-        kern, plain = flash_decode, flash_decode_plain
-        got = kern(*args)
-        err = check(f"{name} {case}", got, plain(*args), torch)
-        same = bit_identical(f"{name} {case}", got, kern(*args), torch)
-        qpos = n_past + torch.arange(T, device=dev)[:, None]
-        keys = torch.arange(n_past + T, device=dev)[None, :]
-        seen = (keys <= qpos) & ((keys > qpos - window) if window else True)
-        live = int(seen.any(0).sum())
-        # SDPA has no sink: the yardstick is the same attention without one
-        qs = c["q"].transpose(1, 2).contiguous()
-        kl = c["k"][:, :n_past + T].transpose(1, 2).contiguous()
-        vl = c["v"][:, :n_past + T].transpose(1, 2).contiguous()
-        record(name, case, err, device_ms(lambda: kern(*args), torch, flush),
-               device_ms(lambda: plain(*args), torch, flush),
-               live * 8 * 2 * 64 * 2 + 2 * c["q"].numel() * 2, 4 * 64 * 64 * int(seen.sum()),
-               device_ms(lambda: F.scaled_dot_product_attention(
-                   qs, kl, vl, attn_mask=seen, scale=c["scale"], enable_gqa=True),
-                   torch, flush), bit_identical=same,
-               library="SDPA with the window's boolean mask, without the sinks")
-        del c, args
     torch.cuda.empty_cache()
 
 
@@ -934,168 +883,35 @@ def k4_cases(torch, dev, flush, record) -> None:
     emit(phase="k4_cases", seconds=time.perf_counter() - t0)
 
 
-def kv_mode_cases(torch, dev, g, flush, record) -> None:
-    """K3's int8, shared and int8 + shared modes at the serve path's
-    shapes: the 8B (Hq 32, Hkv 8, D 128) and tinydoc (Hq 4, Hkv 2, D 64),
-    4096 rows per slot: 4 slots at n_past 17 / 700 / 1500 / 3000 (int8), or
-    700 each after 512 shared bf16 rows (K4's int8 chunks are in
-    ``kernel_times.K4_CASES``).  Bounds count each live int8 row once with
-    its two 4-byte scales, and the shared rows once
-    (what device memory must deliver if L2 serves the other slots' reads).
-    The library yardstick is SDPA on rows dequantized to bf16 beforehand
-    (and the shared rows put before each slot's own)."""
-    import torch.nn.functional as F
-
-    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
-    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import QuantKV, dequantize_rows, quantize_rows
-
-    S, S0, bf = 4096, SYSTEM_LEN, torch.bfloat16
-    for shape, Hq, Hkv, D in (("8b", 32, 8, 128), ("tinydoc", 4, 2, 64)):
-        scale = D ** -0.5
-
-        def rnd(*size):
-            return torch.randn(size, generator=g, device=dev)
-
-        kq, vq = quantize_rows(rnd(4, S, Hkv, D)), quantize_rows(rnd(4, S, Hkv, D))
-        kb, vb = rnd(4, S, Hkv, D).to(bf), rnd(4, S, Hkv, D).to(bf)
-        shk, shv = rnd(1, S0, Hkv, D).to(bf), rnd(1, S0, Hkv, D).to(bf)
-        row_i8 = Hkv * (2 * D + 2 * 4)  # K and V int8 rows and their scales
-        row_bf = Hkv * 2 * D * 2
-
-        def sdpa_case(q, k, v, n_past, shared: bool):
-            """SDPA over pre-dequantized bf16 rows [0, n_past] of each slot,
-            after the shared rows: (callable, nothing to prepare per call)."""
-            live = int(max(n_past)) + 1
-            ks, vs = k[:, :live], v[:, :live]
-            if shared:
-                ks = torch.cat([shk.expand(q.shape[0], -1, -1, -1), ks], 1)
-                vs = torch.cat([shv.expand(q.shape[0], -1, -1, -1), vs], 1)
-            ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
-            pos = torch.arange(ks.shape[2], device=dev) - (S0 if shared else 0)
-            mask = pos[None, :] <= torch.tensor(n_past, device=dev)[:, None]
-            qs = q.transpose(1, 2)
-            return lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask[:, None, None, :], scale=scale, enable_gqa=True)
-
-        def k3(name, case, k, v, n_past, shared, row_bytes, **extra):
-            q = rnd(4, 1, Hq, D).to(bf)
-            npast = torch.tensor(n_past, dtype=torch.int32, device=dev)
-            kw = dict(shared_k=shk, shared_v=shv) if shared else {}
-            args = (q, k, v, npast, scale)
-            err = check(f"{name} {case}", flash_decode(*args, **kw),
-                        flash_decode_plain(*args, **kw), torch)
-            live = sum(n + 1 for n in n_past)
-            if isinstance(k, QuantKV):
-                k, v = dequantize_rows(k, bf), dequantize_rows(v, bf)
-            lib = sdpa_case(q, k, v, n_past, shared)
-            record(name, case, err, device_ms(lambda: flash_decode(*args, **kw), torch, flush),
-                   device_ms(lambda: flash_decode_plain(*args, **kw), torch, flush),
-                   live * row_bytes + (S0 * row_bf if shared else 0) + 2 * q.numel() * 2,
-                   4 * Hq * D * (live + (4 * S0 if shared else 0)),
-                   device_ms(lib, torch, flush), library="SDPA on pre-dequantized bf16",
-                   **extra)
-            return q, npast
-
-        mixed = [17, 700, 1500, 3000]
-        k3("flash_decode_int8", f"{shape} B=4 n_past=17/700/1500/3000", kq, vq, mixed,
-           False, row_i8)
-        k3("flash_decode_int8_shared", f"{shape} B=4 S0={S0} n_past=700", kq, vq, [700] * 4,
-           True, row_i8, bound_ms_if_shared_read_per_slot=bound(
-               4 * 701 * row_i8 + 4 * S0 * row_bf, 0)[0])
-        q, npast = k3("flash_decode_shared", f"{shape} B=4 S0={S0} n_past=700", kb, vb,
-                      [700] * 4, True, row_bf, bound_ms_if_shared_read_per_slot=bound(
-                          4 * (S0 + 701) * row_bf, 0)[0])
-        # L2 and the shared rows: the same step with the 512 rows copied into
-        # each slot's own cache (n_past 1212, the same logical positions)
-        kd, vd = kb.clone(), vb.clone()
-        kd[:, S0:S0 + 701], vd[:, S0:S0 + 701] = kb[:, :701], vb[:, :701]
-        kd[:, :S0], vd[:, :S0] = shk, shv
-        nd = torch.full((4,), S0 + 700, dtype=torch.int32, device=dev)
-        same = check(f"flash_decode_shared {shape}: shared rows vs the same rows in each slot",
-                     flash_decode(q, kd, vd, nd, scale),
-                     flash_decode(q, kb, vb, npast, scale, shared_k=shk, shared_v=shv), torch)
-        emit(phase="kernel", kernel="flash_decode_shared", case=f"{shape} rows in each slot",
-             max_abs_err_vs_shared=same[0],
-             ms_rows_in_each_slot=device_ms(lambda: flash_decode(q, kd, vd, nd, scale),
-                                            torch, flush))
-        del kd, vd, kq, vq, kb, vb
-        torch.cuda.empty_cache()
-
-
-def gqa_cases(torch, dev, g, flush, record) -> None:
-    """K3 at the Qwen group sizes, Dh 128, one slot of 4096 rows, bf16 and
-    int8 caches: Qwen2.5-7B's 28/4 (G 7) and Qwen3-30B-A3B's 32/4 (G 8),
-    one token at n_past 700 and 3000 (K4's chunks at these group sizes are
-    in ``kernel_times.K4_CASES``).  Bytes count each live row once (int8:
-    with its two 4-byte scales); the library yardstick is SDPA on rows
-    dequantized to bf16 beforehand."""
-    import torch.nn.functional as F
-
-    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
-    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import dequantize_rows, quantize_rows
-
-    S, D, bf = 4096, 128, torch.bfloat16
-    scale = D ** -0.5
-    for shape, Hq, Hkv in (("G7 28/4", 28, 4), ("G8 32/4", 32, 4)):
-        kb = torch.randn((1, S, Hkv, D), generator=g, device=dev).to(bf)
-        vb = torch.randn((1, S, Hkv, D), generator=g, device=dev).to(bf)
-        kq, vq = quantize_rows(kb.float()), quantize_rows(vb.float())
-        kd, vd = dequantize_rows(kq, bf), dequantize_rows(vq, bf)
-        for kind, row in (("bf16", Hkv * 2 * D * 2), ("int8", Hkv * (2 * D + 2 * 4))):
-            i8 = kind == "int8"
-            name = "flash_decode_int8" if i8 else "flash_decode"
-            for n_past in (700, 3000):
-                q = torch.randn((1, 1, Hq, D), generator=g, device=dev).to(bf)
-                npast = torch.tensor([n_past], dtype=torch.int32, device=dev)
-                args = (q, kq, vq, npast, scale) if i8 else (q, kb, vb, npast, scale)
-                case = f"{shape} {kind} T=1 n_past={n_past}"
-                err = check(f"{name} {case}", flash_decode(*args), flash_decode_plain(*args),
-                            torch)
-                n_keys = n_past + 1
-                kl = (kd if i8 else kb)[:, :n_keys].transpose(1, 2).contiguous()
-                vl = (vd if i8 else vb)[:, :n_keys].transpose(1, 2).contiguous()
-                qs = q.transpose(1, 2).contiguous()
-                mask = torch.ones((1, n_keys), dtype=torch.bool, device=dev)
-                record(name, case, err, device_ms(lambda: flash_decode(*args), torch, flush),
-                       device_ms(lambda: flash_decode_plain(*args), torch, flush),
-                       2 * q.numel() * 2 + n_keys * row, 4 * Hq * n_keys * D,
-                       device_ms(lambda: F.scaled_dot_product_attention(
-                           qs, kl, vl, attn_mask=mask, scale=scale, enable_gqa=True),
-                           torch, flush),
-                       library="SDPA on pre-dequantized bf16" if i8 else "SDPA")
-        del kb, vb, kq, vq, kd, vd
-        torch.cuda.empty_cache()
-
-
-def k3_mode_cases(torch, dev):
-    """K3's ALiBi and self-extend cases: the ``kernel_times.K3_CASES``
-    entries whose mode has ALiBi or logical positions (``kernel_times``
-    lists them), one at a time, inputs from seed 17 + the entry's index on
-    ``dev`` (``kernel_times.k3_case``), each with its count name
-    (``flash_decode_alibi`` or ``flash_decode_pos``)."""
-    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
-
-    for i, spec in enumerate(kt.K3_CASES):
-        if "alibi" in spec[0] or "pos" in spec[0]:
-            c = kt.k3_case(torch, dev, spec, 17 + i)
-            c["name"] = "flash_decode_pos" if "pos" in spec[0] else "flash_decode_alibi"
-            yield c
+def k3_name(mode: str) -> str:
+    """The count name a K3 case of ``mode`` reports under: its positions or
+    ALiBi mode where it has one (positions first), else its int8 / shared
+    mode, else ``flash_decode``."""
+    if "pos" in mode:
+        return "flash_decode_pos"
+    if "alibi" in mode:
+        return "flash_decode_alibi"
+    return "flash_decode" + (f"_{mode}" if mode else "")
 
 
 def k3_sdpa(torch, c):
     """One ``scaled_dot_product_attention`` call computing the same function
-    as the K3 case ``c``: rows dequantized to bf16 beforehand, the shared
-    rows put before each slot's own, and a float mask holding the ALiBi
-    bias where a key is seen and -inf where it is not; plus the live rows
-    per slot and the (query token, key) pairs the mask lets through.
-    Returns (callable, live rows per slot, pairs)."""
+    as the K3 case ``c`` (without its sinks): rows dequantized to bf16
+    beforehand, the shared rows put before each slot's own, and no mask
+    where every key is seen, else a boolean mask, or with ALiBi a float
+    mask holding the bias where a key is seen and -inf where it is not;
+    None with a softcap (SDPA cannot apply it before the bias).  Returns
+    (callable or None, its description, the live own rows per slot, the
+    shared rows any query sees, the (query token, key) pairs seen)."""
     import torch.nn.functional as F
 
     from llama_cpp_gfx906_tpu_torch.ops.kv_quant import QuantKV, dequantize_rows
 
     q, k, v, kw = c["q"], c["k"], c["v"], c["kw"]
+    what = ["SDPA"]
     if isinstance(k, QuantKV):
         k, v = dequantize_rows(k, torch.bfloat16), dequantize_rows(v, torch.bfloat16)
+        what.append("rows dequantized beforehand")
     B, T, Hq, D = q.shape
     dev = q.device
     n = c["npast"].long()
@@ -1115,6 +931,7 @@ def k3_sdpa(torch, c):
         live_row = torch.cat([torch.ones(S0, dtype=torch.bool, device=dev),
                               torch.zeros(L, dtype=torch.bool, device=dev)])
         own = torch.cat([torch.zeros(S0, dtype=torch.long, device=dev), rows])
+        what.append("shared rows before each slot's own")
     else:
         k, v = k[:, :L], v[:, :L]
         live_row, own = torch.zeros(L, dtype=torch.bool, device=dev), rows
@@ -1123,52 +940,101 @@ def k3_sdpa(torch, c):
     window = kw.get("sliding_window", 0)
     if window:
         seen &= kpos[:, None, :] > qpos[:, :, None] - window
-    bias = torch.zeros((B, Hq, T, kpos.shape[1]), device=dev)
     if "alibi_slopes" in kw:
         dist = (qpos[:, :, None] - kpos[:, None, :]).float()
         bias = -kw["alibi_slopes"].float()[None, :, None, None] * dist[:, None]
-    mask = torch.where(seen[:, None], bias, float("-inf")).to(torch.bfloat16)
+        mask = torch.where(seen[:, None], bias, float("-inf")).to(torch.bfloat16)
+        what.append("float mask (bias and mask)")
+    elif bool(seen.all()):
+        mask = None
+    else:
+        mask = seen[:, None]
+        what.append("boolean mask")
+    if "sinks" in kw:
+        what.append("no sinks")
     qs = q.transpose(1, 2).contiguous()
     ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    live = [int(x) + T if "kv_pos" in kw or not window else min(int(x) + T, window)
-            for x in n]
+    seen_rows = seen.any(1)  # (B, keys)
+    live = [int(x) for x in seen_rows[:, S0:].sum(1)]
+    shared = int(seen_rows[:, :S0].any(0).sum())
+    if "logit_softcap" in kw:
+        return None, "none: SDPA cannot apply a softcap", live, shared, int(seen.sum())
     return (lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                    scale=c["scale"], enable_gqa=True),
-            live, int(seen.sum()))
+            ", ".join(what), live, shared, int(seen.sum()))
 
 
-def alibi_pos_cases(torch, flush, record) -> None:
-    """K3's ALiBi and self-extend modes (``k3_mode_cases``) against the plain
-    version, launched twice (the same bits), timed beside the plain version
-    and the SDPA yardstick (``k3_sdpa``; the softcap case has none: SDPA
-    cannot apply a softcap before the bias).  Bytes: each live K and V row
-    once (int8: with its two 4-byte scales), 4 bytes of logical position
-    per live row, the shared rows once, q in and out; operations: 4·D per
-    query head and (query token, key) pair that the mask lets through."""
-    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+def shared_vs_own_rows(torch, c, flush) -> None:
+    """L2 and the shared rows: the shared-mode case ``c`` against the same
+    step with the shared rows copied before each slot's own (n_past + S0,
+    the same logical positions), held at TOL; both timed."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode
+
+    q, kw, scale = c["q"], c["kw"], c["scale"]
+    B = q.shape[0]
+    S0 = kw["shared_k"].shape[1]
+    kd = torch.cat([kw["shared_k"].expand(B, -1, -1, -1), c["k"]], 1)
+    vd = torch.cat([kw["shared_v"].expand(B, -1, -1, -1), c["v"]], 1)
+    nd = c["npast"] + S0
+    err = check(f"flash_decode_shared {c['case']}: shared rows vs the same rows in each slot",
+                flash_decode(q, kd, vd, nd, scale),
+                flash_decode(q, c["k"], c["v"], c["npast"], scale, **kw), torch)
+    emit(phase="kernel", kernel="flash_decode_shared", case=f"{c['case']} rows in each slot",
+         max_abs_err_vs_shared=err[0],
+         ms_rows_in_each_slot=device_ms(lambda: flash_decode(q, kd, vd, nd, scale),
+                                        torch, flush))
+
+
+def k3_cases(torch, dev, flush, record) -> None:
+    """K3 on ``kernel_times.K3_CASES`` (every decode shape of the model
+    phases, each mode: inputs from seed 17 + the case's index,
+    ``kernel_times.k3_case``), each against ``flash_decode_plain`` at TOL,
+    launched twice (the same bits), timed beside its bound and the SDPA
+    yardstick (``k3_sdpa``), under its count name (``k3_name``) with its
+    split count.  Bytes: each live K and V row once (int8: with its two
+    4-byte scales; 4 bytes of logical position a live row), the shared
+    rows any query sees once, q in and out; operations: 4·D per query head
+    and (query token, key) pair the mask lets through.  The plain version
+    is timed once per count name, at its ``SUMMARY_CASE``; a shared case
+    without a window is also held against its rows copied into each slot
+    (``shared_vs_own_rows``).  Emits the loop's wall time."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_plain,
+                                                         split_count)
     from llama_cpp_gfx906_tpu_torch.ops.kv_quant import QuantKV
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
 
-    for c in k3_mode_cases(torch, torch.device("cuda")):
-        q, k, v, npast, scale, kw = c["q"], c["k"], c["v"], c["npast"], c["scale"], c["kw"]
-        args = (q, k, v, npast, scale)
+    t0, plain_timed = time.perf_counter(), set()
+    for i, spec in enumerate(kt.K3_CASES):
+        c = kt.k3_case(torch, dev, spec, 17 + i)
+        q, k, kw, name = c["q"], c["k"], c["kw"], k3_name(c["mode"])
+        args = (q, k, c["v"], c["npast"], c["scale"])
         got = flash_decode(*args, **kw)
-        err = check(f"{c['name']} {c['case']}", got, flash_decode_plain(*args, **kw), torch)
-        same = bit_identical(f"{c['name']} {c['case']}", got, flash_decode(*args, **kw), torch)
-        lib, live, pairs = k3_sdpa(torch, c)
+        err = check(f"{name} {c['case']}", got, flash_decode_plain(*args, **kw), torch)
+        same = bit_identical(f"{name} {c['case']}", got, flash_decode(*args, **kw), torch)
+        lib, library, live, shared, pairs = k3_sdpa(torch, c)
         B, T, Hq, D = q.shape
         Hkv = (k.q if isinstance(k, QuantKV) else k).shape[2]
         row = Hkv * (2 * D + 8) if isinstance(k, QuantKV) else Hkv * 2 * D * 2
         row += 4 if "kv_pos" in kw else 0
-        S0 = kw["shared_k"].shape[1] if "shared_k" in kw else 0
-        nbytes = sum(live) * row + S0 * Hkv * 2 * D * 2 + 2 * q.numel() * 2
-        record(c["name"], c["case"], err,
-               device_ms(lambda: flash_decode(*args, **kw), torch, flush),
-               device_ms(lambda: flash_decode_plain(*args, **kw), torch, flush),
-               nbytes, 4 * Hq * D * pairs,
-               None if "logit_softcap" in kw else device_ms(lib, torch, flush),
-               mode=c["mode"], bit_identical=same,
-               library="SDPA, float mask (bias and mask; int8 rows pre-dequantized)")
-    torch.cuda.empty_cache()
+        nbytes = sum(live) * row + shared * Hkv * 2 * D * 2 + 2 * q.numel() * 2
+        plain_ms = None
+        if name not in plain_timed and SUMMARY_CASE.get(name, c["case"]) in c["case"]:
+            plain_timed.add(name)
+            plain_ms = device_ms(lambda: flash_decode_plain(*args, **kw), torch, flush)
+        extra = {}
+        if shared:  # what the bound would be if every slot read the shared rows
+            extra["bound_ms_if_shared_read_per_slot"] = bound(
+                nbytes + (B - 1) * shared * Hkv * 2 * D * 2, 0)[0]
+        record(name, c["case"], err, device_ms(lambda: flash_decode(*args, **kw), torch, flush),
+               plain_ms, nbytes, 4 * Hq * D * pairs,
+               None if lib is None else device_ms(lib, torch, flush), mode=c["mode"],
+               bit_identical=same, splits=split_count(q, k, kw.get("shared_k")),
+               library=library, **extra)
+        if c["mode"] == "shared" and not kw.get("sliding_window"):
+            shared_vs_own_rows(torch, c, flush)
+        del c, args, kw, got
+        torch.cuda.empty_cache()
+    emit(phase="k3_cases", seconds=time.perf_counter() - t0)
 
 
 def decode_errors(torch, eng, kern, plain, B: int, n_past: int, toks) -> tuple:
@@ -3307,7 +3173,7 @@ def fault_edits(fault: str) -> tuple:
 def decode_errors_of_copy(torch, fault: str, groups: list[str]) -> None:
     """The errors against plain of this copy's kernels in ``groups``
     (``fault_group``), one JSON line each: K5-nib4 and K8-nib4
-    (``nib4_cases``), K3 (``k3_mode_cases``), K4 (``kernel_times.K4_CASES``),
+    (``nib4_cases``), K3 (``kernel_times.K3_CASES``), K4 (``kernel_times.K4_CASES``),
     K6 and K7 (``decode_errors`` on ``kernel_times.DECODE_CASES``)."""
     from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
     from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
@@ -3322,12 +3188,15 @@ def decode_errors_of_copy(torch, fault: str, groups: list[str]) -> None:
                  rel_err=rel_of(torch, c["kern"](), c["plain"]()), tol=TOL)
         torch.cuda.empty_cache()
     if "k3" in groups:
-        for c in k3_mode_cases(torch, torch.device("cuda")):
+        for i, spec in enumerate(kt.K3_CASES):
+            c = kt.k3_case(torch, torch.device("cuda"), spec, 17 + i)
             args = (c["q"], c["k"], c["v"], c["npast"], c["scale"])
             got = flash_decode(*args, **c["kw"])
             ref = flash_decode_plain(*args, **c["kw"])
-            emit(phase="planted_fault", fault=fault, kernel=c["name"], case=c["case"],
+            emit(phase="planted_fault", fault=fault, kernel="_".join(
+                ["flash_decode"] + ([c["mode"]] if c["mode"] else [])), case=c["case"],
                  rel_err=rel_of(torch, got, ref), tol=TOL)
+            del c, args, got, ref
         torch.cuda.empty_cache()
     if "k4" in groups:
         from llama_cpp_gfx906_tpu_torch.ops.flash_attention import (flash_attention,

@@ -70,13 +70,12 @@ def insert_kv(cache: torch.Tensor, new: torch.Tensor, n_past: torch.Tensor) -> N
     cache[torch.arange(B, device=new.device)[:, None], rows] = new.to(cache.dtype)
 
 
-def attend(q, k_cache, v_cache, n_past, scale: float, sliding_window: int = 0,
-           logit_softcap: float = 0.0, sinks=None, kv_pos=None, q_pos=None,
-           alibi_slopes=None, shared_k=None, shared_v=None) -> torch.Tensor:
-    """Masked-softmax attention of the T new queries over the cache, in f32;
-    returns (B, T, Hq, Dh) in q's dtype.  ``kv_pos``/``q_pos`` (self-extend
-    logical positions), ``alibi_slopes`` and the batch-shared prefix rows
-    ``shared_k``/``shared_v`` (1, S0, Hkv, Dh) follow the JAX einsum path."""
+def attention_logits(q, k_cache, n_past, scale: float, sliding_window: int = 0,
+                     logit_softcap: float = 0.0, kv_pos=None, q_pos=None,
+                     alibi_slopes=None, shared_k=None):
+    """:func:`attend`'s scores before the mask, in f32: (B, Hkv, G, T, S0 + S)
+    over the shared rows then the cache's, softcapped and ALiBi-biased; and
+    the mask (B, T, S0 + S) of the keys each new query sees."""
     B, T, Hq, Dh = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -110,6 +109,23 @@ def attend(q, k_cache, v_cache, n_past, scale: float, sliding_window: int = 0,
     if alibi_slopes is not None:
         sl = alibi_slopes.to(dev).float().reshape(Hkv, G)
         scores = scores - sl[None, :, :, None, None] * dist[:, None, None]
+    return scores, mask
+
+
+def attend(q, k_cache, v_cache, n_past, scale: float, sliding_window: int = 0,
+           logit_softcap: float = 0.0, sinks=None, kv_pos=None, q_pos=None,
+           alibi_slopes=None, shared_k=None, shared_v=None) -> torch.Tensor:
+    """Masked-softmax attention of the T new queries over the cache, in f32;
+    returns (B, T, Hq, Dh) in q's dtype.  ``kv_pos``/``q_pos`` (self-extend
+    logical positions), ``alibi_slopes`` and the batch-shared prefix rows
+    ``shared_k``/``shared_v`` (1, S0, Hkv, Dh) follow the JAX einsum path."""
+    B, T, Hq, Dh = q.shape
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    dev = q.device
+    n_shared = shared_k.shape[1] if shared_k is not None else 0
+    scores, mask = attention_logits(q, k_cache, n_past, scale, sliding_window,
+                                    logit_softcap, kv_pos, q_pos, alibi_slopes, shared_k)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     if sinks is not None:
         sk = sinks.to(dev).float().reshape(Hkv, G)[None, :, :, None]

@@ -5,8 +5,9 @@ same lists: K1 / K2 (``GEMV_CASES``: the 8B head, ``attn_v`` and Q4_K
 projections), K8 (``EXPERT_CASES``: Mixtral's experts at 2 and 8 pairs)
 and K6 / K7 in each mode (``DECODE_CASES``: a few full-width layers of
 each model, or a small model's whole stack) and K3 in each mode
-(``K3_CASES``: the 8B's, MPT-7B's and BLOOM-7B1's heads and the JAX tests'
-shape; :func:`k3_case` makes their inputs) and K4 in each mode
+(``K3_CASES``: the 8B's, MPT-7B's, BLOOM-7B1's, tinydoc's, the Qwen
+group sizes', gpt-oss's and Gemma-3-4B's heads and the JAX tests' shape;
+:func:`k3_case` makes their inputs) and K4 in each mode
 (``K4_CASES``: every prefill shape of the model phases; :func:`k4_case`
 makes their inputs); at gpt-oss-20b's shapes, K5's
 and K8's nib4 modes (``QMM_NIB4_CASES``, ``RQMM_NIB4_CASES`` on
@@ -77,7 +78,8 @@ DECODE_CASES = (
 # "_"; "" for none).  Options: ``D`` and ``S`` (head dim, rows), ``S0``
 # (shared rows), ``pos`` (``("div", g)``: row i at i // g, the new tokens
 # continuing; ``("gan", n, w)``: the CLI's ``-gan n -gaw w`` ladder,
-# :func:`ladder_positions`), ``softcap``, ``window``.  The old modes at
+# :func:`ladder_positions`), ``softcap``, ``window``, ``sinks`` (a logit
+# per query head, randn * 2).  The old modes at
 # the 8B's heads; ALiBi at MPT-7B's and BLOOM-7B1's 32/32 heads: decode at
 # n_past 700 and 3000, B 1 and 4, after 512 shared rows, and their prefill
 # chunks of G·T <= 128 (101 tokens at n_past 0, 128 at 700); self-extend at
@@ -107,7 +109,37 @@ K3_CASES = (
     ("alibi_pos", "jax shape alibi i//2", (4, 2), (300, 120), 1,
      dict(_JAX_SHAPE, pos=("div", 2))),
     ("pos", "jax shape window=32 i//3 T=4", (4, 2), (300, 120), 4,
-     dict(_JAX_SHAPE, pos=("div", 3), window=32)))
+     dict(_JAX_SHAPE, pos=("div", 3), window=32)),
+    # the 8B over 8192 rows, full and with window 1024 and sinks; the serve
+    # modes at the 8B's and tinydoc's heads (4 slots); the Qwen group sizes;
+    # gpt-oss's 64/8 heads of 64 with sinks (``OSS_ATTN_CASES``), also over
+    # int8 rows, and sinks after shared rows (the planted sink fault's cases);
+    # Gemma-3-4B's 8/4 heads of 256 (query tiles of 4): its served q8 step
+    # (4 slots, full and in the local layers' window of 1024) and one bf16
+    # stream in that window
+    *(("", f"8b B=1 bf16 S=8192 n_past={n} window={w}{' sinks' if w else ''}", (32, 8),
+       (n,), 1, dict(S=8192, window=w, sinks=True) if w else dict(S=8192))
+      for w in (0, 1024) for n in (17, 3000, 8000)),
+    *((mode, f"{shape} B=4 {kind}", heads, n_past, 1, dict(opts, D=D))
+      for shape, heads, D in (("8b", (32, 8), 128), ("tinydoc", (4, 2), 64))
+      for mode, kind, n_past, opts in (
+          ("int8", "int8 n_past=17/700/1500/3000", (17, 700, 1500, 3000), {}),
+          ("shared", "bf16 S0=512 n_past=700", (700,) * 4, dict(S0=512)),
+          ("int8_shared", "int8 S0=512 n_past=700", (700,) * 4, dict(S0=512)))
+      if (shape, mode) != ("8b", "shared")),  # that one is the third case
+    *((i8, f"{shape} {kind} T=1 n_past={n}", heads, (n,), 1, {})
+      for shape, heads in (("G7 28/4", (28, 4)), ("G8 32/4", (32, 4)))
+      for i8, kind in (("", "bf16"), ("int8", "int8")) for n in (700, 3000)),
+    *(("", f"gpt-oss 64/8 Dh64 sinks T=1 n_past={n} window={w}", (64, 8), (n,), 1,
+       dict(D=64, sinks=True, window=w)) for n in (700, 3000) for w in (128, 0)),
+    ("int8", "gpt-oss 64/8 Dh64 int8 sinks T=1 n_past=700 window=128", (64, 8), (700,), 1,
+     dict(D=64, sinks=True, window=128)),
+    ("shared", "8b B=4 bf16 S0=512 n_past=100 window=256 sinks", (32, 8), (100,) * 4, 1,
+     dict(S0=512, window=256, sinks=True)),
+    *(("int8", f"gemma3-4b 8/4 Dh256 B=4 int8 n_past=256/700/1500/3000 window={w}", (8, 4),
+       (256, 700, 1500, 3000), 1, dict(D=256, window=w)) for w in (0, 1024)),
+    ("", "gemma3-4b 8/4 Dh256 B=1 bf16 n_past=3000 window=1024", (8, 4), (3000,), 1,
+     dict(D=256, window=1024)))
 # gpt-oss-20b: Q4_0 experts (32), K = D = 2880, the expert FF 2880 padded
 # to 3072 (gate and up: split-K nib4, no nib4c chunk at 2880)
 OSS_D, OSS_EF, OSS_E = 2880, 2880, 32
@@ -124,12 +156,12 @@ OSS_GEMV_CASES = (
     ("gemv_nib4c", "attn_output 4096x2880", "Q4_0", 4096, 2880, False))
 # K5's int8 mode at K 2880: the fused q|k|v with mins at the prefill chunks
 OSS_QMM_INT8_CASES = tuple((f"attn_qkv 2880x5120 with mins M={M}", M) for M in (101, 1000))
-# (kernel, case, T, n_past, window): K3 at 64/8 heads of 64 with sinks,
-# window 128 (the even layers) and full, one slot of 4096 rows (K4's
-# gpt-oss cases are in ``K4_CASES``)
-OSS_ATTN_CASES = tuple(
-    ("flash_decode", f"gpt-oss 64/8 Dh64 sinks T=1 n_past={n} window={w}", 1, n, w)
-    for n in (700, 3000) for w in (128, 0))
+# (kernel, case, T, n_past, window): the bf16 ``K3_CASES`` at gpt-oss's 64/8
+# heads of 64 with sinks, window 128 (the even layers) and full, one slot
+# of 4096 rows (K4's gpt-oss cases are in ``K4_CASES``)
+OSS_ATTN_CASES = tuple(("flash_decode", case, T, n_past[0], opts["window"])
+                       for mode, case, _, n_past, T, opts in K3_CASES
+                       if case.startswith("gpt-oss") and not mode)
 # (mode, case, (query heads, KV heads), head dim, T, n_past, options): K4
 # over 4096 rows of random K/V of one slot.  The mode is the wrapper's
 # (``flash_attention.modes``: "mma" for the tensor-core body, "int8" for an
@@ -418,8 +450,10 @@ def k3_case(torch, dev, spec, seed: int) -> dict:
         kw["alibi_slopes"] = alibi_slopes_for(Hq).to(dev)
     if "softcap" in opts:
         kw["logit_softcap"] = opts["softcap"]
-    if "window" in opts:
+    if opts.get("window"):
         kw["sliding_window"] = opts["window"]
+    if opts.get("sinks"):
+        kw["sinks"] = torch.randn((Hq,), generator=g, device=dev) * 2
     if "pos" in opts:
         t = torch.arange(T, **i32)
         if opts["pos"][0] == "div":
@@ -615,6 +649,7 @@ def nib4_times(torch, dev, flush, emit) -> None:
 def k3_times(torch, dev, flush, emit) -> None:
     """K3 on ``K3_CASES`` (inputs from seed 17 + the case's index), each
     case whose mode the checkout's K3 has."""
+    from llama_cpp_gfx906_tpu_torch.ops import flash_decode as fd
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode
 
     for i, spec in enumerate(K3_CASES):
@@ -623,8 +658,12 @@ def k3_times(torch, dev, flush, emit) -> None:
             continue
         c = k3_case(torch, dev, spec, 17 + i)
         args = (c["q"], c["k"], c["v"], c["npast"], c["scale"])
+        extra = {}
+        if hasattr(fd, "split_count"):  # the split count of a checkout with one
+            extra["splits"] = fd.split_count(c["q"], c["k"], c["kw"].get("shared_k"))
         emit("flash_decode", c["case"],
-             device_ms(lambda: flash_decode(*args, **c["kw"]), torch, flush), mode=c["mode"])
+             device_ms(lambda: flash_decode(*args, **c["kw"]), torch, flush), mode=c["mode"],
+             **extra)
         del c, args
         torch.cuda.empty_cache()
 

@@ -624,6 +624,28 @@ def test_k3_alibi_and_pos_at_model_shapes(cuda_device, index):
                          **c["kw"]) < TOL
 
 
+@pytest.mark.parametrize("index", [
+    i for i, c in enumerate(kt.K3_CASES) if not ("alibi" in c[0] or "pos" in c[0])],
+    ids=lambda i: kt.K3_CASES[i][1])
+def test_k3_at_model_shapes(cuda_device, index):
+    """The other ``kernel_times.K3_CASES``: the 8B over 4096 and 8192 rows
+    (window 1024 with sinks), the serve modes at the 8B's and tinydoc's
+    heads, the Qwen group sizes, gpt-oss's 64/8 heads of 64 with sinks,
+    Gemma-3-4B's 8/4 heads of 256; bit-identical over two launches,
+    counted in their modes."""
+    c = kt.k3_case(torch, cuda_device, kt.K3_CASES[index], 17 + index)
+    args = (c["q"], c["k"], c["v"], c["npast"], c["scale"])
+    if not c["mode"]:
+        from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode_plain
+
+        got, again = flash_decode(*args, **c["kw"]), flash_decode(*args, **c["kw"])
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _rel(got, flash_decode_plain(*args, **c["kw"])) < TOL
+        return
+    assert _k3_modes_run(*args, c["mode"], **c["kw"]) < TOL
+
+
 def test_mha_alibi_and_pos_dispatch_on_card(cuda_device):
     """ALiBi or logical positions: G*T <= 128 takes K3 in its mode, more
     takes the counted einsum (no kernel, as in JAX); nothing raises."""
@@ -645,6 +667,102 @@ def test_mha_alibi_and_pos_dispatch_on_card(cuda_device):
         torch.cuda.synchronize()
         assert kern.launches == before + 1
         assert _rel(out, tatt.attend(q, k, v, npast, 0.125, **kw)) < TOL
+
+
+# (query heads, KV heads, head dim): the 8B's and Gemma-3-4B's
+K3_SPLIT_HEADS = {128: (32, 8, 128), 256: (8, 4, 256)}
+
+
+def _k3_split_case(mode, n_past, T, dev, D=128):
+    """K3's inputs at the 8B's heads (32/8, Dh 128) or, with D 256,
+    Gemma-3-4B's (8/4), 1024 rows, bf16, with one slot per n_past, in
+    ``mode`` ("", "int8", "shared", "alibi", "pos", "sinks"): (args,
+    keywords, split count)."""
+    from llama_cpp_gfx906_tpu_torch.ops import flash_decode as fd
+    from llama_cpp_gfx906_tpu_torch.ops.attention import alibi_slopes_for
+    from llama_cpp_gfx906_tpu_torch.ops.kv_quant import quantize_rows
+
+    S = 1024
+    Hq, Hkv, D = K3_SPLIT_HEADS[D]
+    q, k, v, npast, sinks = _attn_case(41, len(n_past), T, Hq, Hkv, D, S, n_past, dev,
+                                       torch.bfloat16)
+    kw = {}
+    if mode == "int8":
+        k, v = quantize_rows(k), quantize_rows(v)
+    if mode == "shared":
+        g = torch.Generator().manual_seed(42)
+        kw = {n: (torch.randn((1, 72, Hkv, D), generator=g) * 0.3).to(dev, torch.bfloat16)
+              for n in ("shared_k", "shared_v")}
+    if mode == "alibi":
+        kw["alibi_slopes"] = alibi_slopes_for(Hq).to(dev)
+    if mode == "pos":
+        kw["kv_pos"], kw["q_pos"] = _ladder(n_past, S, T, 2, dev)
+    if mode == "sinks":
+        kw.update(sinks=sinks * 3, sliding_window=100)
+    S0 = kw["shared_k"].shape[1] if "shared_k" in kw else 0
+    nsplit = fd.splits(len(n_past), Hkv, Hq // Hkv * T, S, S0,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    return (q, k, v, npast, D ** -0.5), kw, nsplit
+
+
+# n_past per slot: no row before the new one, one, a tile's edge (15, 16),
+# the edge of the splits a launch takes (a split has 16 tiles of 16 rows or
+# more: one split up to 31 tiles, 496 rows; two from 32), tile edges past
+# it, the last row (64 tiles: 4 splits)
+K3_EDGES = ((0,), (1,), (15,), (16,), (495,), (496,), (511,), (512,), (1023,),
+            (0, 1, 15, 16), (495, 496, 511, 1023))
+
+
+@pytest.mark.parametrize("D", sorted(K3_SPLIT_HEADS))
+@pytest.mark.parametrize("mode", ["", "int8", "shared", "alibi", "pos", "sinks"])
+@pytest.mark.parametrize("n_past", K3_EDGES, ids=lambda n: "/".join(map(str, n)))
+def test_k3_split_edges_match_plain(cuda_device, mode, n_past, D):
+    """The split kernel against the plain version at the edges of its key
+    tiles and splits, in each mode, at heads of 128 and 256: one counted
+    launch per call (wrapper and device), the same bits from two
+    launches."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode_plain
+
+    args, kw, nsplit = _k3_split_case(mode, n_past, 1, cuda_device, D)
+    assert nsplit > 1
+    before, on_device = flash_decode.launches, kernels.device_counts()
+    got = flash_decode(*args, **kw)
+    again = flash_decode(*args, **kw)
+    ref = flash_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_decode.launches == before + 2
+    assert kernels.device_counts()["flash_decode"] - on_device["flash_decode"] == 2
+    assert torch.equal(got, again)
+    assert got.shape == args[0].shape and torch.isfinite(got.float()).all()
+    assert _rel(got, ref) < TOL
+
+
+@pytest.mark.parametrize("mode", ["", "int8", "pos"])
+def test_k3_graph_replays_across_split_edges(cuda_device, mode):
+    """One captured K3 launch replayed while n_past moves across tile and
+    split edges (the grid and the split count stay; the blocks read n_past
+    on the device): each replay against the plain version, the arrival
+    counters back at rest after every replay."""
+    from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode_plain
+
+    steps = (0, 15, 16, 17, 127, 128, 495, 496, 511, 512, 700, 1022)
+    args, kw, _ = _k3_split_case(mode, (0,), 1, cuda_device)
+    q, k, v, npast, scale = args
+    flash_decode(*args, **kw)  # the workspace and counters before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(*args, **kw)
+    for n in steps:
+        npast.fill_(n)
+        if mode == "pos":
+            kw["q_pos"].copy_(torch.tensor([[n // 2]], dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = flash_decode_plain(*args, **kw)
+        assert _rel(out, ref) < TOL, n
+        assert torch.equal(out, flash_decode(*args, **kw)), n
+    assert int(kernels.tile_counters(q.device, 8).abs().sum()) == 0
 
 
 @pytest.mark.parametrize("preset", ["tiny-mpt", "tiny-bloom-q8_0"])

@@ -1,6 +1,7 @@
 """The case lists that ``chip_smoke.py`` and ``tools/kernel_times.py`` read on
 the card name what exists, checked on the CPU: the K4 case that each K4 body's
-summary entry (and its one plain-version timing) reads, and each
+summary entry (and its one plain-version timing) reads, the K3 case that
+each K3 mode's entry reads, and each
 ``--kernels prefill`` case's preset, layer cut and prompt."""
 
 import pytest
@@ -18,6 +19,16 @@ def test_k4_summary_case_is_one_k4_case(name):
     cases = [case for mode, case, *_ in kt.K4_CASES
              if "flash_attention" + (f"_{mode}" if mode else "") == name
              and chip_smoke.SUMMARY_CASE[name] in case]
+    assert len(cases) == 1, (name, cases)
+
+
+K3_NAMES = sorted(n for n in chip_smoke.SUMMARY_CASE if n.startswith("flash_decode"))
+
+
+@pytest.mark.parametrize("name", K3_NAMES)
+def test_k3_summary_case_is_one_k3_case(name):
+    cases = [case for mode, case, *_ in kt.K3_CASES
+             if chip_smoke.k3_name(mode) == name and chip_smoke.SUMMARY_CASE[name] in case]
     assert len(cases) == 1, (name, cases)
 
 
