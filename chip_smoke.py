@@ -16,7 +16,12 @@ Phases, each printing JSON lines:
      every model phase's prefill shape (``K4_CASES``: the 8B's T 512, the
      served q8 chunks, the Qwen group sizes' ragged chunks, gpt-oss's heads
      of 64 with sinks, Gemma-3-4B's heads of 256, and its FMA body at
-     tinydoc's heads), K5 at the 270M Q8_0 prefill shapes, K6 on two
+     tinydoc's heads), K5 in both modes at every prefill projection shape
+     of ``QMM_CASES`` (the 270M Q8_0's four at its 676-token prompt,
+     Gemma-3-4B's attn_v at group 16, a Mixtral Q8_0 expert's gate and
+     down, gpt-oss-20b's q|k|v with mins and a gate expert in the nib4
+     mode, M 101-1000) through ``quant_matmul`` as the main path calls
+     it (one launch, bf16 out), K6 on two
      full-width 8B layers (B 1 and 8), K7 on the 18 layers of the 270M Q8_0
      shape, K8 at the Mixtral Q8_0 expert shapes (one token's 2 pairs and 4
      slots' 8), K6's MoE branch on two full-width Mixtral layers (nib4c and
@@ -33,10 +38,9 @@ Phases, each printing JSON lines:
      (B 1, n_past 3000, rows at i // 4 and at the ``-gan 4 -gaw 1024``
      ladder's positions, T 1 and 4), each with an SDPA yardstick whose
      float mask holds the bias and the mask, and both at the JAX kernel
-     tests' shape; at gpt-oss-20b's shapes (``oss_cases``): K5's nib4 mode
-     on a gate expert (2880 x 3072 stored, M 101 / 256 / 1000) and K8's
+     tests' shape; at gpt-oss-20b's shapes (``oss_cases``): K8's nib4 mode
      (P 4 / 8 pairs of 32 experts, with mins), K1 at K 2880 (q|k|v with
-     mins, the head), K2 at N 2880, K5-int8 at K 2880;
+     mins, the head), K2 at N 2880;
   2. the 8B Q4_K_M model end to end (synthetic weights from a seed, full
      width and depth): ``Engine.from_gguf``, a greedy ``generate`` (decode
      through K6), the per-layer loop called as a function (K1-K4), and a
@@ -135,16 +139,17 @@ it exits non-zero and prints no result.
 Usage: python3 chip_smoke.py
 
 ``python3 chip_smoke.py --plant-faults [fault ...]`` shows instead whether
-the K3, K4, K6/K7 and nib4 checks can fail: it copies the package and this
-script into temporary directories, plants one known fault (``FAULTS``,
-``NIB4_FAULTS`` and ``K4_FAULTS``; all of them unless some are named) in
-each copy's ``csrc/decode_stream.cu``, for K3's (``K3_FAULTS``)
-``csrc/flash_decode.cu``, for K4's ``csrc/flash_attention.cu``, for K5's
-and K8's nib4 modes ``csrc/qmm.cu``, ``csrc/rqmm.cu`` and K5's wrapper,
-builds the copies, and prints K5-nib4's and K8-nib4's errors against plain
-on their gpt-oss cases (``nib4_cases``), K3's on each
-``kernel_times.K3_CASES`` entry, K4's on each ``K4_CASES`` entry and
-the errors that
+the K3, K4, K5, K6/K7 and nib4 checks can fail: it copies the package and
+this script into temporary directories, plants one known fault
+(``FAULTS``, ``NIB4_FAULTS``, ``K4_FAULTS`` and ``K5_FAULTS``; all of them
+unless some are named) in each copy's ``csrc/decode_stream.cu``, for K3's
+(``K3_FAULTS``) ``csrc/flash_decode.cu``, for K4's
+``csrc/flash_attention.cu``, for K5's ``csrc/qmm.cu``, for K5's and K8's
+nib4 modes ``csrc/qmm.cu`` and ``csrc/rqmm.cu``, builds the copies, and
+prints K5-nib4's and K8-nib4's errors against plain on their gpt-oss
+cases (``nib4_cases``), K5's on each ``kernel_times.QMM_CASES`` entry,
+K3's on each ``kernel_times.K3_CASES`` entry, K4's on each ``K4_CASES``
+entry and the errors that
 ``decode_errors`` reads for each
 (K6 on two 8B layers and on two Mixtral
 Q4_K_M layers, K7 on the 18 layers of the 270M shape, K6's gemma mode on 6
@@ -236,17 +241,34 @@ K3_FAULTS = ("alibi_physical_under_pos", "pos_window_skip", "k3_sink_per_split",
 NIB4_FAULTS = {
     # the low and the high nibble read as the other K half's
     "nib4_halves_swapped": (
-        ("csrc/qmm.cu", "h ? byte >> 4 : byte & 0x0Fu", "h ? byte & 0x0Fu : byte >> 4"),
+        ("csrc/qmm.cu", "h ? (words[i] >> 4) & 0x0F0F0F0Fu : words[i] & 0x0F0F0F0Fu",
+         "h ? words[i] & 0x0F0F0F0Fu : (words[i] >> 4) & 0x0F0F0F0Fu"),
         ("csrc/rqmm.cu", "v8[0] = words[i] & 0x0F0F0F0Fu;\n            v8[H - 1] = (",
          "v8[H - 1] = words[i] & 0x0F0F0F0Fu;\n            v8[0] = (")),
-    # the mins left out: K5 takes them after the kernel (its wrapper, as
-    # the JAX wrapper does), K8 inside
+    # the mins left out: K5 subtracts them after the product (its epilogue,
+    # as the JAX wrapper does after its kernel), K8 folds them into each
+    # weight
     "nib4_mins_dropped": (
-        ("ops/quant_matmul.py", 'out = _qmm_launch(x2, qt, "nib4")',
-         'out = _qmm_launch(x2, QuantTensor(qt.q, qt.s, None, qt.fmt, qt.group, qt.shape), '
-         '"nib4")'),
+        ("csrc/qmm.cu", "return make_float4(p.x - mn.x, p.y - mn.y, p.z - mn.z, p.w - mn.w);",
+         "return p;"),
         ("csrc/rqmm.cu", "return launch<true>(x, q, s, m, idx,",
          "return launch<true>(x, q, s, nullptr, idx,")),
+}
+
+# --plant-faults of K5 (both modes): name -> its edits (file under the
+# package, text, what replaces it)
+K5_FAULTS = {
+    # each 64-row step dequantized with its first scale row only (shows at
+    # group 32 and 16: a step spans 2 or 4 scale rows)
+    "k5_first_scale_row": (("csrc/qmm.cu", "const int seg = 2 * p / group;",
+                            "const int seg = 0;"),),
+    # the split merge leaves the last split's partials out
+    "k5_split_dropped": (("csrc/qmm.cu", "for (int src = 0; src < nsplit; ++src) {",
+                          "for (int src = 0; src < nsplit - 1; ++src) {"),),
+    # each group's x sums multiplied by the next group's min row
+    "k5_mins_wrong_group": (
+        ("csrc/qmm.cu", "+ H * MAX_SEG * BN + j * BN + mcol + 2 * tq;",
+         "+ H * MAX_SEG * BN + (j + 1) % nseg * BN + mcol + 2 * tq;"),),
 }
 
 # --plant-faults of K4's tensor-core body: name -> its edits (file under the
@@ -567,10 +589,8 @@ def phase_build(torch):
 
 
 def phase_kernels(torch, results: dict, tmp: Path) -> None:
-    from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
-    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q8_0_rows
     import numpy as np
 
     dev = torch.device("cuda")
@@ -612,23 +632,7 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
     k4_cases(torch, dev, flush, record)
     k3_cases(torch, dev, flush, record)
 
-    # K5: the 270M Q8_0 prefill projections at the smoke prompt's 676 rows
-    M = 676
-    for case, K, N in (("attn_qkv 640x1536", 640, 1536),
-                       ("attn_output 1024x640", 1024, 640),
-                       ("ffn_gate_up 640x4096", 640, 4096),
-                       ("ffn_down 2048x640", 2048, 640)):
-        qt = qmm.pack_gguf_tensor(q8_0_rows(rng, N, K).reshape(-1), GGMLType.Q8_0,
-                                  (N, K), device=dev)
-        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-        err = check(f"qmm_int8 {case}", qmm.qmm_int8(x, qt), qmm.qmm_plain(x, qt), torch)
-        w = qmm.dequantize_qt(qt, torch.bfloat16)
-        record("qmm_int8", f"M={M} {case}", err,
-               device_ms(lambda: qmm.qmm_int8(x, qt), torch, flush),
-               device_ms(lambda: qmm.qmm_plain(x, qt), torch, flush),
-               M * K * 2 + K * N + (K // qt.group) * N * 4 + M * N * 4,
-               2 * M * K * N, device_ms(lambda: torch.matmul(x, w), torch, flush))
-        del w, qt
+    k5_cases(torch, dev, flush, record)
 
     decode_cases(torch, flush, record, tmp)
     expert_cases(torch, dev, flush, record)
@@ -636,15 +640,84 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
     del flush
 
 
+def k5_cases(torch, dev, flush, record) -> None:
+    """K5 on ``kernel_times.QMM_CASES`` (both modes; inputs from seed 80 +
+    the case's index, ``kernel_times.qmm_case``) through ``quant_matmul``
+    as the main path calls it (bf16 x and out: one launch), each against
+    ``qmm_plain`` (its bf16 output) at TOL, launched twice (the same bits),
+    timed beside its bound (bf16 tensor cores or the bytes: x, the packed
+    weight, scales and mins once, the bf16 output) and ``torch.matmul`` on
+    the weight dequantized to bf16 beforehand, with the tile rows and split
+    count the launch took.  The plain version is timed once per mode, at
+    its ``SUMMARY_CASE``; the first case with mins of each mode also lists
+    the kernels its call ran on the card (``kernels_of_call``: one K5
+    launch, no mins or cast kernels).  Emits the loop's wall time."""
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+
+    t0, plain_timed, one_launch = time.perf_counter(), set(), set()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, spec in enumerate(kt.QMM_CASES):
+        c = kt.qmm_case(torch, dev, spec, 80 + i)
+        name = c["name"]
+        got = c["kern"]()
+        err = check(f"{name} {c['case']}", got, c["plain"](), torch)
+        same = bit_identical(f"{name} {c['case']}", got, c["kern"](), torch)
+        plain_ms = None
+        if name not in plain_timed and SUMMARY_CASE[name] in c["case"]:
+            plain_timed.add(name)
+            plain_ms = device_ms(c["plain"], torch, flush)
+        kp, Np = c["qt"].q.shape
+        bm, splits = qmm.qmm_config(spec[5], kp, Np, sms, c["mode"] == "nib4",
+                                     c["qt"].m is not None)
+        extra = {}
+        if name not in one_launch and c["qt"].m is not None:
+            one_launch.add(name)
+            extra["card_kernels"] = kernels_of_call(torch, c["kern"])
+            if len(extra["card_kernels"]) != 1 or "qmm_kernel" not in extra["card_kernels"][0]:
+                fail(f"{name} {c['case']}: quant_matmul ran {extra['card_kernels']} on the "
+                     "card, want one K5 launch")
+        record(name, c["case"], err, device_ms(c["kern"], torch, flush), plain_ms,
+               c["nbytes"], c["flops"], device_ms(c["lib"], torch, flush),
+               bit_identical=same, bm=bm, splits=splits,
+               library="torch.matmul on the weight dequantized to bf16 beforehand", **extra)
+        del c, got
+        torch.cuda.empty_cache()
+    emit(phase="k5_cases", seconds=time.perf_counter() - t0)
+
+
+def kernels_of_call(torch, fn) -> list[str]:
+    """The names of the kernels one call of ``fn`` ran on the card
+    (torch.profiler, after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def nib4_cases(torch, dev):
-    """K5-nib4 and K8-nib4 at gpt-oss-20b's gate experts
-    (``kernel_times.QMM_NIB4_CASES``: one expert, M 101 / 256 / 1000;
-    ``RQMM_NIB4_CASES``: 32 experts, P 4 / 8), inputs from their own seeds
-    (13, 14): per case its name, case, kernel call, plain call, bytes (each
-    distinct expert's packed slice, scales and mins once; x in, f32 out),
-    operations and a library call (``torch.matmul`` on the expert
-    dequantized to bf16 beforehand; K8: a gather of such experts and
-    ``torch.bmm``)."""
+    """K5-nib4 and K8-nib4 at gpt-oss-20b's gate experts: the nib4 entries
+    of ``kernel_times.QMM_CASES`` (``kernel_times.qmm_case``, M 101 / 256 /
+    1000), then ``rqmm_nib4_cases``."""
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+
+    for i, spec in enumerate(kt.QMM_CASES):
+        if spec[0] == "nib4":
+            yield kt.qmm_case(torch, dev, spec, 80 + i)
+    yield from rqmm_nib4_cases(torch, dev)
+
+
+def rqmm_nib4_cases(torch, dev):
+    """K8-nib4 at gpt-oss-20b's gate experts (``kernel_times.RQMM_NIB4_CASES``:
+    32 experts, P 4 / 8, inputs from their own seeds, 13 and 14): per case
+    its name, case, kernel call, plain call, bytes (each distinct expert's
+    packed slice, scales and mins once; x in, f32 out), operations and a
+    library call (a gather of the experts dequantized to bf16 beforehand
+    and ``torch.bmm``)."""
     import numpy as np
 
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
@@ -653,16 +726,7 @@ def nib4_cases(torch, dev):
     qt = kt.oss_experts(dev)
     K, Np = qt.K, qt.q.shape[-1]
     one = sum(t[0].numel() * t.element_size() for t in (qt.q, qt.s, qt.m))
-    e0 = qmm.qt_expert(qt, 3)
-    w0 = qmm.dequantize_qt(e0, torch.bfloat16)
     g = torch.Generator(device=dev).manual_seed(13)
-    for case, M in kt.QMM_NIB4_CASES:
-        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
-        yield dict(name="qmm_nib4", case=case, kern=lambda x=x: qmm.qmm_nib4(x, e0),
-                   plain=lambda x=x: qmm.qmm_nib4_plain(x, e0),
-                   lib=lambda x=x: torch.matmul(x, w0),
-                   nbytes=one + M * K * 2 + M * Np * 4, flops=2 * M * K * Np,
-                   library="torch.matmul on the expert dequantized to bf16 beforehand")
     wb = qmm.dequantize_qt_experts(qt, torch.bfloat16)
     rng = np.random.default_rng(14)
     for case, P in kt.RQMM_NIB4_CASES:
@@ -681,21 +745,19 @@ def nib4_cases(torch, dev):
 
 def oss_cases(torch, dev, flush, record) -> None:
     """The kernels of the gpt_oss_20b phase at its shapes, each against its
-    plain version and launched twice (the same bits): K5's and K8's nib4
-    modes (``nib4_cases``); K1 at K 2880 (the fused q|k|v with mins, the
-    head's 2880 rows) and K2 at N 2880 (the o projection: a ragged last
-    128-column tile), ``kernel_times.OSS_GEMV_CASES``; K5-int8 on the
-    fused q|k|v at K 2880 (``OSS_QMM_INT8_CASES``).  K3's and K4's gpt-oss
-    cases are in ``kernel_times.K3_CASES`` and ``K4_CASES``.  Inputs from
-    their own generators (seeds 15 and 16)."""
+    plain version and launched twice (the same bits): K8's nib4 mode
+    (``rqmm_nib4_cases``); K1 at K 2880 (the fused q|k|v with mins, the head's
+    2880 rows) and K2 at N 2880 (the o projection: a ragged last
+    128-column tile), ``kernel_times.OSS_GEMV_CASES``.  K5's (both modes)
+    are ``k5_cases``', K3's and K4's gpt-oss cases are in
+    ``kernel_times.K3_CASES`` and ``K4_CASES``.  Inputs from their own
+    generators (seeds 15 and 16)."""
     import numpy as np
 
-    from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
-    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import q4_0_rows
 
-    for c in nib4_cases(torch, dev):
+    for c in rqmm_nib4_cases(torch, dev):
         got = c["kern"]()
         err = check(f"{c['name']} {c['case']}", got, c["plain"](), torch)
         same = bit_identical(f"{c['name']} {c['case']}", got, c["kern"](), torch)
@@ -723,20 +785,6 @@ def oss_cases(torch, dev, flush, record) -> None:
                segment=qmm._gemv_segment(qt)[0], splits=qmm.gemv_splits(
                    qt, torch.cuda.get_device_properties(dev).multi_processor_count))
         del w, qt
-    qt = qmm.pack_gguf_tensor(q4_0_rows(rng, 5120, 2880).reshape(-1), GGMLType.Q4_0,
-                              (5120, 2880), device=dev)
-    w = qmm.dequantize_qt(qt, torch.bfloat16)
-    for case, M in kt.OSS_QMM_INT8_CASES:
-        x = torch.randn((M, 2880), generator=g, device=dev).to(torch.bfloat16)
-        got = qmm.qmm_int8(x, qt)
-        err = check(f"qmm_int8 {case}", got, qmm.qmm_plain(x, qt), torch)
-        same = bit_identical(f"qmm_int8 {case}", got, qmm.qmm_int8(x, qt), torch)
-        record("qmm_int8", case, err, device_ms(lambda: qmm.qmm_int8(x, qt), torch, flush),
-               device_ms(lambda: qmm.qmm_plain(x, qt), torch, flush),
-               M * 2880 * 2 + 2880 * 5120 + 2 * 90 * 5120 * 4 + M * 5120 * 4,
-               2 * M * 2880 * 5120, device_ms(lambda: torch.matmul(x, w), torch, flush),
-               bit_identical=same)
-    del qt, w
     torch.cuda.empty_cache()
 
 
@@ -3107,9 +3155,8 @@ def check_k4_bodies(paths: dict) -> dict:
 
 def plant_faults(names: list[str]) -> None:
     """``--plant-faults [fault ...]`` (see the module docstring): the named
-    faults (all of ``FAULTS`` and ``NIB4_FAULTS`` when none is named) and
-    the unmodified source."""
-    known = {**FAULTS, **NIB4_FAULTS, **K4_FAULTS}
+    faults (all of them when none is named) and the unmodified source."""
+    known = {**FAULTS, **NIB4_FAULTS, **K4_FAULTS, **K5_FAULTS}
     unknown = set(names) - set(known)
     if unknown:
         raise SystemExit(f"unknown faults {sorted(unknown)}; known: {sorted(known)}")
@@ -3132,7 +3179,7 @@ def plant_faults(names: list[str]) -> None:
             roots[fault] = root
         # the control reads the kernels of the named faults (all: every kernel)
         groups = sorted({fault_group(f) for f in names} if names
-                        else {"k3", "k4", "k6", "nib4"})
+                        else {"k3", "k4", "k5", "k6", "nib4"})
         procs = []
         for fault, root in roots.items():
             libs = sorted({lib for grp in (groups if fault == "none" else
@@ -3148,22 +3195,25 @@ def plant_faults(names: list[str]) -> None:
 
 
 GROUP_LIBS = {"nib4": ("qmm", "rqmm"), "k3": ("flash_decode",), "k4": ("flash_attention",),
+              "k5": ("qmm",),
               "k6": ("decode_stream",)}  # the libraries a group's kernels need
 
 
 def fault_group(fault: str) -> str:
     """The kernels a planted fault's copy is read on: "nib4" (K5-nib4 and
-    K8-nib4), "k3", "k4" or "k6" (K6 and K7)."""
+    K8-nib4), "k3", "k4", "k5" or "k6" (K6 and K7)."""
     if fault in NIB4_FAULTS:
         return "nib4"
+    if fault in K5_FAULTS:
+        return "k5"
     return "k4" if fault in K4_FAULTS else "k3" if fault in K3_FAULTS else "k6"
 
 
 def fault_edits(fault: str) -> tuple:
     """The edits that plant ``fault``: (file under the package, text, what
     replaces it) each; none for the unmodified source."""
-    if fault in NIB4_FAULTS or fault in K4_FAULTS:
-        return {**NIB4_FAULTS, **K4_FAULTS}[fault]
+    if fault in NIB4_FAULTS or fault in K4_FAULTS or fault in K5_FAULTS:
+        return {**NIB4_FAULTS, **K4_FAULTS, **K5_FAULTS}[fault]
     if FAULTS[fault] is None:
         return ()
     src = "flash_decode" if fault in K3_FAULTS else "decode_stream"
@@ -3174,7 +3224,8 @@ def decode_errors_of_copy(torch, fault: str, groups: list[str]) -> None:
     """The errors against plain of this copy's kernels in ``groups``
     (``fault_group``), one JSON line each: K5-nib4 and K8-nib4
     (``nib4_cases``), K3 (``kernel_times.K3_CASES``), K4 (``kernel_times.K4_CASES``),
-    K6 and K7 (``decode_errors`` on ``kernel_times.DECODE_CASES``)."""
+    K5 (``kernel_times.QMM_CASES``, with each case's split count), K6 and
+    K7 (``decode_errors`` on ``kernel_times.DECODE_CASES``)."""
     from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
     from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
     from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
@@ -3186,6 +3237,19 @@ def decode_errors_of_copy(torch, fault: str, groups: list[str]) -> None:
         for c in nib4_cases(torch, torch.device("cuda")):
             emit(phase="planted_fault", fault=fault, kernel=c["name"], case=c["case"],
                  rel_err=rel_of(torch, c["kern"](), c["plain"]()), tol=TOL)
+        torch.cuda.empty_cache()
+    if "k5" in groups:
+        from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import qmm_config
+
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for i, spec in enumerate(kt.QMM_CASES):
+            c = kt.qmm_case(torch, torch.device("cuda"), spec, 80 + i)
+            kp, Np = c["qt"].q.shape
+            emit(phase="planted_fault", fault=fault, kernel=c["name"], case=c["case"],
+                 splits=qmm_config(spec[5], kp, Np, sms, c["mode"] == "nib4",
+                                   c["qt"].m is not None)[1],
+                 rel_err=rel_of(torch, c["kern"](), c["plain"]()), tol=TOL)
+            del c
         torch.cuda.empty_cache()
     if "k3" in groups:
         for i, spec in enumerate(kt.K3_CASES):

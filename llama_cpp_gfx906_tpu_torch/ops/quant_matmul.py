@@ -410,78 +410,204 @@ def _sub_mins(y: torch.Tensor, xb: torch.Tensor, qt: QuantTensor) -> torch.Tenso
     return y - xb.reshape(xb.shape[0], -1, qt.group).sum(-1) @ qt.m.float()
 
 
-def qmm_plain(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """Plain version of K5: x (M, K) -> f32 (M, N) with the kernel's
-    rounding points (x in bf16, each weight the f32 product of its value
-    and scale rounded to bf16, f32 sums, the mins taken after the product
-    as (per-group sums of x) @ m).  Both formats: int8 and split-K nib4."""
+def qmm_plain(x2: torch.Tensor, qt: QuantTensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of K5: x (M, K) -> (M, N) with the kernel's rounding
+    points (x in bf16, each weight the f32 product of its value and scale
+    rounded to bf16, f32 sums, the mins taken after the product as
+    (per-group sums of x) @ m, then ``out_dtype``).  Both formats: int8 and
+    split-K nib4."""
     xb = x2.to(torch.bfloat16).float()
     w = (values(qt.q, qt).float() * qt.s.repeat_interleave(qt.group, 0)).to(torch.bfloat16)
-    return _sub_mins(xb @ w.float(), xb, qt)[:, : qt.N]
+    return _sub_mins(xb @ w.float(), xb, qt)[:, : qt.N].to(out_dtype)
 
 
 qmm_nib4_plain = qmm_plain  # K5-nib4's plain version (JAX _qmm_nib4_kernel's math)
 
+# K5's schedule (``csrc/qmm.cu``): K walks in steps of QMM_STEP packed rows,
+# the last QMM_TAIL rows long where the packed K is QMM_TAIL times an odd
+# number; output tiles of QMM_BN columns and 64 or 128 rows; a tile's K steps
+# split over up to QMM_MAX_SPLITS blocks (one cluster)
+QMM_STEP, QMM_TAIL, QMM_BN, QMM_MAX_SPLITS = 64, 32, 128, 8
+QMM_GROUPS = (16, 32)  # the scale groups the kernel takes
+# a block's fixed cost (prologue, epilogue, the split merge) in K steps, in
+# the split chooser's cost of a launch (fitted to split sweeps on an H100)
+QMM_BLOCK_STEPS = 4
 
-def _qmm_launch(x2: torch.Tensor, qt: QuantTensor, fmt: str) -> torch.Tensor:
-    """One K5 launch (``csrc/qmm.cu`` ``lcg_qmm_<fmt>``), mins subtracted
-    after it; f32 (M, N)."""
+
+def qmm_blocks_per_sm(nib: bool, mins: bool) -> int:
+    """Blocks an SM holds (csrc/qmm.cu ``__launch_bounds__``): 2 for int8
+    without mins, else 1 (registers)."""
+    return 1 if nib or mins else 2
+
+
+def qmm_steps(kp: int) -> list[tuple[int, int]]:
+    """(first packed row, rows) of each K step over ``kp`` packed rows."""
+    return [(k0, min(QMM_STEP, kp - k0)) for k0 in range(0, kp, QMM_STEP)]
+
+
+def qmm_split_steps(n: int, splits: int) -> list[range]:
+    """The K steps (indices of :func:`qmm_steps`) that each of ``splits``
+    blocks of a tile walks, as the kernel deals them: split s takes steps
+    [s n / splits, (s + 1) n / splits)."""
+    return [range(s * n // splits, (s + 1) * n // splits) for s in range(splits)]
+
+
+def qmm_config(M: int, kp: int, Np: int, sms: int, nib: bool = False,
+               mins: bool = False) -> tuple[int, int]:
+    """(rows a block, splits) of a K5 launch: x (M, .) against ``kp`` packed
+    rows and ``Np`` stored columns on a card of ``sms`` multiprocessors.
+    128-row tiles, or 64 for M <= 64 and where 128-row tiles at the most
+    splits would leave SMs idle.  The splits fill the card: at least
+    enough blocks for every SM where the steps allow it (``QMM_MAX_SPLITS``
+    and one step a split at most), and among those the count whose busiest
+    SM has the least work: its waves of resident blocks
+    (:func:`qmm_blocks_per_sm`), each costing a block's steps (nib4: two
+    products a step) plus ``QMM_BLOCK_STEPS`` for every resident block;
+    the fewer splits on a tie."""
+    steps = -(-kp // QMM_STEP)
+    top = min(QMM_MAX_SPLITS, steps)
+    bm = 64 if M <= 64 or -(-M // 128) * (Np // QMM_BN) * top < sms else 128
+    tiles = -(-M // bm) * (Np // QMM_BN)
+    fill = next((s for s in range(1, top + 1) if tiles * s >= sms), top)
+    per_step = 2 if nib else 1
+    resident = sms * qmm_blocks_per_sm(nib, mins)
+
+    def cost(s):
+        return -(-tiles * s // resident) * (resident // sms) * (
+            per_step * -(-steps // s) + QMM_BLOCK_STEPS)
+
+    return bm, min(range(fill, top + 1), key=lambda s: (cost(s), s))
+
+
+def qmm_split_plain(x2: torch.Tensor, qt: QuantTensor, out_dtype: torch.dtype = torch.float32,
+                    splits: int | None = None, sms: int = 132) -> torch.Tensor:
+    """K5's schedule in plain PyTorch (f32): per split, its K steps in
+    order (:func:`qmm_split_steps`), each step's weight rows dequantized
+    with their own scale rows and rounded to bf16, a product and, with
+    mins, the x sums of each group of the step times its min row, summed
+    apart; the splits' partials added in split order, then the mins' ones;
+    the product minus the mins, cast to ``out_dtype``.  ``splits`` defaults
+    to :func:`qmm_config`'s on a card of ``sms`` multiprocessors."""
+    M = x2.shape[0]
+    nib = qt.fmt == "nib4"
+    kp, Np = qt.q.shape
+    g = qt.group
+    if splits is None:
+        splits = qmm_config(M, kp, Np, sms, nib, qt.m is not None)[1]
+    xb = x2.to(torch.bfloat16).float()
+    qb = qt.q.view(torch.uint8).int() if nib else qt.q.int()
+    steps = qmm_steps(kp)
+    parts, mparts = [], []
+    for rng in qmm_split_steps(len(steps), splits):
+        acc = torch.zeros((M, Np), device=x2.device)
+        accm = torch.zeros((M, Np), device=x2.device)
+        for k0, rows in (steps[i] for i in rng):
+            for h in range(2 if nib else 1):
+                r0 = h * kp + k0  # the logical rows of this half
+                v = qb[k0:k0 + rows]
+                if nib:
+                    v = v >> 4 if h else v & 0x0F
+                s = qt.s[r0 // g:(r0 + rows) // g].repeat_interleave(g, 0)
+                w = (v.float() * s).to(torch.bfloat16).float()
+                xs = xb[:, r0:r0 + rows]
+                acc = acc + xs @ w
+                if qt.m is not None:
+                    accm = accm + xs.reshape(M, rows // g, g).sum(-1) @ \
+                        qt.m[r0 // g:(r0 + rows) // g].float()
+        parts.append(acc)
+        mparts.append(accm)
+    y = torch.zeros((M, Np), device=x2.device)
+    for p in parts:
+        y = y + p
+    if qt.m is not None:
+        mn = torch.zeros((M, Np), device=x2.device)
+        for p in mparts:
+            mn = mn + p
+        y = y - mn
+    return y[:, : qt.N].to(out_dtype)
+
+
+_QMM_OUT = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's output dtypes
+
+
+def _qmm_launch(x2: torch.Tensor, qt: QuantTensor, fmt: str, out_dtype: torch.dtype,
+                splits: int | None = None, bm: int | None = None) -> torch.Tensor:
+    """One K5 launch (``csrc/qmm.cu`` ``lcg_qmm_<fmt>``): (M, N) in
+    ``out_dtype`` (f32 or bf16), the mins taken in the kernel.  ``splits``
+    and ``bm`` (default: :func:`qmm_config`'s) are the K split of each
+    output tile and its rows."""
     M, K = x2.shape
-    step = 64 if fmt == "nib4" else 32  # the kernel's K step (nib4: two halves)
-    if qt.fmt != fmt or not qmm_tileable(qt) or K != qt.K or K % step:
-        raise ValueError(f"qmm_{fmt} kernel: M={M}, K={K}, {qt.fmt} {qt.shape}")
+    kp = qt.q.shape[0]
+    if (qt.fmt != fmt or not qmm_tileable(qt) or K != qt.K or kp % QMM_TAIL
+            or qt.group not in QMM_GROUPS or kp % qt.group):
+        raise ValueError(f"qmm_{fmt} kernel: M={M}, K={K}, {qt.fmt} {qt.shape} g{qt.group}")
     if any(t.device != x2.device or not t.is_contiguous() or t.data_ptr() % 16
-           or t.ndim != 2 for t in (qt.q, qt.s)) or qt.s.dtype != torch.float32:
+           or t.ndim != 2 or t.dtype != torch.float32 for t in (qt.s, qt.m) if t is not None) \
+            or qt.q.device != x2.device or qt.q.ndim != 2 or not qt.q.is_contiguous() \
+            or qt.q.data_ptr() % 16:
         raise ValueError(f"qmm_{fmt} kernel: planes must be 2-D, contiguous, 16-byte "
-                         "aligned, f32 scales, on x's device")
+                         "aligned, f32 scales and mins, on x's device")
+    if out_dtype not in _QMM_OUT:
+        raise ValueError(f"qmm_{fmt} kernel: output dtype {out_dtype}")
     Np = qt.q.shape[-1]
+    auto_bm, auto = qmm_config(M, kp, Np, _sms(x2.device), fmt == "nib4", qt.m is not None)
     xb = x2.to(torch.bfloat16).contiguous()
-    out = torch.empty((-(-M // 64) * 64, Np), dtype=torch.float32, device=x2.device)
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
     so = kernels.lib("qmm")
     fn = getattr(so, f"lcg_qmm_{fmt}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    err = fn(*map(kernels.ptr, (xb, qt.q, qt.s, out)), M, K, Np, qt.group,
-             kernels.stream(x2.device))
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    err = fn(*map(kernels.ptr, (xb, qt.q, qt.s, qt.m, out)), M, K, qt.N, Np, qt.group,
+             auto_bm if bm is None else bm,
+             auto if splits is None else splits, _QMM_OUT[out_dtype], kernels.stream(x2.device))
     kernels.check(so, err, f"qmm_{fmt}")
-    return _sub_mins(out[:M], xb.float(), qt)[:, : qt.N]
+    return out
 
 
 @kernels.counted("qmm_int8", lib="qmm", slot=0)
-def qmm_int8(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """K5: x (M, K) @ int8 plain-scale QuantTensor -> f32 (M, N)."""
+def qmm_int8(x2: torch.Tensor, qt: QuantTensor,
+             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K5: x (M, K) @ int8 plain-scale QuantTensor -> (M, N) in ``out_dtype``
+    (f32 or bf16), the mins (if any) taken in the kernel's epilogue; one
+    launch.  On the CPU, :func:`qmm_plain`."""
     if x2.device.type == "cpu":
-        return qmm_plain(x2, qt)
-    out = _qmm_launch(x2, qt, "int8")
+        return qmm_plain(x2, qt, out_dtype)
+    out = _qmm_launch(x2, qt, "int8", out_dtype)
     qmm_int8.launches += 1
     return out
 
 
 @kernels.counted("qmm_nib4", lib="qmm", slot=1)
-def qmm_nib4(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """K5's nib4 mode: x (M, K) @ split-K nib4 QuantTensor -> f32 (M, N):
-    per K half its own x columns and scale rows, two products into one f32
-    sum; the mins subtracted after the kernel, as the JAX wrapper does.  On
-    the CPU, :func:`qmm_nib4_plain`."""
+def qmm_nib4(x2: torch.Tensor, qt: QuantTensor,
+             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K5's nib4 mode: x (M, K) @ split-K nib4 QuantTensor -> (M, N) in
+    ``out_dtype``: per K half its own x columns and scale rows, two products
+    into one f32 sum, then the mins, as the JAX wrapper takes them, in the
+    kernel's epilogue; one launch.  On the CPU, :func:`qmm_nib4_plain`."""
     if x2.device.type == "cpu":
-        return qmm_nib4_plain(x2, qt)
-    out = _qmm_launch(x2, qt, "nib4")
+        return qmm_nib4_plain(x2, qt, out_dtype)
+    out = _qmm_launch(x2, qt, "nib4", out_dtype)
     qmm_nib4.launches += 1
     return out
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """x (..., K) @ quantized (K, N): the GEMV kernels for M <= 8 (int8,
-    nib4c); for M > 8, K5 on the card where its gate holds, else the
-    dequant matmul (which also takes a split-K nib4 weight at M <= 8, as
-    the JAX package leaves it to XLA).  Returns x.dtype."""
+    nib4c); for M > 8, K5 on the card where its gate holds (one launch,
+    writing x.dtype where that is f32 or bf16), else the dequant matmul
+    (which also takes a split-K nib4 weight at M <= 8, as the JAX package
+    leaves it to XLA).  Returns x.dtype."""
     lead = x.shape[:-1]
     M = int(np.prod(lead)) if lead else 1
     if M > 8 or qt.fmt == "nib4":
         if M > 8 and x.is_cuda and qmm_tileable(qt):
             k5 = qmm_nib4 if qt.fmt == "nib4" else qmm_int8
-            return k5(x.reshape(M, qt.K), qt).reshape(*lead, qt.N).to(x.dtype)
+            dt = x.dtype if x.dtype in _QMM_OUT else torch.float32
+            return k5(x.reshape(M, qt.K), qt, dt).reshape(*lead, qt.N).to(x.dtype)
         return dequant_matmul(x, qt)
     gemv = gemv_nib4c if qt.fmt == "nib4c" else gemv_int8
     return gemv(x.reshape(M, qt.K), qt).reshape(*lead, qt.N).to(x.dtype)

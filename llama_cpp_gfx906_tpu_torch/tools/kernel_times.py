@@ -1,4 +1,4 @@
-"""Device times of the split-K kernels, K3, K4 and the nib4 modes, at the main paths' shapes.
+"""Device times of the split-K kernels, K3, K4, K5 and the nib4 modes, at the main paths' shapes.
 
 The cases live here, and ``chip_smoke.py`` builds its kernel cases from the
 same lists: K1 / K2 (``GEMV_CASES``: the 8B head, ``attn_v`` and Q4_K
@@ -9,18 +9,19 @@ each model, or a small model's whole stack) and K3 in each mode
 group sizes', gpt-oss's and Gemma-3-4B's heads and the JAX tests' shape;
 :func:`k3_case` makes their inputs) and K4 in each mode
 (``K4_CASES``: every prefill shape of the model phases; :func:`k4_case`
-makes their inputs); at gpt-oss-20b's shapes, K5's
-and K8's nib4 modes (``QMM_NIB4_CASES``, ``RQMM_NIB4_CASES`` on
-:func:`oss_experts`), K1 / K2 (``OSS_GEMV_CASES``), K5's int8 mode
-(``OSS_QMM_INT8_CASES``) and K3 with sinks (``OSS_ATTN_CASES``).
+makes their inputs) and K5 in both modes (``QMM_CASES``: the 270M Q8_0,
+Gemma-3-4B, Mixtral Q8_0 and gpt-oss-20b prefill projections;
+:func:`qmm_case` makes their inputs); at gpt-oss-20b's shapes, K8's nib4
+mode (``RQMM_NIB4_CASES`` on :func:`oss_experts`), K1 / K2
+(``OSS_GEMV_CASES``) and K3 with sinks (``OSS_ATTN_CASES``).
 Each is timed as ``chip_smoke.py`` times a kernel (:func:`device_ms`).
 The ``prefill`` group times the model phases' whole prefills instead
 (``PREFILL_CASES``, :func:`prefill_times`), by the host's clock.
 Synthetic weights from seed 0; caches of random rows filled to n_past
-3000.  With ``--splits``, K1 / K2 are also timed at every split count the
-kernel takes (``gemv_splits`` picks one of them).  ``--kernels`` picks
-the groups to build and time (default all); the wall time of each build
-is printed.
+3000.  With ``--splits``, K1 / K2 and K5 are also timed at every split
+count the kernel takes (``gemv_splits`` and ``qmm_config`` pick one of
+them).  ``--kernels`` picks the groups to build and time (default all);
+the wall time of each build is printed.
 
 ``--root`` imports the package from another checkout (run the script by
 its path, so that no package is imported before it), so two versions of the
@@ -143,9 +144,6 @@ K3_CASES = (
 # gpt-oss-20b: Q4_0 experts (32), K = D = 2880, the expert FF 2880 padded
 # to 3072 (gate and up: split-K nib4, no nib4c chunk at 2880)
 OSS_D, OSS_EF, OSS_E = 2880, 2880, 32
-# (case, M): K5-nib4 on one gate expert at the prefill chunks of the
-# gpt_oss_20b phase (101 and 256 rows: ragged chunks; 1000: its prompt)
-QMM_NIB4_CASES = tuple((f"gate 2880x3072 M={M}", M) for M in (101, 256, 1000))
 # (case, P): K8-nib4 on the gate experts for one token's 4 pairs and two
 # tokens' 8, distinct experts per token, with mins (Q4_0: m = 8 d)
 RQMM_NIB4_CASES = tuple((f"gate 2880x3072 with mins P={P}", P) for P in (4, 8))
@@ -154,8 +152,25 @@ OSS_GEMV_CASES = (
     ("gemv_int8", "attn_qkv 2880x5120 with mins", "Q4_0", 2880, 5120, False),
     ("gemv_int8", "lm_head 2880x201088", "Q8_0", 2880, 201088, True),
     ("gemv_nib4c", "attn_output 4096x2880", "Q4_0", 4096, 2880, False))
-# K5's int8 mode at K 2880: the fused q|k|v with mins at the prefill chunks
-OSS_QMM_INT8_CASES = tuple((f"attn_qkv 2880x5120 with mins M={M}", M) for M in (101, 1000))
+# (mode, case, GGML type, K, N, M): K5 at the prefill shapes of the model
+# phases, x of M rows: the 270M Q8_0 projections at its 676-token prompt;
+# Gemma-3-4B's attn_v (Q6_K: int8 planes, group 16) at a served chunk of
+# 256; a Mixtral Q8_0 expert's gate and down at one served chunk (every
+# expert runs on every token of a prefill chunk); gpt-oss-20b's fused
+# q|k|v (Q4_0 at K 2880: int8 with mins) at its ragged chunk and prompt,
+# and one gate expert (Q4_0, split-K nib4 with mins, N 2880 stored as
+# 3072) at M 101 / 256 / 1000
+QMM_CASES = (
+    *(("int8", f"270m {name} {K}x{N} M=676", "Q8_0", K, N, 676)
+      for name, K, N in (("attn_qkv", 640, 1536), ("attn_output", 1024, 640),
+                         ("ffn_gate_up", 640, 4096), ("ffn_down", 2048, 640))),
+    ("int8", "gemma3-4b attn_v 2560x1024 g16 M=256", "Q6_K", 2560, 1024, 256),
+    ("int8", "mixtral expert ffn_gate 4096x14336 M=256", "Q8_0", 4096, 14336, 256),
+    ("int8", "mixtral expert ffn_down 14336x4096 M=256", "Q8_0", 14336, 4096, 256),
+    *(("int8", f"gpt-oss attn_qkv 2880x5120 with mins M={M}", "Q4_0", 2880, 5120, M)
+      for M in (101, 1000)),
+    *(("nib4", f"gpt-oss gate 2880x3072 with mins M={M}", "Q4_0", OSS_D, OSS_EF, M)
+      for M in (101, 256, 1000)))
 # (kernel, case, T, n_past, window): the bf16 ``K3_CASES`` at gpt-oss's 64/8
 # heads of 64 with sinks, window 128 (the even layers) and full, one slot
 # of 4096 rows (K4's gpt-oss cases are in ``K4_CASES``)
@@ -192,11 +207,12 @@ K4_CASES = (
 # (synth preset, layers (None: all), prompt tokens): the model phases'
 # prefills, timed end to end (``prefill_times``)
 PREFILL_CASES = (("8b", None, 676), ("qwen3-8b-q4_k_m", None, 1499),
-                 ("gemma3-4b-q4_k_m", None, 1500), ("gpt-oss-20b-q4_0", 6, 997))
+                 ("gemma3-4b-q4_k_m", None, 1500), ("gpt-oss-20b-q4_0", 6, 997),
+                 ("270m-q8_0", None, 676), ("mixtral-q8_0", 4, 676))
 PREFILL_REPEATS = 5
 GROUPS = {"gemv": ("gemv",), "rqmm": ("rqmm",), "decode": ("decode_stream",),
-          "k3": ("flash_decode",), "k4": ("flash_attention",), "nib4": ("qmm", "rqmm"),
-          "prefill": ("gemv", "qmm", "flash_attention")}
+          "k3": ("flash_decode",), "k4": ("flash_attention",), "k5": ("qmm",),
+          "nib4": ("rqmm",), "prefill": ("gemv", "qmm", "flash_attention")}
 
 
 def device_ms(fn, torch, flush, n: int = 10) -> float:
@@ -275,6 +291,45 @@ def oss_experts(device, seed: int = 9):
                           for e in range(OSS_E)])
     return qmm.pack_gguf_experts(raw.reshape(-1), GGMLType.Q4_0, (OSS_E, OSS_EF, OSS_D),
                                  pad_n=True, device=device)
+
+
+def qmm_case(torch, dev, spec, seed: int) -> dict:
+    """The inputs of the ``QMM_CASES`` entry ``spec`` on ``dev``, from
+    ``seed``: a dict of its count name, mode, case, x (M, K) bf16, the
+    weight (int8: the GGUF rows of its type, packed as the loader packs
+    them; nib4: one gpt-oss gate expert, ``oss_experts``' packing), the
+    kernel call as the main path makes it (``quant_matmul``: bf16 out) and
+    the wrapper's own (``qmm_<mode>``: f32 out), the plain call (bf16 out),
+    the library call (``torch.matmul`` on the weight dequantized to bf16
+    beforehand), and the bound's bytes (x, the packed bytes, scales and
+    mins once, the bf16 output) and flops (2 M K N)."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.gguf.constants import GGMLType
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+    from llama_cpp_gfx906_tpu_torch.tools import synth_gguf
+
+    mode, case, gtype, K, N, M = spec
+    t = GGMLType[gtype]
+    rng = np.random.default_rng(seed)
+    if mode == "nib4":
+        raw = synth_gguf.q4_0_rows(rng, N, K)
+        qt = qmm.qt_expert(qmm.pack_gguf_experts(raw.reshape(-1), t, (1, N, K), pad_n=True,
+                                                 device=dev), 0)
+    else:
+        qt = qmm.pack_gguf_tensor(synth_gguf._ROWS[t](rng, N, K).reshape(-1), t, (N, K),
+                                  device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = qmm.dequantize_qt(qt, torch.bfloat16)
+    wrapper = getattr(qmm, f"qmm_{mode}")
+    plain = qmm.qmm_plain
+    nbytes = (x.numel() * 2 + M * N * 2 + sum(p.numel() * p.element_size()
+                                              for p in (qt.q, qt.s, qt.m) if p is not None))
+    return dict(name=f"qmm_{mode}", mode=mode, case=case, x=x, qt=qt,
+                kern=lambda: qmm.quant_matmul(x, qt), wrapper=lambda: wrapper(x, qt),
+                plain=lambda: plain(x, qt).to(torch.bfloat16), lib=lambda: torch.matmul(x, w),
+                nbytes=nbytes, flops=2 * M * K * N)
 
 
 def oss_pair_ids(rng, P: int):
@@ -524,7 +579,7 @@ def main(argv=None) -> None:
                     help="the checkout whose package to time")
     ap.add_argument("--label", default="")
     ap.add_argument("--splits", action="store_true",
-                    help="also time K1 / K2 at every split count")
+                    help="also time K1 / K2 and K5 at every split count")
     ap.add_argument("--kernels", default=",".join(GROUPS),
                     help=f"the groups to build and time, of {','.join(GROUPS)}")
     args = ap.parse_args(argv)
@@ -616,6 +671,8 @@ def main(argv=None) -> None:
         k3_times(torch, dev, flush, emit)
     if "k4" in groups:
         k4_times(torch, dev, flush, emit)
+    if "k5" in groups:
+        k5_times(torch, dev, flush, emit, args.splits)
     if "nib4" in groups:
         nib4_times(torch, dev, flush, emit)
     if "prefill" in groups:
@@ -623,27 +680,57 @@ def main(argv=None) -> None:
 
 
 def nib4_times(torch, dev, flush, emit) -> None:
-    """K5-nib4 on QMM_NIB4_CASES and K8-nib4 on RQMM_NIB4_CASES (gpt-oss's
-    gate experts, inputs from seeds 11 and 12), where the checkout has
-    them."""
+    """K8-nib4 on RQMM_NIB4_CASES (gpt-oss's gate experts, inputs from seeds
+    11 and 12), where the checkout has it (K5-nib4 is in ``QMM_CASES``)."""
     import numpy as np
 
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
 
-    if not hasattr(qmm, "qmm_nib4"):
-        emit("qmm_nib4", "gpt-oss", None, left_out="no nib4 mode in this checkout")
+    if not hasattr(qmm, "rqmm_nib4"):
+        emit("rqmm_nib4", "gpt-oss", None, left_out="no nib4 mode in this checkout")
         return
     qt = oss_experts(dev)
-    e0 = qmm.qt_expert(qt, 0)
     g = torch.Generator(device=dev).manual_seed(11)
-    for case, M in QMM_NIB4_CASES:
-        x = torch.randn((M, OSS_D), generator=g, device=dev).to(torch.bfloat16)
-        emit("qmm_nib4", case, device_ms(lambda: qmm.qmm_nib4(x, e0), torch, flush))
     rng = np.random.default_rng(12)
     for case, P in RQMM_NIB4_CASES:
         idx = torch.tensor(oss_pair_ids(rng, P), dtype=torch.int32, device=dev)
         x = torch.randn((P, OSS_D), generator=g, device=dev).to(torch.bfloat16)
         emit("rqmm_nib4", case, device_ms(lambda: qmm.rqmm_nib4(x, qt, idx), torch, flush))
+
+
+def k5_times(torch, dev, flush, emit, sweep: bool) -> None:
+    """K5 on ``QMM_CASES`` (inputs from seed 80 + the case's index): ``ms``
+    the call the main path makes (``quant_matmul`` on bf16 x: this
+    checkout's K5 and whatever it launches beside it), ``kernel_ms`` the
+    wrapper's own (f32 out) and the launch counts of one main-path call;
+    with ``sweep`` (``--splits``), a checkout with ``qmm_config`` also
+    every split count at 64- and 128-row tiles, by the launcher."""
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for i, spec in enumerate(QMM_CASES):
+        c = qmm_case(torch, dev, spec, 80 + i)
+        before = kernels.counts()
+        c["kern"]()
+        counted = {k: n - before[k] for k, n in kernels.counts().items() if n != before[k]}
+        extra = {}
+        if hasattr(qmm, "qmm_config"):
+            kp, Np = c["qt"].q.shape
+            extra["bm"], extra["splits"] = qmm.qmm_config(spec[5], kp, Np, sms,
+                                                          c["mode"] == "nib4",
+                                                          c["qt"].m is not None)
+        emit(c["name"], c["case"], device_ms(c["kern"], torch, flush),
+             kernel_ms=device_ms(c["wrapper"], torch, flush), counted=counted, **extra)
+        if sweep and "splits" in extra:
+            steps = -(-c["qt"].q.shape[0] // qmm.QMM_STEP)
+            for bm in (64, 128):
+                for s in range(1, min(qmm.QMM_MAX_SPLITS, steps) + 1):
+                    emit(c["name"], c["case"], device_ms(
+                        lambda: qmm._qmm_launch(c["x"], c["qt"], c["mode"], torch.bfloat16, s,
+                                                bm), torch, flush), splits=s, bm=bm)
+        del c
+        torch.cuda.empty_cache()
 
 
 def k3_times(torch, dev, flush, emit) -> None:

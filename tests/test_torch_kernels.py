@@ -90,19 +90,94 @@ def test_gemv_kernel_padded_head(cuda_device):
 
 @pytest.mark.parametrize("qtype,K,N,M", [
     (GGMLType.Q8_0, 640, 1536, 676), (GGMLType.Q8_0, 2048, 640, 9),
-    (GGMLType.Q6_K, 1024, 512, 100), (GGMLType.Q4_0, 800, 256, 65)])
+    (GGMLType.Q6_K, 1024, 512, 100), (GGMLType.Q4_0, 800, 256, 65),
+    (GGMLType.Q8_0, 800, 256, 101), (GGMLType.Q4_0, 2880, 640, 676),
+    (GGMLType.Q8_0, 14336, 128, 9), (GGMLType.Q6_K, 2560, 1024, 65)])
 def test_qmm_kernel_matches_plain(cuda_device, qtype, K, N, M):
-    """K5 through ``linear`` (M > 8 on the card), plain scales with and
-    without mins (a Q4_0 weight whose K has no nib4c chunk stays int8)."""
+    """K5 through ``linear`` (M > 8 on the card: bf16 out), plain scales
+    with and without mins (a Q4_0 weight whose K has no nib4c chunk stays
+    int8), at ragged shapes (K 800: a 32-row tail step; M 9, 65, 101 and
+    676: partial row tiles; group 16; K 14336); two launches give the same
+    bits, and f32 x gets an f32 output."""
     qt = tq.pack_gguf_tensor(_raw(qtype, N, K, 9), qtype, (N, K), device=cuda_device)
     assert tq.qmm_tileable(qt) and (qt.m is not None) == (qtype == GGMLType.Q4_0)
     x = torch.randn((1, M, K), device=cuda_device).to(torch.bfloat16)
     before = tq.qmm_int8.launches
     got = tq.linear(x, qt)
+    again = tq.linear(x, qt)
+    f32 = tq.linear(x.float(), qt)
     ref = tq.qmm_plain(x[0], qt)
     torch.cuda.synchronize()
-    assert tq.qmm_int8.launches == before + 1
-    assert got.shape == (1, M, N) and _rel(got[0], ref) < TOL
+    assert tq.qmm_int8.launches == before + 3
+    assert got.shape == (1, M, N) and got.dtype == torch.bfloat16 and _rel(got[0], ref) < TOL
+    assert torch.equal(got, again)
+    assert f32.dtype == torch.float32 and _rel(f32[0], ref) < 1e-5
+
+
+@pytest.mark.parametrize("mode", ["int8", "nib4"])
+def test_qmm_is_one_launch(cuda_device, mode):
+    """A ``quant_matmul`` of bf16 x with M > 8 on a K5 weight with mins is
+    one K5 launch on the card and nothing else: the mins, the row count
+    and the output dtype all in the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if mode == "nib4":
+        raw = np.concatenate([_raw(GGMLType.Q4_0, 512, 2880, 40 + e) for e in range(2)])
+        qt = tq.qt_expert(tq.pack_gguf_experts(raw, GGMLType.Q4_0, (2, 512, 2880),
+                                               device=cuda_device), 1)
+    else:
+        qt = tq.pack_gguf_tensor(_raw(GGMLType.Q4_0, 640, 2880, 41), GGMLType.Q4_0,
+                                 (640, 2880), device=cuda_device)
+    assert qt.fmt == mode and qt.m is not None
+    x = torch.randn((101, 2880), device=cuda_device).to(torch.bfloat16)
+    tq.quant_matmul(x, qt)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tq.quant_matmul(x, qt)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "qmm_kernel" in names[0], names
+    assert got.shape == (101, qt.N) and got.dtype == torch.bfloat16
+    assert _rel(got, tq.qmm_plain(x, qt)) < TOL
+
+
+@pytest.mark.parametrize("mode", ["int8", "nib4"])
+def test_qmm_every_split_count(cuda_device, mode):
+    """K5 at every split count the launcher takes (1-8 blocks a tile, one
+    cluster), each against the plain version and bit-identical over two
+    launches; a refused shape (group 64) raises."""
+    if mode == "nib4":
+        raw = np.concatenate([_raw(GGMLType.Q4_0, 256, 1600, 50 + e) for e in range(2)])
+        qt = tq.qt_expert(tq.pack_gguf_experts(raw, GGMLType.Q4_0, (2, 256, 1600),
+                                               device=cuda_device), 0)
+    else:
+        qt = tq.pack_gguf_tensor(_raw(GGMLType.Q4_0, 256, 800, 51), GGMLType.Q4_0,
+                                 (256, 800), device=cuda_device)
+    assert qt.fmt == mode and qt.m is not None
+    x = torch.randn((130, qt.K), device=cuda_device).to(torch.bfloat16)
+    ref = tq.qmm_plain(x, qt)
+    for s in range(1, tq.QMM_MAX_SPLITS + 1):
+        a = tq._qmm_launch(x, qt, mode, torch.float32, s)
+        b = tq._qmm_launch(x, qt, mode, torch.float32, s)
+        torch.cuda.synchronize()
+        assert _rel(a, ref) < TOL and torch.equal(a, b), s
+    wide = tq.QuantTensor(qt.q, qt.s[::2].contiguous(), None, qt.fmt, 2 * qt.group, qt.shape)
+    with pytest.raises(ValueError):
+        tq._qmm_launch(x, wide, mode, torch.float32)
+
+
+@pytest.mark.parametrize("index", range(len(kt.QMM_CASES)))
+def test_k5_at_model_shapes(cuda_device, index):
+    """K5 on every ``kernel_times.QMM_CASES`` entry (both modes) through
+    ``quant_matmul``: one counted launch a call, within TOL of the plain
+    version, bit-identical over two launches."""
+    c = kt.qmm_case(torch, cuda_device, kt.QMM_CASES[index], 80 + index)
+    kern = getattr(tq, c["name"])
+    before = kern.launches
+    got, again = c["kern"](), c["kern"]()
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert _rel(got, c["plain"]()) < TOL and torch.equal(got, again)
 
 
 def _attn_case(seed, B, T, Hq, Hkv, D, S, n_past, dev, dtype):
@@ -1209,7 +1284,8 @@ def oss_gate():
     return kt.oss_experts(torch.device("cuda"))
 
 
-@pytest.mark.parametrize("case,M", kt.QMM_NIB4_CASES + (("tiny K 320 M=9", 9),))
+@pytest.mark.parametrize("case,M", [(c[1], c[5]) for c in kt.QMM_CASES if c[0] == "nib4"]
+                         + [("tiny K 320 M=9", 9)])
 def test_qmm_nib4_matches_plain(cuda_device, oss_gate, case, M):
     """K5-nib4 at gpt-oss's expert shape (and a 320-wide K, 5 steps of 32
     packed rows) against its plain version, through ``quant_matmul`` too,
@@ -1284,7 +1360,8 @@ def test_gemv_at_gpt_oss_shapes(cuda_device, name, case, gtype, K, N, pad):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("case,M", kt.OSS_QMM_INT8_CASES)
+@pytest.mark.parametrize("case,M", [(c[1], c[5]) for c in kt.QMM_CASES
+                                    if c[0] == "int8" and c[3] == 2880])
 def test_qmm_int8_at_k_2880(cuda_device, case, M):
     """K5's int8 mode on gpt-oss's fused q|k|v (Q4_0 with mins, K 2880)."""
     qt = tq.pack_gguf_tensor(_raw(GGMLType.Q4_0, 5120, 2880, 4), GGMLType.Q4_0,
