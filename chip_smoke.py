@@ -8,7 +8,9 @@ Phases, each printing JSON lines:
      paths, launched twice on the same inputs (the same bits: every split-K
      sum adds in a fixed order), with its time, its bound and a PyTorch
      yardstick (the cases K1/K2, K8, K6, K7, K3's modes and K4 share with
-     ``tools/kernel_times.py``): K1/K2 at the 8B Q4_K_M shapes; K3 at
+     ``tools/kernel_times.py``): K1/K2 at the 8B Q4_K_M shapes at M 1, 4
+     and 8 rows of x (one stream, a 4-slot served step, the most a step
+     takes; an f32 x too; one K1/K2 launch per ``quant_matmul`` call); K3 at
      every decode shape of the model phases (``K3_CASES``: the 8B's over
      4096 and 8192 rows, the serve modes at the 8B's and tinydoc's heads,
      the Qwen group sizes G 7 and G 8, gpt-oss's heads of 64 with sinks,
@@ -40,7 +42,7 @@ Phases, each printing JSON lines:
      float mask holds the bias and the mask, and both at the JAX kernel
      tests' shape; at gpt-oss-20b's shapes (``oss_cases``): K8's nib4 mode
      (P 4 / 8 pairs of 32 experts, with mins), K1 at K 2880 (q|k|v with
-     mins, the head), K2 at N 2880;
+     mins, the head), K2 at N 2880, each at M 1, 4 and 8;
   2. the 8B Q4_K_M model end to end (synthetic weights from a seed, full
      width and depth): ``Engine.from_gguf``, a greedy ``generate`` (decode
      through K6), the per-layer loop called as a function (K1-K4), and a
@@ -95,7 +97,7 @@ Phases, each printing JSON lines:
  12. ``qwen3_8b_serve``: the server on it, bf16 then q8, 8 ragged requests,
      each prefill chunk's launches from its own T; ``BatchedEngine`` held
      against single slots;
- 13. ``qwen3moe_30b_a3b``: Qwen3-30B-A3B Q4_K_M at full depth through K6's
+ 13. ``qwen3moe_30b_a3b``: Qwen3-30B-A3B Q4_K_M (24 of 48 layers) through K6's
      MoE branch with qk-norm, each layer's experts beside the plain
      version's;
  14. ``qwen2_7b`` and ``qwen2moe_a2_7b``: Qwen2.5-7B Q4_K_M and
@@ -107,7 +109,9 @@ Phases, each printing JSON lines:
      ragged 1,531-token prefill (the counted einsum: G·T > 128 with ALiBi
      has no kernel, as in JAX), ``generate`` and ``decode_fused`` through
      the per-layer loop with K3's ALiBi mode, launches per token exact, 8
-     fused steps held against the loop with the plain attention, then
+     fused steps' greedy tokens held to the loop's, every K1/K2 and K3 call
+     of a step and each layer alone held to its plain version (the 32-layer
+     stack's logits against the plain versions reported beside them), then
      ``BatchedEngine`` at 4 slots: its launches per decode step and the
      batched step against single slots;
  16. ``bloom_7b1``: BLOOM-7B1 Q4_K_M at full width, 4 of 30 layers, every
@@ -139,14 +143,16 @@ it exits non-zero and prints no result.
 Usage: python3 chip_smoke.py
 
 ``python3 chip_smoke.py --plant-faults [fault ...]`` shows instead whether
-the K3, K4, K5, K6/K7 and nib4 checks can fail: it copies the package and
-this script into temporary directories, plants one known fault
-(``FAULTS``, ``NIB4_FAULTS``, ``K4_FAULTS`` and ``K5_FAULTS``; all of them
-unless some are named) in each copy's ``csrc/decode_stream.cu``, for K3's
-(``K3_FAULTS``) ``csrc/flash_decode.cu``, for K4's
-``csrc/flash_attention.cu``, for K5's ``csrc/qmm.cu``, for K5's and K8's
-nib4 modes ``csrc/qmm.cu`` and ``csrc/rqmm.cu``, builds the copies, and
-prints K5-nib4's and K8-nib4's errors against plain on their gpt-oss
+the K1/K2, K3, K4, K5, K6/K7 and nib4 checks can fail: it copies the
+package and this script into temporary directories, plants one known fault
+(``FAULTS``, ``NIB4_FAULTS``, ``K4_FAULTS``, ``K5_FAULTS`` and
+``GEMV_FAULTS``; all of them unless some are named) in each copy's
+``csrc/decode_stream.cu``, for K3's (``K3_FAULTS``)
+``csrc/flash_decode.cu``, for K4's ``csrc/flash_attention.cu``, for K5's
+``csrc/qmm.cu``, for K5's and K8's nib4 modes ``csrc/qmm.cu`` and
+``csrc/rqmm.cu``, for K1/K2's ``csrc/gemv.cu``, builds the copies, and
+prints K1/K2's errors against plain on every GEMV case (and an f32 x a
+weight, ``gemv_errors_of_copy``), K5-nib4's and K8-nib4's on their gpt-oss
 cases (``nib4_cases``), K5's on each ``kernel_times.QMM_CASES`` entry,
 K3's on each ``kernel_times.K3_CASES`` entry, K4's on each ``K4_CASES``
 entry and the errors that
@@ -157,7 +163,7 @@ Gemma-3-4B layers, K7's on the 18 of Gemma-3-270M, K6's qwen modes on 2
 layers each of Qwen3-8B, Qwen3-30B-A3B and bias-free Qwen1.5-MoE; B = 1,
 n_past 700), the unmodified source first (on the kernels of the named
 faults); the ``moe_qk_norm_skipped`` copy also runs the
-``qwen3moe_30b_a3b`` phase's 8-step comparison at full depth, with its
+``qwen3moe_30b_a3b`` phase's 8-step comparison at its depth, with its
 one-ulp control.
 """
 
@@ -181,6 +187,9 @@ BF16_FLOP_S = 989e12       # H100 SXM dense bf16 tensor-core peak
 F32_FLOP_S = 67e12         # H100 SXM float32 outside the tensor cores
 TOL = 2e-2                 # max |kernel - plain| / max |plain|, as the JAX tests
 TOL_Q4KM = 8e-2            # decode logits of the Q4_K_M mix (JAX tests' bound)
+TOL_F32X = 1e-4            # K1/K2 on an f32 x against the f32 plain version: the
+# kernel's high part and remainder keep ~17 bits of x (the card test
+# test_gemv_f32_x_and_bf16_out's bound)
 FIX = ROOT / "tests" / "fixtures"
 PKG = "llama_cpp_gfx906_tpu_torch"
 
@@ -271,6 +280,30 @@ K5_FAULTS = {
          "+ H * MAX_SEG * BN + (j + 1) % nseg * BN + mcol + 2 * tq;"),),
 }
 
+# --plant-faults of K1 / K2: name -> its edits (file under the package,
+# text, what replaces it)
+GEMV_FAULTS = {
+    # each scale run's product (and x sums) times the next group's scale
+    # (and min) row
+    "gemv_next_group_scale": (
+        ("csrc/gemv.cu", "return h * GPR + (kpart * R + r * RL) / G;",
+         "return h * GPR + ((kpart * R + r * RL) / G + 1) % GPR;"),),
+    # the cluster merge leaves the last split's partials out
+    "gemv_split_dropped": (("csrc/gemv.cu", "for (int src = 0; src < a.nsplit; ++src) {",
+                            "for (int src = 0; src < a.nsplit - 1; ++src) {"),),
+    # nib4c: the high nibbles multiplied against the low half's x rows
+    "gemv_hi_nibbles_lo_x": (
+        ("csrc/gemv.cu",
+         "mma(d[H - 1][j], hi[0], hi[1], hi[2], hi[3], b[H - 1][p][0], b[H - 1][p][1]);",
+         "mma(d[H - 1][j], hi[0], hi[1], hi[2], hi[3], b[0][p][0], b[0][p][1]);"),),
+    # the mins left out (nib4c's bias of 128 still taken off)
+    "gemv_mins_dropped": (("csrc/gemv.cu", "const bool mins = a.mins;",
+                           "const bool mins = false;"),),
+    # an f32 x's bf16 remainder left out: its high part alone
+    "gemv_f32_remainder_dropped": (
+        ("csrc/gemv.cu", "b[1][i] = *reinterpret_cast<const uint32_t*>(&lo);", "b[1][i] = 0u;"),),
+}
+
 # --plant-faults of K4's tensor-core body: name -> its edits (file under the
 # package, text, what replaces it)
 K4_FAULTS = {
@@ -358,7 +391,8 @@ KERNEL_PATH = {"gemv_int8": "8b_layer_loop", "gemv_nib4c": "8b_layer_loop",
                "qmm_nib4": "gpt_oss_20b_prefill", "rqmm_nib4": "gpt_oss_20b_fused"}
 # one main-path case per kernel in the summary line (K4: also the one case
 # of each body whose plain version is timed, ``k4_cases``)
-SUMMARY_CASE = {"gemv_int8": "lm_head", "gemv_nib4c": "ffn_gate_up",
+SUMMARY_CASE = {"gemv_int8": "lm_head 4096x129024 M=1",
+                "gemv_nib4c": "ffn_gate_up 4096x28672 M=1",
                 "flash_decode": "S=8192 n_past=8000 window=0", "flash_attention": "tinydoc f32 T=256",
                 "flash_attention_mma": "8B 32/8 T=512 n_past=256",
                 "decode_stream": "B=1 n_past=3000", "decode_step": "B=1 n_past=3000",
@@ -459,7 +493,11 @@ QWEN3_PER_STEP = {"q8": {"flash_decode_int8": QWEN3_L, "flash_decode": QWEN3_L,
                   "bf16": {"decode_stream": 1, "decode_stream_gemma": 1, "gemv_int8": 1,
                            "gemv_nib4c": 0, "flash_decode": 0}}
 QWEN2_LAYERS = 4  # the qwen2_7b and qwen2moe_a2_7b phases' cut depths (of 28, 24)
-QWEN3MOE_LAYERS = 48  # the qwen3moe_30b_a3b phase's depth (of 48)
+# the qwen3moe_30b_a3b phase's depth (of 48): the phase took ~103 s at 48
+# and ~61 s at 24 on an H100, and at 48 the whole run would near its
+# 1,200 s limit once K1/K2's M 4 / 8 cases and MPT-7B's per-call holds
+# came in
+QWEN3MOE_LAYERS = 24
 MIXTRAL_Q4_LAYERS = 4  # the mixtral_q4km phase's cut depth (of 32)
 SE_PROMPT_TOKENS, SE_NEW_TOKENS = 3000, 64  # the 8b_self_extend phase
 GA_N, GA_W = 4, 1024  # its -gan / -gaw
@@ -589,7 +627,6 @@ def phase_build(torch):
 
 
 def phase_kernels(torch, results: dict, tmp: Path) -> None:
-    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
     import numpy as np
 
@@ -608,26 +645,10 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
             case=case, max_abs_err=err[0], ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
 
-    # K1 / K2: folded Q6_K int8 (head, attn_v) and folded Q4_K nib4c
-    for name, case, gtype, K, N, pad in kt.GEMV_CASES:
-        qt = kt.gemv_weights(rng, gtype, K, N, pad, dev)
-        x = torch.randn((1, K), generator=g, device=dev).to(torch.bfloat16)
-        kern = getattr(qmm, name)
-        got = kern(x, qt)
-        ref = qmm.gemv_plain(x, qt)
-        err = check(f"{name} {case}", got, ref, torch)
-        same = bit_identical(f"{name} {case}", got, kern(x, qt), torch)
-        w = qmm.dequantize_qt(qt, torch.bfloat16)
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (qt.q, qt.s, qt.m, qt.sd, qt.md, x) if t is not None)
-        nbytes += N * 4
-        record(name, case, err, device_ms(lambda: kern(x, qt), torch, flush),
-               device_ms(lambda: qmm.gemv_plain(x, qt), torch, flush),
-               nbytes, 2 * K * N,
-               device_ms(lambda: torch.matmul(x, w), torch, flush), bit_identical=same,
-               splits=qmm.gemv_splits(qt, torch.cuda.get_device_properties(
-                   dev).multi_processor_count))
-        del w, qt
+    one_launch_checks(torch, dev)
+    # K1 / K2: folded Q6_K int8 (head, attn_v) and folded Q4_K nib4c, M 1 / 4 / 8
+    gemv_seen: dict = {}
+    gemv_cases(torch, dev, flush, record, kt.GEMV_CASES, rng, g, gemv_seen)
 
     k4_cases(torch, dev, flush, record)
     k3_cases(torch, dev, flush, record)
@@ -636,8 +657,102 @@ def phase_kernels(torch, results: dict, tmp: Path) -> None:
 
     decode_cases(torch, flush, record, tmp)
     expert_cases(torch, dev, flush, record)
-    oss_cases(torch, dev, flush, record)
+    oss_cases(torch, dev, flush, record, gemv_seen)
     del flush
+
+
+# (x dtype, M) of the K1 / K2 calls whose card kernels one_launch_checks lists
+GEMV_CALL_CHECKS = (("bfloat16", 1), ("bfloat16", 3), ("float32", 1))
+
+
+def one_launch_checks(torch, dev) -> None:
+    """The kernels each ``quant_matmul`` call runs on the card, in one
+    profiler session, the run's first (``kernels_of_call``; on the card a
+    later session missed the kernels of a library first launched after an
+    earlier one): K1 on the 8B's ``attn_v`` weight and K2 on its q|k, each
+    for a bf16 x at M 1 and 3 and an f32 x at M 1; K5 on the first
+    ``QMM_CASES`` entry with mins of each mode.  Each call must run one
+    kernel, its own: no pad, cast or mins kernels beside it."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+
+    rng = np.random.default_rng(7)
+    g = torch.Generator(device=dev).manual_seed(7)
+    calls, want = [], []
+    for name, case, gtype, K, N, pad, _ in kt.GEMV_CASES:
+        if not case.startswith(("attn_v", "attn_qk")) or "M=1" not in case:
+            continue
+        qt = kt.gemv_weights(rng, gtype, K, N, pad, dev)
+        for dtype, M in GEMV_CALL_CHECKS:
+            x = torch.randn((M, K), generator=g, device=dev).to(getattr(torch, dtype))
+            calls.append((f"{name} {case.split()[0]} {dtype} M={M}",
+                          lambda x=x, qt=qt: qmm.quant_matmul(x, qt)))
+            want.append("gemv_kernel")
+    for mode in ("int8", "nib4"):
+        i, spec = next((i, c) for i, c in enumerate(kt.QMM_CASES)
+                       if c[0] == mode and c[2] == "Q4_0")
+        c = kt.qmm_case(torch, dev, spec, 80 + i)
+        calls.append((f"{c['name']} {c['case']}", c["kern"]))
+        want.append("qmm_kernel")
+    ran = kernels_of_call(torch, *(fn for _, fn in calls))
+    ok = len(ran) == len(want) and all(w in r for w, r in zip(want, ran))
+    emit(phase="one_launch", calls=[n for n, _ in calls], ran=ran, ok=ok)
+    if not ok:
+        fail(f"one_launch: the calls {[n for n, _ in calls]} ran {ran} on the card, want "
+             f"one kernel each: {want}")
+    torch.cuda.empty_cache()
+
+
+def gemv_cases(torch, dev, flush, record, cases, rng, g, seen: dict) -> None:
+    """K1 / K2 on ``cases`` (``kernel_times.GEMV_CASES`` or
+    ``OSS_GEMV_CASES``: each weight made once from ``rng``, x from ``g``),
+    each against ``gemv_plain`` at TOL and launched twice (the same bits),
+    timed as the main path calls it (``quant_matmul``, bf16 out: one
+    launch) beside its bound (the planes' bytes once, x in, bf16 out), with
+    the tile columns and split count the launch took.  ``torch.matmul`` on
+    the weight dequantized to bf16 beforehand is timed once per weight, at
+    M 1 (reading the bf16 weight dominates it at every M up to 8); the
+    plain version once per kernel, at its ``SUMMARY_CASE`` (``seen`` keeps
+    the kernels already timed, across calls).  An f32 x at M 1 of each weight
+    is held to the f32 plain version at TOL_F32X (its high part and
+    remainder: ~2^-17).  One launch a call: ``one_launch_checks``.  Emits
+    the loop's wall time."""
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+
+    t0 = time.perf_counter()
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (gtype, K, N, pad), group in kt.gemv_by_shape(cases):
+        qt = kt.gemv_weights(rng, gtype, K, N, pad, dev)
+        w = qmm.dequantize_qt(qt, torch.bfloat16)
+        kp, Np = qt.q.shape
+        tn, splits = qmm.gemv_config(kp, Np, sms)
+        planes = sum(t.numel() * t.element_size()
+                     for t in (qt.q, qt.s, qt.m, qt.sd, qt.md) if t is not None)
+        name = group[0][0]
+        kern = getattr(qmm, name)
+        x = torch.randn((1, K), generator=g, device=dev)
+        f32 = check(f"{name} {group[0][1]} f32 x", kern(x, qt), qmm.gemv_plain(x, qt), torch,
+                    TOL_F32X)
+        for _, case, *_, M in group:
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            got = kern(x, qt)
+            err = check(f"{name} {case}", got, qmm.gemv_plain(x, qt), torch)
+            same = bit_identical(f"{name} {case}", got, kern(x, qt), torch)
+            plain_ms = None
+            if name not in seen and SUMMARY_CASE[name] in case:
+                seen[name] = True
+                plain_ms = device_ms(lambda: qmm.gemv_plain(x, qt), torch, flush)
+            lib_ms = device_ms(lambda: torch.matmul(x, w), torch, flush) if M == 1 else None
+            record(name, case, err, device_ms(lambda: qmm.quant_matmul(x, qt), torch, flush),
+                   plain_ms, planes + M * K * 2 + M * N * 2, 2 * M * K * N, lib_ms,
+                   bit_identical=same, tn=tn, splits=splits, f32_x_rel_err=f32[1])
+        del w, qt
+        torch.cuda.empty_cache()
+    emit(phase="gemv_cases", cases=len(cases), seconds=time.perf_counter() - t0)
 
 
 def k5_cases(torch, dev, flush, record) -> None:
@@ -649,13 +764,12 @@ def k5_cases(torch, dev, flush, record) -> None:
     weight, scales and mins once, the bf16 output) and ``torch.matmul`` on
     the weight dequantized to bf16 beforehand, with the tile rows and split
     count the launch took.  The plain version is timed once per mode, at
-    its ``SUMMARY_CASE``; the first case with mins of each mode also lists
-    the kernels its call ran on the card (``kernels_of_call``: one K5
-    launch, no mins or cast kernels).  Emits the loop's wall time."""
+    its ``SUMMARY_CASE`` (one launch a call: ``one_launch_checks``).  Emits
+    the loop's wall time."""
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
 
-    t0, plain_timed, one_launch = time.perf_counter(), set(), set()
+    t0, plain_timed = time.perf_counter(), set()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for i, spec in enumerate(kt.QMM_CASES):
         c = kt.qmm_case(torch, dev, spec, 80 + i)
@@ -670,33 +784,30 @@ def k5_cases(torch, dev, flush, record) -> None:
         kp, Np = c["qt"].q.shape
         bm, splits = qmm.qmm_config(spec[5], kp, Np, sms, c["mode"] == "nib4",
                                      c["qt"].m is not None)
-        extra = {}
-        if name not in one_launch and c["qt"].m is not None:
-            one_launch.add(name)
-            extra["card_kernels"] = kernels_of_call(torch, c["kern"])
-            if len(extra["card_kernels"]) != 1 or "qmm_kernel" not in extra["card_kernels"][0]:
-                fail(f"{name} {c['case']}: quant_matmul ran {extra['card_kernels']} on the "
-                     "card, want one K5 launch")
         record(name, c["case"], err, device_ms(c["kern"], torch, flush), plain_ms,
                c["nbytes"], c["flops"], device_ms(c["lib"], torch, flush),
                bit_identical=same, bm=bm, splits=splits,
-               library="torch.matmul on the weight dequantized to bf16 beforehand", **extra)
+               library="torch.matmul on the weight dequantized to bf16 beforehand")
         del c, got
         torch.cuda.empty_cache()
     emit(phase="k5_cases", seconds=time.perf_counter() - t0)
 
 
-def kernels_of_call(torch, fn) -> list[str]:
-    """The names of the kernels one call of ``fn`` ran on the card
-    (torch.profiler, after a warm-up call)."""
+def kernels_of_call(torch, *fns) -> list[str]:
+    """The names of the kernels one call of each of ``fns`` ran on the
+    card, in the order they started, in one torch.profiler session (after
+    a warm-up call of each)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for fn in fns:
+            fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ran = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e.name for e in sorted(ran, key=lambda e: e.time_range.start)]
 
 
 def nib4_cases(torch, dev):
@@ -743,18 +854,17 @@ def rqmm_nib4_cases(torch, dev):
                    distinct_experts=distinct)
 
 
-def oss_cases(torch, dev, flush, record) -> None:
+def oss_cases(torch, dev, flush, record, gemv_seen: dict) -> None:
     """The kernels of the gpt_oss_20b phase at its shapes, each against its
     plain version and launched twice (the same bits): K8's nib4 mode
     (``rqmm_nib4_cases``); K1 at K 2880 (the fused q|k|v with mins, the head's
     2880 rows) and K2 at N 2880 (the o projection: a ragged last
-    128-column tile), ``kernel_times.OSS_GEMV_CASES``.  K5's (both modes)
-    are ``k5_cases``', K3's and K4's gpt-oss cases are in
-    ``kernel_times.K3_CASES`` and ``K4_CASES``.  Inputs from their own
-    generators (seeds 15 and 16)."""
+    128-column tile), ``kernel_times.OSS_GEMV_CASES`` at M 1, 4 and 8
+    (``gemv_cases``).  K5's (both modes) are ``k5_cases``', K3's and K4's
+    gpt-oss cases are in ``kernel_times.K3_CASES`` and ``K4_CASES``.  Inputs
+    from their own generators (seeds 15 and 16)."""
     import numpy as np
 
-    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
     from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
 
     for c in rqmm_nib4_cases(torch, dev):
@@ -767,25 +877,8 @@ def oss_cases(torch, dev, flush, record) -> None:
                device_ms(c["lib"], torch, flush), bit_identical=same, **extra)
     torch.cuda.empty_cache()
 
-    rng = np.random.default_rng(15)
-    g = torch.Generator(device=dev).manual_seed(16)
-    for name, case, gtype, K, N, pad in kt.OSS_GEMV_CASES:
-        qt = kt.gemv_weights(rng, gtype, K, N, pad, dev)
-        x = torch.randn((1, K), generator=g, device=dev).to(torch.bfloat16)
-        kern = getattr(qmm, name)
-        got = kern(x, qt)
-        err = check(f"{name} {case}", got, qmm.gemv_plain(x, qt), torch)
-        same = bit_identical(f"{name} {case}", got, kern(x, qt), torch)
-        w = qmm.dequantize_qt(qt, torch.bfloat16)
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (qt.q, qt.s, qt.m, qt.sd, qt.md, x) if t is not None) + N * 4
-        record(name, case, err, device_ms(lambda: kern(x, qt), torch, flush),
-               device_ms(lambda: qmm.gemv_plain(x, qt), torch, flush), nbytes, 2 * K * N,
-               device_ms(lambda: torch.matmul(x, w), torch, flush), bit_identical=same,
-               segment=qmm._gemv_segment(qt)[0], splits=qmm.gemv_splits(
-                   qt, torch.cuda.get_device_properties(dev).multi_processor_count))
-        del w, qt
-    torch.cuda.empty_cache()
+    gemv_cases(torch, dev, flush, record, kt.OSS_GEMV_CASES, np.random.default_rng(15),
+               torch.Generator(device=dev).manual_seed(16), gemv_seen)
 
 
 def expert_cases(torch, dev, flush, record) -> None:
@@ -2517,14 +2610,14 @@ def phase_qwen3moe(torch, paths: dict, tmp: Path) -> None:
     """Qwen3-30B-A3B Q4_K_M at full width (``QWEN3MOE_LAYERS`` layers; 128
     nib4c experts of 768 padded to 1024, top 8 renormalised): load, a
     greedy ``generate`` and ``decode_fused`` through K6's MoE branch with
-    qk-norm (one launch per token), K6 against its plain version at full
-    depth from one state (the first two layers and each layer alone held to
+    qk-norm (one launch per token), K6 against its plain version over the
+    whole stack from one state (the first two layers and each layer alone held to
     TOL, each layer alone choosing the plain version's experts; the whole
     stack's ids reported: a near-tie's order swap there moves every later
     layer), and the fused route against its plain version over 8 steps
-    (TOL_Q4KM: the stack's own one-ulp spread is ~0.6); against the loop
-    reported (the loop's router reads the bf16 h, K6's the f32 h2: over 48
-    layers x 128 experts a near-tie the two break apart is expected,
+    (TOL_Q4KM: the stack's own one-ulp spread is ~0.6-1.5); against the
+    loop reported (the loop's router reads the bf16 h, K6's the f32 h2: over
+    24 layers x 128 experts a near-tie the two break apart is expected,
     ROADMAP reference-side fact 6)."""
     import os
 
@@ -2567,10 +2660,10 @@ def phase_qwen3moe(torch, paths: dict, tmp: Path) -> None:
              f"{full['per_layer_expert_sets_differ']}")
     for what in ("first_two_layers", "per_layer"):
         if not full[what] <= TOL:
-            fail(f"qwen3moe_30b_a3b: K6 at full depth, {what} {full[what]} > {TOL}")
-    # 8 steps through 48 layers of 128 random experts: one bf16 ulp on x
-    # moves the plain version's own output by ~0.6 at full depth
-    # (``one_ulp_spread``), so the fused route is held to its plain version
+            fail(f"qwen3moe_30b_a3b: K6 over its stack, {what} {full[what]} > {TOL}")
+    # 8 steps through QWEN3MOE_LAYERS layers of 128 random experts: one
+    # bf16 ulp on x moves the plain version's own output by ~0.6-1.5 at 12
+    # to 48 layers (``one_ulp_spread``), so the fused route is held to its plain version
     # at the Q4_K_M bound, beside the plain version's own 8-step spread
     # from one ulp (``plain_one_ulp_vs_plain``); each layer alone is held to
     # TOL above
@@ -2581,7 +2674,7 @@ def phase_qwen3moe(torch, paths: dict, tmp: Path) -> None:
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          active_weight_bytes_per_token=nbytes, weight_macs_per_token=macs,
          bound_ms_per_token=bound(nbytes, 2 * macs)[0], expert_ids_last_step=chosen,
-         full_depth_vs_plain={k: v for k, v in full.items() if k != "finite"},
+         stack_vs_plain={k: v for k, v in full.items() if k != "finite"},
          **fused, layer_loop_comparison=cmp)
     del eng
     path.unlink()
@@ -2733,17 +2826,105 @@ def plain_attention_steps(torch, eng, fed: list[int]) -> list:
         attention.flash_decode = kernels.COUNTERS["flash_decode"]
 
 
+class plain_kernels:
+    """Within: the model's quantized products (``models/llama.linear``: K1 /
+    K2 at decode) and K3's calls take their plain versions (``gemv_plain``,
+    ``flash_decode_plain``) on the card; ``per_call`` instead runs each
+    kernel and its plain version on the same inputs and keeps the worst max
+    |kernel - plain| / max |plain| of each kernel's calls in ``worst``."""
+
+    def __init__(self, torch, per_call: bool = False):
+        self.torch, self.per_call, self.worst = torch, per_call, {}
+
+    def __enter__(self):
+        from llama_cpp_gfx906_tpu_torch.models import llama
+        from llama_cpp_gfx906_tpu_torch.ops import attention
+        from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+        from llama_cpp_gfx906_tpu_torch.ops.flash_decode import flash_decode_plain
+
+        torch, worst = self.torch, self.worst
+        self.saved = [(llama, "linear", llama.linear),
+                      (attention, "flash_decode", attention.flash_decode)]
+
+        def linear_plain(x, w):
+            if not isinstance(w, qmm.QuantTensor):
+                return x @ w
+            x2 = x.reshape(-1, w.K)
+            return qmm.gemv_plain(x2, w).reshape(*x.shape[:-1], w.N).to(x.dtype)
+
+        def swap(kern, plain, name_of):
+            def call(*args, **kw):
+                if not self.per_call:
+                    return plain(*args, **kw)
+                got = kern(*args, **kw)
+                name = name_of(*args)
+                if name:
+                    worst[name] = max(worst.get(name, 0.0),
+                                      rel_of(torch, got, plain(*args, **kw)))
+                return got
+            return call
+
+        def gemv_name(x, w):
+            return f"gemv_{w.fmt}" if isinstance(w, qmm.QuantTensor) else None
+
+        llama.linear = swap(llama.linear, linear_plain, gemv_name)
+        attention.flash_decode = swap(attention.flash_decode, flash_decode_plain,
+                                      lambda *a: "flash_decode")
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, kern in self.saved:
+            setattr(mod, name, kern)
+
+
+def loop_layer_errors(torch, eng, tok: int) -> float:
+    """Each layer of the per-layer loop alone, from the engine's state: the
+    token's embedding through layer 0, then each layer fed the kernels'
+    output of the layer before, run with the kernels and with their plain
+    versions (``plain_kernels``) on clones of its cache rows; the worst max
+    |kernels - plain| / max |plain| of a layer's output x and its new K/V
+    rows (depth amplifies neither)."""
+    from llama_cpp_gfx906_tpu_torch.models.config import sub_config
+    from llama_cpp_gfx906_tpu_torch.models.llama import KVCache, embed, layers_forward
+    from llama_cpp_gfx906_tpu_torch.runtime.weights import ParamDict
+
+    params, cfg, kv = eng.params, eng.cfg, eng.kv
+    n = int(kv.n_past[0])
+    worst = 0.0
+    with torch.inference_mode():
+        x = embed(params, cfg, torch.tensor([[tok]], device=eng.device))
+        for li in range(cfg.n_layers):
+            sub = ParamDict({"layers": torch.nn.ModuleList([params["layers"][li]])})
+            sub_cfg = sub_config(cfg, li, 1)
+            kvs = [KVCache(k=kv.k[li:li + 1].clone(), v=kv.v[li:li + 1].clone(),
+                           n_past=kv.n_past.clone()) for _ in range(2)]
+            got = layers_forward(sub, sub_cfg, x, kvs[0])
+            with plain_kernels(torch):
+                ref = layers_forward(sub, sub_cfg, x, kvs[1])
+            worst = max(worst, rel_of(torch, got, ref),
+                        rel_of(torch, kvs[0].k[:, :, n], kvs[1].k[:, :, n]),
+                        rel_of(torch, kvs[0].v[:, :, n], kvs[1].v[:, :, n]))
+            x = got
+            del kvs
+    return worst
+
+
 def phase_mpt_7b(torch, paths: dict, tmp: Path) -> None:
     """MPT-7B Q4_K_M at full width and depth (ALiBi, LayerNorm, an ungated
     gelu FFN): synth write and load; a ragged 1,531-token prefill (ALiBi at
     G·T > 128: the counted einsum, one a layer); ``generate`` and
     ``decode_fused`` through the per-layer loop with K3's ALiBi mode, the
     fused launches per token held to ``MPT_PER_TOKEN``; 8 fused steps: their
-    greedy tokens those of the loop with K3 fed the same tokens, whose logits
-    are held to the loop with K3's plain version within 2e-2; then
-    ``BatchedEngine`` at 4 slots x 4096 (bf16 cache): 4 requests of
-    256-1,531 prompt tokens and 16 new tokens each, K3-ALiBi once a layer
-    per decode step, and the batched step against single slots."""
+    greedy tokens those of the loop fed the same tokens; every K1 / K2 and
+    K3 call of the loop's first step held to its plain version on the same
+    inputs at TOL, and each layer alone (``loop_layer_errors``) at TOL; the
+    32-layer stack's logits over the 8 steps against the loop with every
+    kernel's plain version, reported beside them (depth carries a near-tie
+    of the synthetic stack's greedy path to a few bf16 ulps there: a hold at
+    its rounding floor, not of the kernels); then ``BatchedEngine`` at 4
+    slots x 4096 (bf16 cache): 4 requests of 256-1,531 prompt tokens and 16
+    new tokens each, K3-ALiBi once a layer per decode step, and the batched
+    step against single slots."""
     import os
 
     import numpy as np
@@ -2806,18 +2987,27 @@ def phase_mpt_7b(torch, paths: dict, tmp: Path) -> None:
     rewind()
     loop = [eng.decode_one(t) for t in fed]
     rewind()
-    plain = plain_attention_steps(torch, eng, fed)
+    with plain_kernels(torch):
+        plain = [eng.decode_one(t) for t in fed]
+    rewind()
+    with plain_kernels(torch, per_call=True) as calls:
+        eng.decode_one(first)
+    rewind()
+    per_layer = loop_layer_errors(torch, eng, first)
     del k0, v0
     rel = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(loop, plain)]
     fused_vs_loop = [int(t == int(np.argmax(a))) for t, a in zip(steps, loop)]
-    if not max(rel) <= TOL or not all(fused_vs_loop):
-        fail(f"mpt_7b: 8 fused steps: the loop vs plain attention rel {rel}, fused greedy "
-             f"vs the loop's {fused_vs_loop}")
+    if not all(fused_vs_loop):
+        fail(f"mpt_7b: 8 fused steps: fused greedy vs the loop's {fused_vs_loop}")
+    if not max(calls.worst.values()) <= TOL or not per_layer <= TOL:
+        fail(f"mpt_7b: the loop's calls vs plain {calls.worst}, each layer alone "
+             f"{per_layer}, tol {TOL}")
     emit(phase="mpt_7b", layers=L, synth_write_s=t_write, gguf_bytes=os.path.getsize(path),
          prompt_tokens=len(ids), prefill_s=prefill_s, prefill_tok_s=len(ids) / prefill_s,
          prefill_launches=prefill_launches, generate_perf=generate_perf,
          generate_launches=launches, weights_and_cache_bytes=mem_weights,
          max_memory_allocated=torch.cuda.max_memory_allocated(), **fused,
+         per_call_vs_plain=calls.worst, per_layer_vs_plain=per_layer,
          steps_loop_vs_plain_rel=rel, steps_fused_vs_loop_greedy=fused_vs_loop)
     cfg, params, tok, dev = eng.cfg, eng.params, eng.tokenizer, eng.device
     del eng
@@ -3156,7 +3346,7 @@ def check_k4_bodies(paths: dict) -> dict:
 def plant_faults(names: list[str]) -> None:
     """``--plant-faults [fault ...]`` (see the module docstring): the named
     faults (all of them when none is named) and the unmodified source."""
-    known = {**FAULTS, **NIB4_FAULTS, **K4_FAULTS, **K5_FAULTS}
+    known = {**FAULTS, **NIB4_FAULTS, **K4_FAULTS, **K5_FAULTS, **GEMV_FAULTS}
     unknown = set(names) - set(known)
     if unknown:
         raise SystemExit(f"unknown faults {sorted(unknown)}; known: {sorted(known)}")
@@ -3179,7 +3369,7 @@ def plant_faults(names: list[str]) -> None:
             roots[fault] = root
         # the control reads the kernels of the named faults (all: every kernel)
         groups = sorted({fault_group(f) for f in names} if names
-                        else {"k3", "k4", "k5", "k6", "nib4"})
+                        else {"k3", "k4", "k5", "k6", "nib4", "gemv"})
         procs = []
         for fault, root in roots.items():
             libs = sorted({lib for grp in (groups if fault == "none" else
@@ -3195,15 +3385,17 @@ def plant_faults(names: list[str]) -> None:
 
 
 GROUP_LIBS = {"nib4": ("qmm", "rqmm"), "k3": ("flash_decode",), "k4": ("flash_attention",),
-              "k5": ("qmm",),
+              "k5": ("qmm",), "gemv": ("gemv",),
               "k6": ("decode_stream",)}  # the libraries a group's kernels need
 
 
 def fault_group(fault: str) -> str:
     """The kernels a planted fault's copy is read on: "nib4" (K5-nib4 and
-    K8-nib4), "k3", "k4", "k5" or "k6" (K6 and K7)."""
+    K8-nib4), "gemv" (K1 / K2), "k3", "k4", "k5" or "k6" (K6 and K7)."""
     if fault in NIB4_FAULTS:
         return "nib4"
+    if fault in GEMV_FAULTS:
+        return "gemv"
     if fault in K5_FAULTS:
         return "k5"
     return "k4" if fault in K4_FAULTS else "k3" if fault in K3_FAULTS else "k6"
@@ -3212,12 +3404,43 @@ def fault_group(fault: str) -> str:
 def fault_edits(fault: str) -> tuple:
     """The edits that plant ``fault``: (file under the package, text, what
     replaces it) each; none for the unmodified source."""
-    if fault in NIB4_FAULTS or fault in K4_FAULTS or fault in K5_FAULTS:
-        return {**NIB4_FAULTS, **K4_FAULTS, **K5_FAULTS}[fault]
+    grouped = {**NIB4_FAULTS, **K4_FAULTS, **K5_FAULTS, **GEMV_FAULTS}
+    if fault in grouped:
+        return grouped[fault]
     if FAULTS[fault] is None:
         return ()
     src = "flash_decode" if fault in K3_FAULTS else "decode_stream"
     return ((f"csrc/{src}.cu", *FAULTS[fault]),)
+
+
+def gemv_errors_of_copy(torch, fault: str) -> None:
+    """K1 / K2's errors against ``gemv_plain`` on every
+    ``kernel_times.GEMV_CASES`` and ``OSS_GEMV_CASES`` entry (bf16 x, held at
+    TOL), and on an f32 x at M 1 of each weight (held at TOL_F32X), one JSON
+    line each, with the case's tile columns and splits."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+    from llama_cpp_gfx906_tpu_torch.tools import kernel_times as kt
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for (gtype, K, N, pad), group in kt.gemv_by_shape((*kt.GEMV_CASES, *kt.OSS_GEMV_CASES)):
+        qt = kt.gemv_weights(rng, gtype, K, N, pad, dev)
+        kern = getattr(qmm, group[0][0])
+        tn, splits = qmm.gemv_config(*qt.q.shape, sms)
+        xs = [(case, torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16), TOL)
+              for _, case, *_, M in group]
+        xs.append((f"{group[0][1]} f32 x", torch.randn((1, K), generator=g, device=dev),
+                   TOL_F32X))
+        for case, x, tol in xs:
+            emit(phase="planted_fault", fault=fault, kernel=group[0][0], case=case, tn=tn,
+                 splits=splits, rel_err=rel_of(torch, kern(x, qt), qmm.gemv_plain(x, qt)),
+                 tol=tol)
+        del qt, xs
+        torch.cuda.empty_cache()
 
 
 def decode_errors_of_copy(torch, fault: str, groups: list[str]) -> None:
@@ -3238,6 +3461,8 @@ def decode_errors_of_copy(torch, fault: str, groups: list[str]) -> None:
             emit(phase="planted_fault", fault=fault, kernel=c["name"], case=c["case"],
                  rel_err=rel_of(torch, c["kern"](), c["plain"]()), tol=TOL)
         torch.cuda.empty_cache()
+    if "gemv" in groups:
+        gemv_errors_of_copy(torch, fault)
     if "k5" in groups:
         from llama_cpp_gfx906_tpu_torch.ops.quant_matmul import qmm_config
 

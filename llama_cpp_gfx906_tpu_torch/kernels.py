@@ -108,9 +108,10 @@ _tile_counters: dict = {}
 
 def tile_counters(device, n: int):
     """A buffer of at least ``n`` int32 arrival counters for the column
-    tiles of a split-K launch on ``device`` (K1/K2, K8), zero at rest: the
-    last block of a tile resets its counter, so one buffer per device
-    serves every launch on its stream and every graph captured there.  It
+    tiles of a split-K launch on ``device`` (K8, and K3's split merge),
+    zero at rest: the last block of a tile resets its counter, so one
+    buffer per device serves every launch on its stream and every graph
+    captured there.  It
     is made at the first call, which a graph capture must not be (the
     engines warm a step up eagerly before they capture it)."""
     import torch

@@ -287,10 +287,10 @@ def gemv_plain(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 
 
 def _gemv_segment(qt: QuantTensor) -> tuple[int, int]:
-    """(packed rows per block, nib4c chunk) for the kernel's K split: each
-    thread owns seg/32 rows inside one quant group (an int8 K that is 64
-    rows past a multiple of 128, such as gpt-oss's 2880, takes 64-row
-    segments: 2 rows a thread)."""
+    """(packed rows per block, nib4c chunk) of K6's GEMV units
+    (``csrc/gemv_tile.cuh``): each thread owns seg/32 rows inside one quant
+    group (an int8 K that is 64 rows past a multiple of 128, such as
+    gpt-oss's 2880, takes 64-row segments: 2 rows a thread)."""
     if qt.fmt == "nib4c":
         ck = nib4c_chunk(qt.K)
         seg = min(512, ck // 2)
@@ -302,57 +302,147 @@ def _gemv_segment(qt: QuantTensor) -> tuple[int, int]:
     return seg, ck
 
 
-def gemv_splits(qt: QuantTensor, sms: int) -> int:
-    """The kernel's K splits for ``qt``: the fewest (a divisor of the
-    segment count) whose blocks, with the column tiles, reach every SM.
-    More cost a partial second wave (measured on an H100: gate|up
-    4096x28672 at 1 / 2 / 4 splits, down 14336x4096 at 7 / 14); the lm
-    head's ~1,000 tiles take one split, which writes its sums without
-    scratch or counters; a 1024-column projection takes them all."""
-    seg, _ = _gemv_segment(qt)
-    nseg = (qt.K // 2 if qt.fmt == "nib4c" else qt.K) // seg
-    tiles = -(-qt.q.shape[-1] // 128)
-    return next(d for d in range(1, nseg + 1)
-                if nseg % d == 0 and (tiles * d >= sms or d == nseg))
+# K1 / K2's schedule (``csrc/gemv.cu``): K walks in stages of GEMV_STAGE
+# packed rows; a block takes a tile of 128 or 64 stored columns
+# (GEMV_TILES) and the stages of its split; a tile's K splits over up to
+# GEMV_MAX_SPLITS blocks (one cluster), merged in split order; inside a
+# block GEMV_WARPS warps share the tile, 64 columns and SK / (GEMV_WARPS /
+# (tile / 64)) rows of each stage a warp, their sums added in warp order
+GEMV_STAGE, GEMV_MAX_SPLITS, GEMV_MAX_M, GEMV_WARPS = 64, 16, 8, 4
+GEMV_TILES = (128, 64)
+GEMV_GROUPS = (16, 32)  # the scale groups the kernel takes
+_GEMV_OUT = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's x and output dtypes
 
 
-def _gemv_launch(x2: torch.Tensor, qt: QuantTensor, splits: int | None = None
-                 ) -> torch.Tensor:
+def gemv_config(kp: int, Np: int, sms: int) -> tuple[int, int]:
+    """(columns a block, splits) of a K1/K2 launch over ``kp`` packed rows
+    and ``Np`` stored columns on a card of ``sms`` multiprocessors: 128-
+    column tiles with the fewest splits whose blocks reach every SM (the
+    heads' ~1,000-1,600 tiles take one); where even the most splits (the cluster limit, one stage a split) leave SMs idle,
+    64-column tiles the same way (a 1024-column projection); else 64
+    columns and the most splits.  More splits than reach the SMs cost time:
+    past ~200-250 blocks of a cluster's size the launch takes a second wave
+    (split sweeps on an H100, ``kernel_times.py --splits``)."""
+    stages = kp // GEMV_STAGE
+    top = min(GEMV_MAX_SPLITS, stages)
+    for tn in GEMV_TILES:
+        tiles = -(-Np // tn)
+        s = next((s for s in range(1, top + 1) if tiles * s >= sms), None)
+        if s is not None:
+            return tn, s
+    return GEMV_TILES[-1], top
+
+
+def _gemv_x_parts(x2: torch.Tensor) -> list[torch.Tensor]:
+    """The x the kernel's products see, f32: a bf16 x as it is; an f32 x
+    as its bf16 high part and the bf16 remainder."""
+    if x2.dtype != torch.float32:
+        return [x2.float()]
+    hi = x2.to(torch.bfloat16).float()
+    return [hi, (x2 - hi).to(torch.bfloat16).float()]
+
+
+def _group_planes(qt: QuantTensor):
+    """(scales, mins or None), f32 (K/g, Np): folded planes unfolded with
+    the kernel's rounding (int8 sub-scale times f32 super-scale)."""
+    s, m = qt.s.float(), None if qt.m is None else qt.m.float()
+    if qt.sd is not None:
+        rep = qt.sgroup // qt.group
+        s = s * qt.sd.repeat_interleave(rep, 0)
+        m = m * qt.md.repeat_interleave(rep, 0) if m is not None else None
+    return s, m
+
+
+def gemv_split_plain(x2: torch.Tensor, qt: QuantTensor,
+                     out_dtype: torch.dtype = torch.float32, tn: int | None = None,
+                     splits: int | None = None, sms: int = 132) -> torch.Tensor:
+    """K1/K2's schedule in plain PyTorch (f32): per split (the stages
+    ``qmm_split_steps`` deals it) and per warp of the block (``tn`` / 64
+    across the columns, the rest across each stage's rows), each quant
+    group's integer product with x (an f32 x: its high part and remainder,
+    two products) times the group's scale row, minus the group's x sums
+    times its min row, summed in K order; the warps' sums added in warp
+    order within each split, the splits in split order; cast last.  nib4c:
+    a packed row's low nibbles are its chunk's first half, the high ones
+    the second.  The kernel's way into bf16 (int8 as two exact parts,
+    nibbles biased by 128 and the bias taken off with the mins) changes no
+    value: the integers are the same.  ``tn`` and ``splits`` default to
+    :func:`gemv_config`'s on a card of ``sms`` multiprocessors."""
+    M = x2.shape[0]
+    nib = qt.fmt == "nib4c"
+    kp, Np = qt.q.shape
+    g = qt.group
+    auto_tn, auto_splits = gemv_config(kp, Np, sms)
+    tn, splits = tn or auto_tn, splits or auto_splits
+    kparts = GEMV_WARPS // (tn // 64)
+    rows = GEMV_STAGE // kparts
+    parts = _gemv_x_parts(x2)
+    vals = values(qt.q, qt).float()
+    s, m = _group_planes(qt)
+    hc = (nib4c_chunk(qt.K) or 0) // 2
+    nst = kp // GEMV_STAGE
+    y = torch.zeros((M, Np), device=x2.device)
+    for rng in qmm_split_steps(nst, splits):
+        for kk in range(kparts):
+            acc = torch.zeros((M, Np), device=x2.device)
+            for st in rng:
+                p0 = st * GEMV_STAGE + kk * rows
+                k0s = [(p0 // hc) * 2 * hc + p0 % hc] if nib else [p0]
+                if nib:
+                    k0s.append(k0s[0] + hc)
+                for r in range(0, rows, min(rows, g)):  # a scale run, then each K half
+                    for k0 in k0s:
+                        sl = slice(k0 + r, k0 + r + min(rows, g))
+                        w = vals[sl]
+                        acc = acc + sum(p[:, sl] @ w for p in parts) * s[(k0 + r) // g]
+                        if m is not None:
+                            xs = sum(p[:, sl].sum(1) for p in parts)
+                            acc = acc - xs[:, None] * m[(k0 + r) // g]
+            y = y + acc
+    return y[:, : qt.N].to(out_dtype)
+
+
+def _gemv_launch(x2: torch.Tensor, qt: QuantTensor, out_dtype: torch.dtype = torch.float32,
+                 tn: int | None = None, splits: int | None = None) -> torch.Tensor:
+    """One K1/K2 launch (``csrc/gemv.cu`` ``lcg_gemv``): (M, N) in
+    ``out_dtype`` (f32 or bf16), x read in its own dtype (bf16 or f32; any
+    other is cast to f32), the mins taken in the kernel.  ``tn`` and
+    ``splits`` (default: :func:`gemv_config`'s) are the block's columns and
+    the K split of each column tile."""
     M, K = x2.shape
-    Np = qt.q.shape[-1]
-    if M > 8 or K != qt.K or Np % 16:
-        raise ValueError(f"gemv kernel: M={M}, K={K} vs {qt.shape}, Np={Np}")
-    planes = [qt.q, qt.s, qt.m, qt.sd, qt.md]
+    kp, Np = qt.q.shape[-2:]
+    if (qt.fmt not in ("int8", "nib4c") or not 1 <= M <= GEMV_MAX_M or K != qt.K
+            or qt.q.ndim != 2 or Np % 16 or kp % GEMV_STAGE or qt.group not in GEMV_GROUPS
+            or out_dtype not in _GEMV_OUT):
+        raise ValueError(f"gemv kernel: M={M}, K={K}, {qt.fmt} {qt.shape} stored "
+                         f"{tuple(qt.q.shape)} g{qt.group}, out {out_dtype}")
+    folded = qt.sd is not None
+    sdt = torch.int8 if folded else torch.float32
+    planes = [(qt.q, torch.int8), (qt.s, sdt), (qt.m, sdt), (qt.sd, torch.float32),
+              (qt.md, torch.float32)]
     if any(t is not None and (t.device != x2.device or not t.is_contiguous()
-                              or t.data_ptr() % 16) for t in planes):
-        raise ValueError("gemv kernel: planes must be contiguous, 16-byte "
-                         "aligned and on x's device")
-    seg, ck = _gemv_segment(qt)
-    Mp = next(p for p in (1, 2, 4, 8) if p >= M)  # the kernel's row counts
-    x = x2.float()
-    if Mp != M:
-        x = torch.cat([x, x.new_zeros((Mp - M, K))])
+                              or t.data_ptr() % 16 or t.dtype != dt) for t, dt in planes):
+        raise ValueError("gemv kernel: planes must be contiguous, 16-byte aligned, on "
+                         "x's device, int8 q and f32 (folded: int8 and f32) scales")
+    x = x2 if x2.dtype in _GEMV_OUT else x2.float()
     x = x.contiguous()
-    if splits is None:
-        splits = gemv_splits(qt, _sms(x2.device))
-    # with splits > 1: their partial sums (scratch) and the column tiles'
-    # arrival counters; the kernel adds the splits in order
-    out = torch.empty((Mp, Np), dtype=torch.float32, device=x2.device)
-    part = cnt = None
-    if splits > 1:
-        part = torch.empty(splits * Mp * Np, dtype=torch.float32, device=x2.device)
-        cnt = kernels.tile_counters(x2.device, -(-Np // 128))
+    if x.data_ptr() % 16:
+        x = x.clone()
+    auto_tn, auto_splits = gemv_config(kp, Np, _sms(x2.device))
+    out = torch.empty((M, qt.N), dtype=out_dtype, device=x2.device)
     so = kernels.lib("gemv")
     if so.lcg_gemv.argtypes is None:
         so.lcg_gemv.restype = ctypes.c_int
-        so.lcg_gemv.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
-                                + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        so.lcg_gemv.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+                                + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     err = so.lcg_gemv(
-        int(qt.fmt == "nib4c"), int(qt.sd is not None), Mp, *map(kernels.ptr, (
-            x, qt.q, qt.s, qt.m, qt.sd, qt.md, out, part, cnt)),
-        K, Np, qt.group, qt.sgroup or 1, ck, seg, splits, kernels.stream(x2.device))
+        int(qt.fmt == "nib4c"), int(folded), int(x.dtype == torch.float32),
+        *map(kernels.ptr, (x, qt.q, qt.s, qt.m, qt.sd, qt.md, out)),
+        _GEMV_OUT[out_dtype], M, K, qt.N, Np, qt.group, qt.sgroup,
+        nib4c_chunk(K) if qt.fmt == "nib4c" else 0, tn or auto_tn, splits or auto_splits,
+        kernels.stream(x2.device))
     kernels.check(so, err, f"gemv_{qt.fmt}")
-    return out[:M, : qt.N]
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -362,25 +452,29 @@ def _sms(device) -> int:
 
 
 @kernels.counted("gemv_int8", lib="gemv", slot=0)
-def gemv_int8(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """K1: x (M <= 8, K) @ int8 QuantTensor -> f32 (M, N)."""
+def gemv_int8(x2: torch.Tensor, qt: QuantTensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K1: x (M <= 8, K) @ int8 QuantTensor -> (M, N) in ``out_dtype`` (f32
+    or bf16); one launch.  On the CPU, :func:`gemv_plain`."""
     if x2.device.type == "cpu":
-        return gemv_plain(x2, qt)
+        return gemv_plain(x2, qt).to(out_dtype)
     if qt.fmt != "int8":
         raise ValueError(f"gemv_int8: {qt.fmt} weight")
-    out = _gemv_launch(x2, qt)
+    out = _gemv_launch(x2, qt, out_dtype)
     gemv_int8.launches += 1
     return out
 
 
 @kernels.counted("gemv_nib4c", lib="gemv", slot=1)
-def gemv_nib4c(x2: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
-    """K2: x (M <= 8, K) @ nib4c QuantTensor -> f32 (M, N)."""
+def gemv_nib4c(x2: torch.Tensor, qt: QuantTensor,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """K2: x (M <= 8, K) @ nib4c QuantTensor -> (M, N) in ``out_dtype`` (f32
+    or bf16); one launch.  On the CPU, :func:`gemv_plain`."""
     if x2.device.type == "cpu":
-        return gemv_plain(x2, qt)
+        return gemv_plain(x2, qt).to(out_dtype)
     if qt.fmt != "nib4c":
         raise ValueError(f"gemv_nib4c: {qt.fmt} weight")
-    out = _gemv_launch(x2, qt)
+    out = _gemv_launch(x2, qt, out_dtype)
     gemv_nib4c.launches += 1
     return out
 
@@ -597,12 +691,15 @@ def qmm_nib4(x2: torch.Tensor, qt: QuantTensor,
 
 def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """x (..., K) @ quantized (K, N): the GEMV kernels for M <= 8 (int8,
-    nib4c); for M > 8, K5 on the card where its gate holds (one launch,
-    writing x.dtype where that is f32 or bf16), else the dequant matmul
-    (which also takes a split-K nib4 weight at M <= 8, as the JAX package
-    leaves it to XLA).  Returns x.dtype."""
+    nib4c; one launch, writing x.dtype where that is f32 or bf16); for
+    M > 8, K5 on the card where its gate holds (one launch, writing x.dtype
+    where that is f32 or bf16), else the dequant matmul (which also takes a
+    split-K nib4 weight at M <= 8, as the JAX package leaves it to XLA).
+    Returns x.dtype; no rows of x give no rows and no launch."""
     lead = x.shape[:-1]
     M = int(np.prod(lead)) if lead else 1
+    if M == 0:
+        return x.new_zeros((*lead, qt.N))
     if M > 8 or qt.fmt == "nib4":
         if M > 8 and x.is_cuda and qmm_tileable(qt):
             k5 = qmm_nib4 if qt.fmt == "nib4" else qmm_int8
@@ -610,7 +707,8 @@ def quant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
             return k5(x.reshape(M, qt.K), qt, dt).reshape(*lead, qt.N).to(x.dtype)
         return dequant_matmul(x, qt)
     gemv = gemv_nib4c if qt.fmt == "nib4c" else gemv_int8
-    return gemv(x.reshape(M, qt.K), qt).reshape(*lead, qt.N).to(x.dtype)
+    dt = x.dtype if x.dtype in _GEMV_OUT else torch.float32
+    return gemv(x.reshape(M, qt.K), qt, dt).reshape(*lead, qt.N).to(x.dtype)
 
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:

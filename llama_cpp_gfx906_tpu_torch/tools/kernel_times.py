@@ -1,10 +1,11 @@
-"""Device times of the split-K kernels, K3, K4, K5 and the nib4 modes, at the main paths' shapes.
+"""Device times of the split-K kernels, K1 / K2, K3, K4, K5 and the nib4 modes, at the main paths' shapes.
 
 The cases live here, and ``chip_smoke.py`` builds its kernel cases from the
 same lists: K1 / K2 (``GEMV_CASES``: the 8B head, ``attn_v`` and Q4_K
-projections), K8 (``EXPERT_CASES``: Mixtral's experts at 2 and 8 pairs)
-and K6 / K7 in each mode (``DECODE_CASES``: a few full-width layers of
-each model, or a small model's whole stack) and K3 in each mode
+projections; ``OSS_GEMV_CASES`` at gpt-oss-20b's shapes; each at M 1, 4
+and 8 rows of x, ``GEMV_MS``), K8 (``EXPERT_CASES``: Mixtral's experts at 2
+and 8 pairs) and K6 / K7 in each mode (``DECODE_CASES``: a few full-width
+layers of each model, or a small model's whole stack) and K3 in each mode
 (``K3_CASES``: the 8B's, MPT-7B's, BLOOM-7B1's, tinydoc's, the Qwen
 group sizes', gpt-oss's and Gemma-3-4B's heads and the JAX tests' shape;
 :func:`k3_case` makes their inputs) and K4 in each mode
@@ -12,15 +13,20 @@ group sizes', gpt-oss's and Gemma-3-4B's heads and the JAX tests' shape;
 makes their inputs) and K5 in both modes (``QMM_CASES``: the 270M Q8_0,
 Gemma-3-4B, Mixtral Q8_0 and gpt-oss-20b prefill projections;
 :func:`qmm_case` makes their inputs); at gpt-oss-20b's shapes, K8's nib4
-mode (``RQMM_NIB4_CASES`` on :func:`oss_experts`), K1 / K2
-(``OSS_GEMV_CASES``) and K3 with sinks (``OSS_ATTN_CASES``).
+mode (``RQMM_NIB4_CASES`` on :func:`oss_experts`) and K3 with sinks
+(``OSS_ATTN_CASES``).
 Each is timed as ``chip_smoke.py`` times a kernel (:func:`device_ms`).
 The ``prefill`` group times the model phases' whole prefills instead
-(``PREFILL_CASES``, :func:`prefill_times`), by the host's clock.
+(``PREFILL_CASES``, :func:`prefill_times`), and the ``loop`` group whole
+decode tokens through K1 / K2 (``LOOP_CASES``: MPT-7B and BLOOM-7B1's
+``decode_fused``, and the 8B's 4-slot q8 batched step, :func:`loop_times`),
+by the host's clock.
 Synthetic weights from seed 0; caches of random rows filled to n_past
-3000.  With ``--splits``, K1 / K2 and K5 are also timed at every split
-count the kernel takes (``gemv_splits`` and ``qmm_config`` pick one of
-them).  ``--kernels`` picks the groups to build and time (default all);
+3000.  With ``--splits``, K1 / K2 and K5 are also timed at every tile and
+split count the kernel takes (``gemv_config`` and ``qmm_config`` pick one
+of them).  ``--variant`` times a copy of the package with one of
+``GEMV_VARIANTS``' edits to K1 / K2 (``stream_only``: the ring's stream
+alone).  ``--kernels`` picks the groups to build and time (default all);
 the wall time of each build is printed.
 
 ``--root`` imports the package from another checkout (run the script by
@@ -46,14 +52,25 @@ import tempfile
 import time
 from pathlib import Path
 
-# (kernel, case, GGML type, K, N, N padded to whole 128-column tiles)
-GEMV_CASES = (
+# the rows of x of every GEMV case: one stream, the 4-slot served step, the
+# most rows a served step takes
+GEMV_MS = (1, 4, 8)
+
+
+def _with_ms(shapes):
+    """(kernel, case + " M=<M>", GGML type, K, N, padded, M) for each shape
+    and each of GEMV_MS."""
+    return tuple((k, f"{case} M={M}", *rest, M) for k, case, *rest in shapes for M in GEMV_MS)
+
+
+# (kernel, case, GGML type, K, N, N padded to whole 2048-column blocks, M)
+GEMV_CASES = _with_ms((
     ("gemv_int8", "lm_head 4096x129024", "Q6_K", 4096, 128256, True),
     ("gemv_int8", "attn_v 4096x1024", "Q6_K", 4096, 1024, False),
     ("gemv_nib4c", "attn_qk 4096x5120", "Q4_K", 4096, 5120, False),
     ("gemv_nib4c", "attn_output 4096x4096", "Q4_K", 4096, 4096, False),
     ("gemv_nib4c", "ffn_gate_up 4096x28672", "Q4_K", 4096, 28672, False),
-    ("gemv_nib4c", "ffn_down 14336x4096", "Q4_K", 14336, 4096, False))
+    ("gemv_nib4c", "ffn_down 14336x4096", "Q4_K", 14336, 4096, False)))
 EXPERTS = 8  # Mixtral's
 # (case, GGML type, N, K, pair counts): Q8_0 experts, and Q4_K ones unified
 # to int8 with mins (group 16)
@@ -148,10 +165,10 @@ OSS_D, OSS_EF, OSS_E = 2880, 2880, 32
 # tokens' 8, distinct experts per token, with mins (Q4_0: m = 8 d)
 RQMM_NIB4_CASES = tuple((f"gate 2880x3072 with mins P={P}", P) for P in (4, 8))
 # K1 at K 2880 (q|k|v with mins, the head's 2880 rows) and K2 at N 2880
-OSS_GEMV_CASES = (
+OSS_GEMV_CASES = _with_ms((
     ("gemv_int8", "attn_qkv 2880x5120 with mins", "Q4_0", 2880, 5120, False),
     ("gemv_int8", "lm_head 2880x201088", "Q8_0", 2880, 201088, True),
-    ("gemv_nib4c", "attn_output 4096x2880", "Q4_0", 4096, 2880, False))
+    ("gemv_nib4c", "attn_output 4096x2880", "Q4_0", 4096, 2880, False)))
 # (mode, case, GGML type, K, N, M): K5 at the prefill shapes of the model
 # phases, x of M rows: the 270M Q8_0 projections at its 676-token prompt;
 # Gemma-3-4B's attn_v (Q6_K: int8 planes, group 16) at a served chunk of
@@ -210,9 +227,15 @@ PREFILL_CASES = (("8b", None, 676), ("qwen3-8b-q4_k_m", None, 1499),
                  ("gemma3-4b-q4_k_m", None, 1500), ("gpt-oss-20b-q4_0", 6, 997),
                  ("270m-q8_0", None, 676), ("mixtral-q8_0", 4, 676))
 PREFILL_REPEATS = 5
+# (synth preset, layers (None: all)): the ``loop`` group's single-stream
+# models, timed through ``decode_fused`` (the per-layer loop in a graph)
+LOOP_CASES = (("mpt-7b-q4_k_m", None), ("bloom-7b1-q4_k_m", 4))
+LOOP_PROMPT, LOOP_STEPS, LOOP_REPEATS = 256, 64, 5
+LOOP_SERVE_LENS = (700, 800, 900, 1000)  # the 8B 4-slot q8 step's prompts
 GROUPS = {"gemv": ("gemv",), "rqmm": ("rqmm",), "decode": ("decode_stream",),
           "k3": ("flash_decode",), "k4": ("flash_attention",), "k5": ("qmm",),
-          "nib4": ("rqmm",), "prefill": ("gemv", "qmm", "flash_attention")}
+          "nib4": ("rqmm",), "prefill": ("gemv", "qmm", "flash_attention"),
+          "loop": ("gemv", "flash_decode", "flash_attention", "qmm")}
 
 
 def device_ms(fn, torch, flush, n: int = 10) -> float:
@@ -259,6 +282,15 @@ def gemv_weights(rng, gtype: str, K: int, N: int, pad: bool, device):
     rows = synth_gguf._ROWS[t](rng, N, K)
     qt = qmm.pack_gguf_tensor(rows.reshape(-1), t, (N, K), fold_scales=True, device=device)
     return qmm.pad_qt_n(qt) if pad else qt
+
+
+def gemv_by_shape(cases) -> list:
+    """GEMV cases grouped by their weight, in order: [((GGML type, K, N,
+    padded), [case, ...]), ...], so each weight is made once."""
+    groups: dict = {}
+    for c in cases:
+        groups.setdefault(tuple(c[2:6]), []).append(c)
+    return list(groups.items())
 
 
 def expert_weights(gtype: str, N: int, K: int, device):
@@ -579,11 +611,15 @@ def main(argv=None) -> None:
                     help="the checkout whose package to time")
     ap.add_argument("--label", default="")
     ap.add_argument("--splits", action="store_true",
-                    help="also time K1 / K2 and K5 at every split count")
+                    help="also time K1 / K2 and K5 at every tile and split count")
     ap.add_argument("--kernels", default=",".join(GROUPS),
                     help=f"the groups to build and time, of {','.join(GROUPS)}")
+    ap.add_argument("--variant", choices=sorted(GEMV_VARIANTS),
+                    help="time a copy of --root's package with this K1 / K2 variant")
     args = ap.parse_args(argv)
     groups = args.kernels.split(",")
+    if args.variant:
+        args.root = str(variant_root(Path(args.root), args.variant))
     sys.path.insert(0, args.root)
     import numpy as np
     import torch
@@ -610,24 +646,13 @@ def main(argv=None) -> None:
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
-    rng = np.random.default_rng(0)
 
     def emit(kernel, case, ms, **extra):
         print(json.dumps(dict(label=args.label, kernel=kernel, case=case, ms=ms, **extra)),
               flush=True)
 
-    for name, case, gtype, K, N, pad in GEMV_CASES if "gemv" in groups else ():
-        qt = gemv_weights(rng, gtype, K, N, pad, dev)
-        x = torch.randn((1, K), generator=g, device=dev).to(torch.bfloat16)
-        kern = getattr(qmm, name)
-        emit(name, case, device_ms(lambda: kern(x, qt), torch, flush))
-        if args.splits and hasattr(qmm, "gemv_splits"):
-            seg, _ = qmm._gemv_segment(qt)
-            nseg = (K // 2 if qt.fmt == "nib4c" else K) // seg
-            for d in (d for d in range(1, nseg + 1) if nseg % d == 0):
-                emit(name, case, device_ms(lambda: qmm._gemv_launch(x, qt, d), torch, flush),
-                     splits=d)
-        del qt
+    if "gemv" in groups:
+        gemv_times(torch, dev, flush, emit, args.splits)
 
     prng = np.random.default_rng(5)
     for case, gtype, N, K, pairs in EXPERT_CASES if "rqmm" in groups else ():
@@ -677,6 +702,159 @@ def main(argv=None) -> None:
         nib4_times(torch, dev, flush, emit)
     if "prefill" in groups:
         prefill_times(torch, emit)
+    if "loop" in groups:
+        loop_times(torch, emit)
+
+
+def gemv_times(torch, dev, flush, emit, sweep: bool) -> None:
+    """K1 / K2 on GEMV_CASES and OSS_GEMV_CASES (weights from seed 0 in
+    order, x from seed 0): ``ms`` the call the main path makes
+    (``quant_matmul`` on a bf16 x: this checkout's kernel and whatever it
+    launches beside it), ``matmul_ms`` one ``torch.matmul`` of x and the
+    weight dequantized to bf16 beforehand (the yardstick), the launch
+    counts of one call and, where the checkout has
+    ``gemv_config``, the block's columns and splits; with ``sweep``, at M 1
+    every tile width and split count the launcher takes."""
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for (gtype, K, N, pad), cases in gemv_by_shape((*GEMV_CASES, *OSS_GEMV_CASES)):
+        qt = gemv_weights(rng, gtype, K, N, pad, dev)
+        w = qmm.dequantize_qt(qt, torch.bfloat16)
+        kp, Np = qt.q.shape
+        for name, case, *_, M in cases:
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            before = kernels.counts()
+            qmm.quant_matmul(x, qt)
+            counted = {k: n - before[k] for k, n in kernels.counts().items() if n != before[k]}
+            extra = {}
+            if hasattr(qmm, "gemv_config"):
+                extra["tn"], extra["splits"] = qmm.gemv_config(kp, Np, sms)
+            emit(name, case, device_ms(lambda: qmm.quant_matmul(x, qt), torch, flush),
+                 matmul_ms=device_ms(lambda: torch.matmul(x, w), torch, flush),
+                 counted=counted, **extra)
+            if sweep and "splits" in extra and M == 1:
+                for tn in qmm.GEMV_TILES:
+                    for sp in range(1, min(qmm.GEMV_MAX_SPLITS, kp // qmm.GEMV_STAGE) + 1):
+                        emit(name, case, device_ms(
+                            lambda: qmm._gemv_launch(x, qt, torch.float32, tn, sp), torch,
+                            flush), tn=tn, splits=sp)
+        del qt, w
+        torch.cuda.empty_cache()
+
+
+# Variants of K1 / K2 that find what binds them, made by ``--variant``:
+# (file under the package, text, what replaces it) each.  "stream_only": the
+# consumer warps wait on each ring stage and free it without reading it, so
+# the launch times the producer's TMA stream, the prologue and the merge
+GEMV_VARIANTS = {
+    "stream_only": (
+        ("csrc/gemv.cu", "for (int r = 0; r < RUNS; ++r) {\n        float d[H][4][4]",
+         "for (int r = 0; r < 0; ++r) {\n        float d[H][4][4]"),
+        ("csrc/gemv.cu", "if constexpr (FOLDED) {\n        // the stage's factors",
+         "if constexpr (false) {\n        // the stage's factors")),
+}
+
+
+def variant_root(root: Path, name: str) -> Path:
+    """A copy of ``root``'s package with GEMV_VARIANTS[name]'s edits, under
+    ``root/build/variants/<name>`` (made anew): the root to time."""
+    import shutil
+
+    pkg = "llama_cpp_gfx906_tpu_torch"
+    out = root / "build" / "variants" / name
+    shutil.rmtree(out / pkg, ignore_errors=True)
+    shutil.copytree(root / pkg, out / pkg, ignore=shutil.ignore_patterns("__pycache__"))
+    for rel, text, planted in GEMV_VARIANTS[name]:
+        src = out / pkg / rel
+        body = src.read_text()
+        if body.count(text) != 1:
+            raise SystemExit(f"kernel_times: variant {name}: the text to replace is not "
+                             f"in {rel} once")
+        src.write_text(body.replace(text, planted))
+    return out
+
+
+def loop_times(torch, emit) -> None:
+    """End to end through K1 / K2: per-token ``decode_fused`` time of each
+    ``LOOP_CASES`` model (MPT-7B at full depth, BLOOM-7B1 at 4 of 30
+    layers: the per-layer loop in a captured graph, K2 on every projection,
+    K3's ALiBi mode, K1 on the head), LOOP_STEPS tokens after a
+    LOOP_PROMPT-token prompt, LOOP_REPEATS times after a warm-up (host
+    clock between synchronizations), with the launches of one token as the
+    kernels count them on the device; then the 8B's 4-slot q8 decode step
+    (``BatchedEngine``, LOOP_SERVE_LENS prompts, LOOP_STEPS tokens each) by
+    its replays' device time and its wall time per step.  Synthetic weights
+    from seed 0, written once under this script's checkout
+    (``build/prefill_ggufs``) and reused by later runs and other ``--root``s.
+    One run moves by a few percent: alternate the checkouts compared."""
+    import statistics
+
+    import numpy as np
+
+    from llama_cpp_gfx906_tpu_torch import kernels
+    from llama_cpp_gfx906_tpu_torch.runtime.batch_engine import BatchedEngine, SamplerConfig
+    from llama_cpp_gfx906_tpu_torch.runtime.engine import Engine, load_model
+    from llama_cpp_gfx906_tpu_torch.tools.synth_gguf import write_synth
+
+    gguf_dir = Path(__file__).resolve().parents[2] / "build" / "prefill_ggufs"
+    gguf_dir.mkdir(parents=True, exist_ok=True)
+
+    def gguf(preset, n_layers):
+        path = gguf_dir / f"{preset}-{n_layers or 'all'}.gguf"
+        if not path.exists():
+            write_synth(str(path), preset, seed=0, n_layers=n_layers)
+        return str(path)
+
+    for preset, n_layers in LOOP_CASES:
+        eng = Engine.from_gguf(gguf(preset, n_layers), max_seq=4096)
+        ids = [int(t) for t in np.random.default_rng(0).integers(3, eng.cfg.n_vocab, LOOP_PROMPT)]
+        eng.reset()
+        tok = int(np.argmax(eng.prefill(ids)))
+        toks = eng.decode_fused(tok, n_steps=LOOP_STEPS)  # the warm-up: captures the step
+        before = kernels.device_counts()
+        times = []
+        for _ in range(LOOP_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = eng.decode_fused(toks[-1], n_steps=LOOP_STEPS)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / LOOP_STEPS)
+        per_tok = {k: (v - before[k]) / (LOOP_STEPS * LOOP_REPEATS)
+                   for k, v in kernels.device_counts().items() if v != before[k]}
+        med = statistics.median(times)
+        emit("decode_fused", f"{preset} L={eng.cfg.n_layers}", med * 1e3, tok_s=1 / med,
+             times_ms=[t * 1e3 for t in times], launches_per_token=per_tok)
+        del eng
+        torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    cfg, params, tok = load_model(gguf("8b", None), torch.bfloat16, dev)
+    be = BatchedEngine(cfg, params, tok, n_slots=4, max_seq=4096, kv_cache_dtype="q8",
+                       device=dev)
+    be.warmup()
+    rng = np.random.default_rng(6)
+    times = []
+    for _ in range(2):  # the first: warm-up
+        slots = [be.add_request([int(t) for t in rng.integers(3, cfg.n_vocab, n)], LOOP_STEPS,
+                                SamplerConfig(temp=0.0)) for n in LOOP_SERVE_LENS]
+        m0 = dict(be.metrics)
+        while not all(s.stop_reason is not None for s in slots):
+            be.step()
+        for s in slots:
+            be.release(s)
+        steps = be.metrics["n_decode_steps"] - m0["n_decode_steps"]
+        times.append(((be.metrics["t_decode_device_s"] - m0["t_decode_device_s"]) / steps,
+                      (be.metrics["t_decode_s"] - m0["t_decode_s"]) / steps))
+    emit("batched_step", "8b q8 4 slots", times[-1][0] * 1e3, wall_ms=times[-1][1] * 1e3,
+         decode_steps=steps)
+    del be, params
+    torch.cuda.empty_cache()
 
 
 def nib4_times(torch, dev, flush, emit) -> None:

@@ -1196,19 +1196,45 @@ def test_gemv_launches_are_bit_identical(cuda_device, qtype, fold, K, N, M):
                                               (GGMLType.Q4_K, True, 4096, 4096, 2),
                                               (GGMLType.Q4_K, False, 4096, 640, 8)])
 def test_gemv_every_split_count_matches_plain(cuda_device, qtype, fold, K, N, M):
-    """K1 / K2 at each split count that divides the segments (1: a block
-    walks all of K and writes the output itself), each against the plain
-    version and bit-identical over two launches."""
+    """K1 / K2 at 64- and 128-column blocks and each split count the
+    launcher takes (1: a block walks all of K and writes the output itself;
+    up to 16: one cluster), each against the plain version and
+    bit-identical over two launches."""
     qt = tq.pack_gguf_tensor(_raw(qtype, N, K, 6), qtype, (N, K), fold_scales=fold,
                              device=cuda_device)
     x = torch.randn((M, K), device=cuda_device).to(torch.bfloat16)
-    seg, _ = tq._gemv_segment(qt)
-    nseg = (K // 2 if qt.fmt == "nib4c" else K) // seg
+    stages = qt.q.shape[0] // tq.GEMV_STAGE
     ref = tq.gemv_plain(x, qt)
-    for splits in (d for d in range(1, nseg + 1) if nseg % d == 0):
-        a, b = tq._gemv_launch(x, qt, splits), tq._gemv_launch(x, qt, splits)
-        torch.cuda.synchronize()
-        assert torch.equal(a, b) and _rel(a, ref) < TOL, splits
+    for tn in tq.GEMV_TILES:
+        for splits in range(1, min(tq.GEMV_MAX_SPLITS, stages) + 1):
+            a = tq._gemv_launch(x, qt, torch.float32, tn, splits)
+            b = tq._gemv_launch(x, qt, torch.float32, tn, splits)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b) and _rel(a, ref) < TOL, (tn, splits)
+
+
+@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("qtype,fold,K,N", [(GGMLType.Q6_K, True, 4096, 1024),
+                                            (GGMLType.Q4_K, True, 4096, 640),
+                                            (GGMLType.Q4_0, False, 2880, 2880)])
+def test_gemv_f32_x_and_bf16_out(cuda_device, qtype, fold, K, N, M):
+    """An f32 x (its high part and remainder, two products) within 1e-4 of
+    the f32 plain version; a bf16 output the f32 one rounded once; through
+    quant_matmul, one launch writing x's dtype."""
+    qt = tq.pack_gguf_tensor(_raw(qtype, N, K, 11), qtype, (N, K), fold_scales=fold,
+                             device=cuda_device)
+    x = torch.randn((M, K), device=cuda_device)
+    kern = tq.gemv_nib4c if qt.fmt == "nib4c" else tq.gemv_int8
+    got = kern(x, qt)
+    assert got.dtype == torch.float32 and _rel(got, tq.gemv_plain(x, qt)) < 1e-4
+    xb = x.to(torch.bfloat16)
+    f32, b16 = kern(xb, qt), kern(xb, qt, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert b16.dtype == torch.bfloat16 and torch.equal(b16, f32.to(torch.bfloat16))
+    before = kern.launches
+    y = tq.quant_matmul(xb.reshape(1, M, K), qt)
+    assert kern.launches == before + 1 and y.dtype == torch.bfloat16 and y.shape == (1, M, N)
+    assert torch.equal(y[0], b16)
 
 
 def test_rqmm_launches_are_bit_identical(cuda_device):
@@ -1345,18 +1371,18 @@ def test_rqmm_nib4_replays_with_new_ids(cuda_device, oss_gate):
     assert _rel(out, tq.rqmm_nib4_plain(x, oss_gate, idx)) < TOL
 
 
-@pytest.mark.parametrize("name,case,gtype,K,N,pad", kt.OSS_GEMV_CASES)
-def test_gemv_at_gpt_oss_shapes(cuda_device, name, case, gtype, K, N, pad):
-    """K1 at K 2880 (64-row segments, with mins; the head's one split) and
-    K2 at N 2880 (a ragged last 128-column tile), against the plain
-    version, bit-identical over two launches."""
+@pytest.mark.parametrize("name,case,gtype,K,N,pad,M", kt.OSS_GEMV_CASES)
+def test_gemv_at_gpt_oss_shapes(cuda_device, name, case, gtype, K, N, pad, M):
+    """K1 at K 2880 (45 stages, with mins; the head's 128-column tiles) and
+    K2 at N 2880 (a ragged last 128-column tile), at M 1, 4 and 8, against
+    the plain version, bit-identical over two launches."""
     qt = kt.gemv_weights(np.random.default_rng(3), gtype, K, N, pad, cuda_device)
-    x = torch.randn((1, K), device=cuda_device).to(torch.bfloat16)
+    x = torch.randn((M, K), device=cuda_device).to(torch.bfloat16)
     kern = getattr(tq, name)
     got = kern(x, qt)
     again = kern(x, qt)
     torch.cuda.synchronize()
-    assert got.shape == (1, N) and _rel(got, tq.gemv_plain(x, qt)) < TOL
+    assert got.shape == (M, N) and _rel(got, tq.gemv_plain(x, qt)) < TOL
     assert torch.equal(got, again)
 
 

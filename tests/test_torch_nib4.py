@@ -128,17 +128,19 @@ def test_nib4_gate_matches_jax(E, N, K, pad_n, drop):
 @pytest.mark.parametrize("N", [512, 2880, 5120])
 def test_gemv_segment_at_k_2880(N):
     """K1 takes gpt-oss's K = 2880 (a Q4_0 or Q8_0 projection without a
-    nib4c chunk stays int8) in 64-row segments, 2 rows a thread inside one
-    32-row group, with fixed-order splits that divide the 45 segments; its
-    plain version against the JAX CPU matmul."""
+    nib4c chunk stays int8) in 45 stages of 64 rows, dealt in order to at
+    most 16 splits that give every SM a block where the tiles allow (K6's
+    GEMV units: 64-row segments, 2 rows a thread inside one 32-row group);
+    its plain version against the JAX CPU matmul."""
     for qtype in (GGMLType.Q4_0, GGMLType.Q8_0):
         raw = _raw(7, N, 2880, qtype)
         tqt = tq.pack_gguf_tensor(raw, qtype, (N, 2880))
         assert tqt.fmt == "int8" and (tqt.m is not None) == (qtype == GGMLType.Q4_0)
         assert tq._gemv_segment(tqt) == (64, 0)
         for sms in (1, 8, 132):
-            splits = tq.gemv_splits(tqt, sms)
-            assert 45 % splits == 0 and (splits == 45 or -(-N // 128) * splits >= sms)
+            tn, splits = tq.gemv_config(2880, N, sms)
+            assert 1 <= splits <= 16 and (splits == 16 or -(-N // tn) * splits >= sms)
+            assert [i for r in tq.qmm_split_steps(45, splits) for i in r] == list(range(45))
         x = np.random.default_rng(8).standard_normal((1, 2880)).astype(np.float32)
         jqt = jq.pack_gguf_tensor(raw, qtype, (N, 2880))
         ref = np.asarray(jq.quant_matmul(jnp.asarray(x), jqt))

@@ -92,15 +92,19 @@ def test_nib4c_chunk_rule():
             assert tq._fold_streams(K, t) == jq._fold_streams(K, t), (K, t)
 
 
-@pytest.mark.parametrize("sms,want", [(132, 4), (16, 4), (12, 4), (8, 2), (5, 2),
-                                      (4, 1), (2, 1)])
+@pytest.mark.parametrize("sms,want", [(132, (64, 16)), (16, (128, 4)), (17, (128, 5)),
+                                      (64, (128, 16)), (100, (64, 13)), (8, (128, 2)),
+                                      (2, (128, 1))])
 def test_gemv_splits_fill_the_card(sms, want):
-    """K1/K2 split K only as far as reaching every SM needs: 4 column tiles
-    and 4 segments of 512 rows take 1, 2 or all 4 splits (a divisor)."""
+    """K1/K2 split K only as far as reaching every SM needs: 4 tiles of 128
+    columns (8 of 64) over 32 stages of 64 rows take the fewest splits
+    that give every SM a block, 64-column tiles where 128-column ones
+    cannot at any split count, and the most (16) where neither can.  (K6's
+    GEMV units keep 512-row segments.)"""
     qt = tq.pack_gguf_tensor(_raw(GGMLType.Q8_0, 512, 2048, seed=3), GGMLType.Q8_0,
                              (512, 2048))
     assert tq._gemv_segment(qt) == (512, 0)
-    assert tq.gemv_splits(qt, sms) == want
+    assert tq.gemv_config(qt.q.shape[0], qt.q.shape[1], sms) == want
 
 
 @pytest.mark.parametrize("M", [1, 8])

@@ -1,8 +1,9 @@
 """The case lists that ``chip_smoke.py`` and ``tools/kernel_times.py`` read on
 the card name what exists, checked on the CPU: the K4 case that each K4 body's
 summary entry (and its one plain-version timing) reads, the K3 case that
-each K3 mode's entry reads, and each
-``--kernels prefill`` case's preset, layer cut and prompt."""
+each K3 mode's entry reads, the K1 / K2 case that each GEMV entry reads, each
+``--kernels prefill`` case's preset, layer cut and prompt, and the sources
+that each ``--variant`` edits."""
 
 import pytest
 
@@ -30,6 +31,32 @@ def test_k3_summary_case_is_one_k3_case(name):
     cases = [case for mode, case, *_ in kt.K3_CASES
              if chip_smoke.k3_name(mode) == name and chip_smoke.SUMMARY_CASE[name] in case]
     assert len(cases) == 1, (name, cases)
+
+
+@pytest.mark.parametrize("name", ["gemv_int8", "gemv_nib4c"])
+def test_gemv_summary_case_is_one_gemv_case(name):
+    """Across both of ``gemv_cases``' lists (``seen`` carries the plain
+    timing from one to the other) and at M 1, where the ``matmul``
+    yardstick is timed."""
+    cases = [(case, M) for kern, case, *_, M in (*kt.GEMV_CASES, *kt.OSS_GEMV_CASES)
+             if kern == name and chip_smoke.SUMMARY_CASE[name] in case]
+    assert len(cases) == 1 and cases[0][1] == 1, (name, cases)
+
+
+@pytest.mark.parametrize("variant", sorted(kt.GEMV_VARIANTS))
+def test_gemv_variant_edits_apply(variant, tmp_path):
+    """Each variant's texts are in the kernel source once, and the copy
+    ``--variant`` times holds the edited source and the package."""
+    from pathlib import Path
+
+    root = Path(kernels.__file__).resolve().parents[1]
+    pkg = root / "llama_cpp_gfx906_tpu_torch"
+    (tmp_path / "llama_cpp_gfx906_tpu_torch").symlink_to(pkg)
+    out = kt.variant_root(tmp_path, variant) / "llama_cpp_gfx906_tpu_torch"
+    for rel, text, planted in kt.GEMV_VARIANTS[variant]:
+        assert (pkg / rel).read_text().count(text) == 1
+        assert planted in (out / rel).read_text()
+    assert (out / "kernels.py").read_bytes() == (pkg / "kernels.py").read_bytes()
 
 
 @pytest.mark.parametrize("preset,n_layers,tokens", kt.PREFILL_CASES)
