@@ -142,12 +142,13 @@ it exits non-zero and prints no result.
 
 Usage: python3 chip_smoke.py
 
-``python3 chip_smoke.py --plant-faults [fault ...]`` shows instead whether
+``python3 chip_smoke.py --plant-faults [-j N] [fault ...]`` shows instead whether
 the K1/K2, K3, K4, K5, K6/K7 and nib4 checks can fail: it copies the
 package and this script into temporary directories, plants one known fault
 (``FAULTS``, ``NIB4_FAULTS``, ``K4_FAULTS``, ``K5_FAULTS`` and
 ``GEMV_FAULTS``; all of them unless some are named) in each copy's
-``csrc/decode_stream.cu``, for K3's (``K3_FAULTS``)
+``csrc/decode_stream.cu`` (``k6_next_group_scale`` in K6's GEMV tile,
+``csrc/gemv_tile.cuh``), for K3's (``K3_FAULTS``)
 ``csrc/flash_decode.cu``, for K4's ``csrc/flash_attention.cu``, for K5's
 ``csrc/qmm.cu``, for K5's and K8's nib4 modes ``csrc/qmm.cu`` and
 ``csrc/rqmm.cu``, for K1/K2's ``csrc/gemv.cu``, builds the copies, and
@@ -193,7 +194,8 @@ TOL_F32X = 1e-4            # K1/K2 on an f32 x against the f32 plain version: th
 FIX = ROOT / "tests" / "fixtures"
 PKG = "llama_cpp_gfx906_tpu_torch"
 
-# --plant-faults: name -> (text of csrc/decode_stream.cu, what replaces it)
+# --plant-faults: name -> (text of csrc/decode_stream.cu, what replaces it),
+# or (file under the package, text, what replaces it)
 FAULTS = {
     "none": None,
     # the current token's value left out of its own attention output
@@ -227,6 +229,16 @@ FAULTS = {
     # qwen3moe: an MoE stack dispatched to the instantiation without qk-norm
     "moe_qk_norm_skipped": ("return launch<1, FOLDED, true, true, GEMMA, KV>",
                             "return launch<1, FOLDED, true, true, false, KV>"),
+    # the attention merge leaves out the last split
+    "k6_merge_split_dropped": ("for (int sp = 0; sp < a.nsplit; ++sp) o += ldcg(",
+                               "for (int sp = 0; sp < a.nsplit - 1; ++sp) o += ldcg("),
+    # each GEMV unit takes the next quant group's scale for its rows (the low
+    # K half's, for nib4c; the last group wraps to the first)
+    "k6_next_group_scale": (
+        "csrc/gemv_tile.cuh",
+        "load_planes<FOLDED>(s, sd, klo / group, klo / sgroup, Np, col0, sc_lo);",
+        "load_planes<FOLDED>(s, sd, (klo / group + 1) % (K / group), klo / sgroup, Np, col0,"
+        " sc_lo);"),
     # K3: the ALiBi distance from physical rows while logical positions are set
     "alibi_physical_under_pos": (
         "if (alibi) sc -= sh.slope[qi] * static_cast<float>(qp - kq);",
@@ -3344,8 +3356,13 @@ def check_k4_bodies(paths: dict) -> dict:
 
 
 def plant_faults(names: list[str]) -> None:
-    """``--plant-faults [fault ...]`` (see the module docstring): the named
-    faults (all of them when none is named) and the unmodified source."""
+    """``--plant-faults [-j N] [fault ...]`` (see the module docstring): the
+    named faults (all of them when none is named) and the unmodified
+    source; with ``-j N`` the copies' readings run N at a time (each copy
+    its own process on the card, as one at a time)."""
+    jobs = 1
+    if names[:1] == ["-j"]:
+        jobs, names = int(names[1]), names[2:]
     known = {**FAULTS, **NIB4_FAULTS, **K4_FAULTS, **K5_FAULTS, **GEMV_FAULTS}
     unknown = set(names) - set(known)
     if unknown:
@@ -3378,10 +3395,26 @@ def plant_faults(names: list[str]) -> None:
             procs.append(subprocess.Popen([sys.executable, "-c", build], cwd=root))
         if any(p.wait() != 0 for p in procs):
             raise RuntimeError("a copy failed to build")
+        def finish(proc, out: Path) -> None:
+            # a copy's lines together, whatever ran beside it
+            rc = proc.wait()
+            sys.stdout.write(out.read_text())
+            sys.stdout.flush()
+            if rc != 0:
+                raise RuntimeError("a copy's readings failed")
+
+        running = []
         for fault, root in roots.items():
             group = ",".join(groups) if fault == "none" else fault_group(fault)
-            subprocess.run([sys.executable, "chip_smoke.py", "--decode-errors", fault, group],
-                           cwd=root, check=True)
+            out = root / "readings.jsonl"
+            with open(out, "w") as f:
+                running.append((subprocess.Popen(
+                    [sys.executable, "chip_smoke.py", "--decode-errors", fault, group],
+                    cwd=root, stdout=f), out))
+            if len(running) >= jobs:
+                finish(*running.pop(0))
+        for proc, out in running:
+            finish(proc, out)
 
 
 GROUP_LIBS = {"nib4": ("qmm", "rqmm"), "k3": ("flash_decode",), "k4": ("flash_attention",),
@@ -3409,6 +3442,8 @@ def fault_edits(fault: str) -> tuple:
         return grouped[fault]
     if FAULTS[fault] is None:
         return ()
+    if len(FAULTS[fault]) == 3:
+        return (FAULTS[fault],)
     src = "flash_decode" if fault in K3_FAULTS else "decode_stream"
     return ((f"csrc/{src}.cu", *FAULTS[fault]),)
 

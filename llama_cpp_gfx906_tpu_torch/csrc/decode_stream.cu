@@ -170,9 +170,30 @@ struct DecodeArgs {
 
 __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
 
-__device__ __forceinline__ void grid_sync(unsigned* bar) {
+// The phase trace (kernel_times.py --variant k6_trace sets TRACE): per
+// block, TRACE_W words of %globaltimer: the block's start, then for barrier
+// i of the launch (7 l + phase) its arrival (the block's work of the phase
+// done) and its release.
+constexpr bool TRACE = false;
+constexpr int TRACE_BARS = 7 * 32, TRACE_BLOCKS = 264, TRACE_W = 1 + 2 * TRACE_BARS;
+__device__ unsigned long long g_trace[TRACE ? TRACE_BLOCKS * TRACE_W : 1];
+
+__device__ __forceinline__ unsigned long long gtime() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned long long* trace_row() {
+  return TRACE && blockIdx.x < TRACE_BLOCKS ? g_trace + (size_t)blockIdx.x * TRACE_W : nullptr;
+}
+
+// i: the barrier's index in the launch (for the trace)
+__device__ __forceinline__ void grid_sync(unsigned* bar, int i) {
   __syncthreads();
   if (threadIdx.x == 0) {
+    unsigned long long* tr = trace_row();
+    if (tr != nullptr && i < TRACE_BARS) tr[1 + 2 * i] = gtime();
     volatile unsigned* gen = bar + 1;
     const unsigned g = *gen;
     __threadfence();
@@ -184,6 +205,7 @@ __device__ __forceinline__ void grid_sync(unsigned* bar) {
       while (*gen == g) __nanosleep(32);
     }
     __threadfence();
+    if (tr != nullptr && i < TRACE_BARS) tr[2 + 2 * i] = gtime();
   }
   __syncthreads();
 }
@@ -638,6 +660,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
   // (kernels.py's slots)
   lcg::count_launch(NIB_OK ? 1 + MOE + 2 * GEMMA : 5 + GEMMA);
   if (MOE && a.has_shexp) lcg::count_launch(7);
+  if (TRACE && threadIdx.x == 0 && trace_row() != nullptr) trace_row()[0] = gtime();
   __shared__ __align__(16) float smem[GT_SMEM_FLOATS];
   __shared__ float red[NWARP * MP], rs[MP];
   __shared__ float rs_post[GEMMA ? MP : 1], hs[GEMMA ? MAX_G : 1];
@@ -684,7 +707,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     gemv_phase<MP, FOLDED, NIB_OK>(hsrc, a, tb, P_QKV, a.qkv_acc,
                                    a.split_v ? P_V : -1,
                                    a.qkv_acc + a.proj[P_QKV].N, Nqkv, smem);
-    grid_sync(a.bar);
+    grid_sync(a.bar, 7 * l + 0);
 
     // P2, P3: the attention partials in two passes (maxima, then p and
     // P·V)
@@ -695,20 +718,20 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
       attn_unit<false, GEMMA, KV>(a, l, window, bh / a.Hkv, bh % a.Hkv, s,
                                   smem, m_s, l_s, tb, inv, hs);
     }
-    grid_sync(a.bar);
+    grid_sync(a.bar, 7 * l + 1);
     for (int u = blockIdx.x; u < nu; u += gridDim.x) {
       __syncthreads();
       const int s = u % a.nsplit, bh = u / a.nsplit;
       attn_unit<true, GEMMA, KV>(a, l, window, bh / a.Hkv, bh % a.Hkv, s,
                                  smem, m_s, l_s, tb, inv, hs);
     }
-    grid_sync(a.bar);
+    grid_sync(a.bar, 7 * l + 2);
 
     // P4: merge
     for (int u = blockIdx.x * NWARP + warp; u < B * a.Hq;
          u += gridDim.x * NWARP)
       merge_head(a, u / a.Hq, u % a.Hq);
-    grid_sync(a.bar);
+    grid_sync(a.bar, 7 * l + 3);
 
     // P5: the output projection
     auto osrc = [&](int m, int k) -> float {
@@ -716,7 +739,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
     };
     gemv_phase<MP, FOLDED, NIB_OK>(osrc, a, tb, P_O, a.o_acc, -1, nullptr, D,
                                    smem);
-    grid_sync(a.bar);
+    grid_sync(a.bar, 7 * l + 4);
 
     // P6: attention residual, rms, gate|up
     const float* pa = nullptr;  // the post-attention norm (gemma)
@@ -789,7 +812,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
       gemv_phase<MP, FOLDED, NIB_OK>(h2src, a, tb, P_GU, a.gu_acc, -1,
                                      nullptr, 2 * F, smem);
     }
-    grid_sync(a.bar);
+    grid_sync(a.bar, 7 * l + 5);
 
     // P7: act(gate) * up, down projection (MoE: the shared expert's, then
     // each chosen expert's, its partial sums weighted by the expert's
@@ -839,7 +862,7 @@ decode_kernel(const __grid_constant__ DecodeArgs a) {
       gemv_phase<MP, FOLDED, NIB_OK>(ysrc, a, tb, P_DN, a.dn_acc, -1, nullptr,
                                      D, smem);
     }
-    grid_sync(a.bar);
+    grid_sync(a.bar, 7 * l + 6);
   }
   const float* pf = nullptr;  // the last layer's post-FFN norm (gemma)
   if constexpr (GEMMA) {
@@ -927,6 +950,24 @@ cudaError_t dispatch_gemma(int mp, int folded, int moe, int gemma,
 }
 
 }  // namespace
+
+// The phase trace of the last launch (TRACE builds): n words of g_trace
+// into out, then zeroed; 0 words in a build without it.
+LCG_EXPORT int lcg_decode_trace(unsigned long long* out, long long n, long long* got) {
+  const long long have = TRACE ? (long long)(sizeof(g_trace) / sizeof(g_trace[0])) : 0;
+  *got = n < have ? n : have;
+  if (*got == 0) return cudaSuccess;
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_trace, *got * sizeof(unsigned long long));
+  if (e != cudaSuccess) return e;
+  static unsigned long long zeros[1024];
+  for (long long i = 0; i < have; i += 1024) {
+    const long long m = have - i < 1024 ? have - i : 1024;
+    e = cudaMemcpyToSymbol(g_trace, zeros, m * sizeof(unsigned long long),
+                           i * sizeof(unsigned long long));
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
 
 // K6.  mp: the slots padded to 1, 2, 4 or 8 (the buffers' row count);
 // folded != 0: every dense projection carries int8 sub-scales and f32

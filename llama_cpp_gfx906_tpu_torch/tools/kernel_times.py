@@ -18,15 +18,21 @@ mode (``RQMM_NIB4_CASES`` on :func:`oss_experts`) and K3 with sinks
 Each is timed as ``chip_smoke.py`` times a kernel (:func:`device_ms`).
 The ``prefill`` group times the model phases' whole prefills instead
 (``PREFILL_CASES``, :func:`prefill_times`), and the ``loop`` group whole
-decode tokens through K1 / K2 (``LOOP_CASES``: MPT-7B and BLOOM-7B1's
-``decode_fused``, and the 8B's 4-slot q8 batched step, :func:`loop_times`),
-by the host's clock.
+decode tokens (``LOOP_CASES``: MPT-7B and BLOOM-7B1's ``decode_fused``
+through K1 / K2, the 8B's, Gemma-3-4B's and Qwen3-8B's through K6, and the
+8B's 4-slot batched step with a q8 cache (the loop) and a bf16 one (K6),
+:func:`loop_times`), by the host's clock.
 Synthetic weights from seed 0; caches of random rows filled to n_past
 3000.  With ``--splits``, K1 / K2 and K5 are also timed at every tile and
 split count the kernel takes (``gemv_config`` and ``qmm_config`` pick one
 of them).  ``--variant`` times a copy of the package with one of
-``GEMV_VARIANTS``' edits to K1 / K2 (``stream_only``: the ring's stream
-alone).  ``--kernels`` picks the groups to build and time (default all);
+``VARIANTS``' edits: to K1 / K2 (``stream_only``: the ring's stream
+alone), or to K6 / K7 (``k6_trace``: each block stamps ``%globaltimer`` at
+its start and at each grid barrier's arrival and release; the ``decode``
+group then adds each case's ``trace``, :func:`decode_trace`).  The ``decode``
+group times each case at n_past 700 and 3000 with the per-layer loop's
+device time on the same step beside it (``loop_ms``, as ``chip_smoke.py``
+times it).  ``--kernels`` picks the groups to build and time (default all);
 the wall time of each build is printed.
 
 ``--root`` imports the package from another checkout (run the script by
@@ -229,13 +235,16 @@ PREFILL_CASES = (("8b", None, 676), ("qwen3-8b-q4_k_m", None, 1499),
 PREFILL_REPEATS = 5
 # (synth preset, layers (None: all)): the ``loop`` group's single-stream
 # models, timed through ``decode_fused`` (the per-layer loop in a graph)
-LOOP_CASES = (("mpt-7b-q4_k_m", None), ("bloom-7b1-q4_k_m", 4))
+LOOP_CASES = (("mpt-7b-q4_k_m", None), ("bloom-7b1-q4_k_m", 4), ("8b", None),
+              ("gemma3-4b-q4_k_m", None), ("qwen3-8b-q4_k_m", None))
 LOOP_PROMPT, LOOP_STEPS, LOOP_REPEATS = 256, 64, 5
 LOOP_SERVE_LENS = (700, 800, 900, 1000)  # the 8B 4-slot q8 step's prompts
-GROUPS = {"gemv": ("gemv",), "rqmm": ("rqmm",), "decode": ("decode_stream",),
+DECODE_N_PAST = (700, 3000)  # the decode group's steps
+GROUPS = {"gemv": ("gemv",), "rqmm": ("rqmm",),
+          "decode": ("decode_stream", "gemv", "flash_decode", "flash_attention", "qmm"),
           "k3": ("flash_decode",), "k4": ("flash_attention",), "k5": ("qmm",),
           "nib4": ("rqmm",), "prefill": ("gemv", "qmm", "flash_attention"),
-          "loop": ("gemv", "flash_decode", "flash_attention", "qmm")}
+          "loop": ("gemv", "flash_decode", "flash_attention", "qmm", "decode_stream")}
 
 
 def device_ms(fn, torch, flush, n: int = 10) -> float:
@@ -614,8 +623,10 @@ def main(argv=None) -> None:
                     help="also time K1 / K2 and K5 at every tile and split count")
     ap.add_argument("--kernels", default=",".join(GROUPS),
                     help=f"the groups to build and time, of {','.join(GROUPS)}")
-    ap.add_argument("--variant", choices=sorted(GEMV_VARIANTS),
-                    help="time a copy of --root's package with this K1 / K2 variant")
+    ap.add_argument("--cases", default="",
+                    help="the decode group's synth presets to time (default: every case's)")
+    ap.add_argument("--variant", choices=sorted(VARIANTS),
+                    help="time a copy of --root's package with this K1 / K2 or K6 / K7 variant")
     args = ap.parse_args(argv)
     groups = args.kernels.split(",")
     if args.variant:
@@ -625,7 +636,7 @@ def main(argv=None) -> None:
     import torch
 
     from llama_cpp_gfx906_tpu_torch import kernels
-    from llama_cpp_gfx906_tpu_torch.models.llama import KVCache, embed
+    from llama_cpp_gfx906_tpu_torch.models.llama import KVCache, embed, layers_forward
     from llama_cpp_gfx906_tpu_torch.ops import decode_step as k7
     from llama_cpp_gfx906_tpu_torch.ops import decode_stream as k6
     from llama_cpp_gfx906_tpu_torch.ops import quant_matmul as qmm
@@ -667,6 +678,8 @@ def main(argv=None) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         for name, preset, L, batches, synth in DECODE_CASES if "decode" in groups else ():
+            if args.cases and preset not in args.cases.split(","):
+                continue
             eng, path = decode_engine(tmp, preset, L, **synth)
             if eng is None:
                 emit(name, preset, None, left_out="no such preset in this checkout")
@@ -682,12 +695,20 @@ def main(argv=None) -> None:
                     continue
                 kv.k.copy_(torch.randn(kv.k.shape, generator=g, device=dev))
                 kv.v.copy_(torch.randn(kv.v.shape, generator=g, device=dev))
-                kv.n_past.fill_(3000)
                 x = embed(params, cfg, torch.randint(0, cfg.n_vocab, (B, 1), generator=g,
                                                      device=dev))
-                with torch.inference_mode():
-                    ms = device_ms(lambda: kern(params, cfg, x, kv), torch, flush)
-                emit(name, f"{preset} L={cfg.n_layers} B={B} n_past=3000", ms)
+                for n_past in DECODE_N_PAST:
+                    kv.n_past.fill_(n_past)
+                    with torch.inference_mode():
+                        ms = device_ms(lambda: kern(params, cfg, x, kv), torch, flush)
+                        loop_ms = device_ms(lambda: layers_forward(params, cfg, x, kv), torch,
+                                            flush)
+                        extra = {}
+                        if args.variant == "k6_trace":
+                            extra["trace"] = decode_trace(torch, k6, flush,
+                                                          lambda: kern(params, cfg, x, kv))
+                    emit(name, f"{preset} L={cfg.n_layers} B={B} n_past={n_past}", ms,
+                         loop_ms=loop_ms, **extra)
                 del kv
             del eng, params
             Path(path).unlink()
@@ -761,8 +782,77 @@ GEMV_VARIANTS = {
 }
 
 
+# Variants of K6 / K7: "k6_trace" compiles the phase trace in (``TRACE`` in
+# csrc/decode_stream.cu: each block's %globaltimer at its start and at each
+# grid barrier's arrival and release), read by :func:`decode_trace`
+DECODE_VARIANTS = {
+    "k6_trace": (("csrc/decode_stream.cu", "constexpr bool TRACE = false;",
+                  "constexpr bool TRACE = true;"),),
+}
+VARIANTS = {**GEMV_VARIANTS, **DECODE_VARIANTS}
+# K6 / K7's phases, one grid barrier ending each (csrc/decode_stream.cu P1-P7),
+# and the trace's size (its TRACE_BARS, TRACE_BLOCKS)
+TRACE_PHASES = ("qkv", "attn_max", "attn_pv", "merge", "o", "gu", "dn")
+TRACE_BARS, TRACE_BLOCKS = 7 * 32, 264
+
+
+def decode_trace(torch, k6, flush, fn) -> dict:
+    """One launch of ``fn`` (a K6 / K7 step of a ``k6_trace`` build) after
+    an L2 flush, and what its blocks stamped, summed by
+    :func:`trace_summary`."""
+    import ctypes
+
+    import numpy as np
+
+    so = k6._so()
+    so.lcg_decode_trace.restype = ctypes.c_int
+    so.lcg_decode_trace.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                    ctypes.POINTER(ctypes.c_longlong)]
+    buf = np.zeros(TRACE_BLOCKS * (1 + 2 * TRACE_BARS), np.uint64)
+    got = ctypes.c_longlong(0)
+    so.lcg_decode_trace(buf.ctypes.data, buf.size, ctypes.byref(got))  # clears it
+    flush.zero_()
+    with torch.inference_mode():
+        fn()
+    torch.cuda.synchronize()
+    so.lcg_decode_trace(buf.ctypes.data, buf.size, ctypes.byref(got))
+    if got.value == 0:
+        return {"left_out": "not a trace build"}
+    return trace_summary(buf.reshape(TRACE_BLOCKS, -1).astype(np.int64))
+
+
+def trace_summary(rows) -> dict:
+    """The trace's rows (a block each: its start, then each barrier's
+    arrival and release, ns; rows of blocks that did not run are 0) per
+    phase, summed over the layers: ``work_us``, a block's average time from
+    the last barrier's release to its arrival at the phase's barrier (its
+    share of the phase); ``wait_us``, its average time in that barrier;
+    ``span_us``, from the last block's release out of the previous barrier
+    to the last block's release out of this one; and ``barrier_us``, the
+    last block's arrival to its release (the barrier's own latency).  And
+    the step's span, first start to last release."""
+    import numpy as np
+
+    rows = rows[rows[:, 0] != 0]
+    n = int((rows[0, 1::2] != 0).sum())  # the barriers the launch passed
+    start = rows[:, 0:1]
+    arrive, release = rows[:, 1:1 + 2 * n:2], rows[:, 2:2 + 2 * n:2]
+    before = np.concatenate([start, release[:, :-1]], axis=1)
+    last_before = np.concatenate([[start.min()], release.max(0)[:-1]])
+    nb = rows.shape[0]
+    out = {"step_us": float(release.max() - start.min()) / 1e3, "blocks": nb}
+    for k, name in enumerate(TRACE_PHASES):
+        cols = np.arange(k, n, len(TRACE_PHASES))
+        out[name] = dict(
+            work_us=float((arrive - before)[:, cols].sum()) / 1e3 / nb,
+            wait_us=float((release - arrive)[:, cols].sum()) / 1e3 / nb,
+            span_us=float((release.max(0) - last_before)[cols].sum()) / 1e3,
+            barrier_us=float((release.max(0) - arrive.max(0))[cols].sum()) / 1e3)
+    return out
+
+
 def variant_root(root: Path, name: str) -> Path:
-    """A copy of ``root``'s package with GEMV_VARIANTS[name]'s edits, under
+    """A copy of ``root``'s package with VARIANTS[name]'s edits, under
     ``root/build/variants/<name>`` (made anew): the root to time."""
     import shutil
 
@@ -770,7 +860,7 @@ def variant_root(root: Path, name: str) -> Path:
     out = root / "build" / "variants" / name
     shutil.rmtree(out / pkg, ignore_errors=True)
     shutil.copytree(root / pkg, out / pkg, ignore=shutil.ignore_patterns("__pycache__"))
-    for rel, text, planted in GEMV_VARIANTS[name]:
+    for rel, text, planted in VARIANTS[name]:
         src = out / pkg / rel
         body = src.read_text()
         if body.count(text) != 1:
@@ -781,15 +871,17 @@ def variant_root(root: Path, name: str) -> Path:
 
 
 def loop_times(torch, emit) -> None:
-    """End to end through K1 / K2: per-token ``decode_fused`` time of each
-    ``LOOP_CASES`` model (MPT-7B at full depth, BLOOM-7B1 at 4 of 30
-    layers: the per-layer loop in a captured graph, K2 on every projection,
-    K3's ALiBi mode, K1 on the head), LOOP_STEPS tokens after a
-    LOOP_PROMPT-token prompt, LOOP_REPEATS times after a warm-up (host
-    clock between synchronizations), with the launches of one token as the
-    kernels count them on the device; then the 8B's 4-slot q8 decode step
-    (``BatchedEngine``, LOOP_SERVE_LENS prompts, LOOP_STEPS tokens each) by
-    its replays' device time and its wall time per step.  Synthetic weights
+    """End to end: per-token ``decode_fused`` time of each ``LOOP_CASES``
+    model (MPT-7B at full depth and BLOOM-7B1 at 4 of 30 layers through the
+    per-layer loop in a captured graph: K2 on every projection, K3's ALiBi
+    mode, K1 on the head; the 8B, Gemma-3-4B and Qwen3-8B at full depth
+    through K6 and K1), LOOP_STEPS tokens after a LOOP_PROMPT-token prompt,
+    LOOP_REPEATS times after a warm-up (host clock between
+    synchronizations), with the launches of one token as the kernels count
+    them on the device; then the 8B's 4-slot decode step (``BatchedEngine``,
+    LOOP_SERVE_LENS prompts, LOOP_STEPS tokens each) with a q8 cache (the
+    per-layer loop) and a bf16 one (K6) by its replays' device time and its
+    wall time per step.  Synthetic weights
     from seed 0, written once under this script's checkout
     (``build/prefill_ggufs``) and reused by later runs and other ``--root``s.
     One run moves by a few percent: alternate the checkouts compared."""
@@ -835,25 +927,33 @@ def loop_times(torch, emit) -> None:
 
     dev = torch.device("cuda")
     cfg, params, tok = load_model(gguf("8b", None), torch.bfloat16, dev)
-    be = BatchedEngine(cfg, params, tok, n_slots=4, max_seq=4096, kv_cache_dtype="q8",
-                       device=dev)
-    be.warmup()
-    rng = np.random.default_rng(6)
-    times = []
-    for _ in range(2):  # the first: warm-up
-        slots = [be.add_request([int(t) for t in rng.integers(3, cfg.n_vocab, n)], LOOP_STEPS,
-                                SamplerConfig(temp=0.0)) for n in LOOP_SERVE_LENS]
-        m0 = dict(be.metrics)
-        while not all(s.stop_reason is not None for s in slots):
-            be.step()
-        for s in slots:
-            be.release(s)
-        steps = be.metrics["n_decode_steps"] - m0["n_decode_steps"]
-        times.append(((be.metrics["t_decode_device_s"] - m0["t_decode_device_s"]) / steps,
-                      (be.metrics["t_decode_s"] - m0["t_decode_s"]) / steps))
-    emit("batched_step", "8b q8 4 slots", times[-1][0] * 1e3, wall_ms=times[-1][1] * 1e3,
-         decode_steps=steps)
-    del be, params
+    for cache in ("q8", "bf16"):
+        be = BatchedEngine(cfg, params, tok, n_slots=4, max_seq=4096,
+                           kv_cache_dtype=cache if cache == "q8" else torch.bfloat16,
+                           device=dev)
+        be.warmup()
+        rng = np.random.default_rng(6)
+        times = []
+        for _ in range(2):  # the first: warm-up
+            before = kernels.device_counts()
+            slots = [be.add_request([int(t) for t in rng.integers(3, cfg.n_vocab, n)],
+                                    LOOP_STEPS, SamplerConfig(temp=0.0))
+                     for n in LOOP_SERVE_LENS]
+            m0 = dict(be.metrics)
+            while not all(s.stop_reason is not None for s in slots):
+                be.step()
+            for s in slots:
+                be.release(s)
+            steps = be.metrics["n_decode_steps"] - m0["n_decode_steps"]
+            times.append(((be.metrics["t_decode_device_s"] - m0["t_decode_device_s"]) / steps,
+                          (be.metrics["t_decode_s"] - m0["t_decode_s"]) / steps))
+        ran = {k: v - before[k] for k, v in kernels.device_counts().items() if v != before[k]}
+        emit("batched_step", f"8b {cache} 4 slots", times[-1][0] * 1e3,
+             wall_ms=times[-1][1] * 1e3, decode_steps=steps,
+             decode_stream_launches=ran.get("decode_stream", 0))
+        del be
+        torch.cuda.empty_cache()
+    del params
     torch.cuda.empty_cache()
 
 

@@ -2,8 +2,8 @@
 the card name what exists, checked on the CPU: the K4 case that each K4 body's
 summary entry (and its one plain-version timing) reads, the K3 case that
 each K3 mode's entry reads, the K1 / K2 case that each GEMV entry reads, each
-``--kernels prefill`` case's preset, layer cut and prompt, and the sources
-that each ``--variant`` edits."""
+``--kernels prefill`` case's preset, layer cut and prompt, the sources
+that each ``--variant`` edits, and the K6 / K7 trace's reading."""
 
 import pytest
 
@@ -43,17 +43,18 @@ def test_gemv_summary_case_is_one_gemv_case(name):
     assert len(cases) == 1 and cases[0][1] == 1, (name, cases)
 
 
-@pytest.mark.parametrize("variant", sorted(kt.GEMV_VARIANTS))
+@pytest.mark.parametrize("variant", sorted(kt.VARIANTS))
 def test_gemv_variant_edits_apply(variant, tmp_path):
-    """Each variant's texts are in the kernel source once, and the copy
-    ``--variant`` times holds the edited source and the package."""
+    """Each variant's texts (K1/K2's and K6/K7's) are in the kernel source
+    once, and the copy ``--variant`` times holds the edited source and the
+    package."""
     from pathlib import Path
 
     root = Path(kernels.__file__).resolve().parents[1]
     pkg = root / "llama_cpp_gfx906_tpu_torch"
     (tmp_path / "llama_cpp_gfx906_tpu_torch").symlink_to(pkg)
     out = kt.variant_root(tmp_path, variant) / "llama_cpp_gfx906_tpu_torch"
-    for rel, text, planted in kt.GEMV_VARIANTS[variant]:
+    for rel, text, planted in kt.VARIANTS[variant]:
         assert (pkg / rel).read_text().count(text) == 1
         assert planted in (out / rel).read_text()
     assert (out / "kernels.py").read_bytes() == (pkg / "kernels.py").read_bytes()
@@ -70,3 +71,55 @@ def test_every_group_builds_known_sources():
     assert "prefill" in kt.GROUPS
     for names in kt.GROUPS.values():
         assert set(names) <= set(kernels.SOURCES)
+
+
+def test_trace_sizes_match_the_kernel():
+    """``decode_trace`` reads the buffer that csrc/decode_stream.cu's
+    ``TRACE`` build fills: the same barrier and block counts."""
+    from pathlib import Path
+
+    src = (Path(kernels.__file__).resolve().parent / "csrc" / "decode_stream.cu").read_text()
+    bars, blocks = kt.TRACE_BARS, kt.TRACE_BLOCKS
+    assert bars % 7 == 0 and f"TRACE_BARS = 7 * {bars // 7}," in src
+    assert f"TRACE_BLOCKS = {blocks}," in src
+    assert len(kt.TRACE_PHASES) == 7 and "constexpr bool TRACE = false;" in src
+
+
+@pytest.mark.parametrize("layers,blocks,run", [(1, 1, 1), (2, 3, 2), (18, 5, 5)])
+def test_trace_summary_sums_each_phase(layers, blocks, run):
+    """``trace_summary`` against a plain loop over the blocks that ran and
+    the barriers they passed, on stamps drawn from a seed (blocks past
+    ``run`` and barriers past the launch's are left 0, as the kernel leaves
+    them)."""
+    import numpy as np
+
+    rng = np.random.default_rng(layers * 100 + blocks)
+    n = 7 * layers
+    rows = np.zeros((blocks + 2, 1 + 2 * kt.TRACE_BARS), np.int64)
+    release = np.cumsum(rng.integers(1000, 5000, n)) + 10**6
+    for b in range(run):
+        t = 10**6 - int(rng.integers(1, 500))
+        rows[b, 0] = t
+        for i in range(n):
+            rows[b, 1 + 2 * i] = int(rng.integers(t + 1, release[i]))  # arrival
+            t = int(release[i]) + int(rng.integers(0, 50))  # release, block by block
+            rows[b, 2 + 2 * i] = t
+    got = kt.trace_summary(rows)
+    assert got["blocks"] == run
+    live = rows[:run]
+    assert got["step_us"] == pytest.approx(
+        (live[:, 2 * n].max() - live[:, 0].min()) / 1e3)
+    for k, name in enumerate(kt.TRACE_PHASES):
+        work = wait = span = bar = 0.0
+        for i in range(k, n, 7):
+            for b in range(run):
+                prev = live[b, 0] if i == 0 else live[b, 2 * i]
+                work += live[b, 1 + 2 * i] - prev
+                wait += live[b, 2 + 2 * i] - live[b, 1 + 2 * i]
+            last_prev = live[:, 0].min() if i == 0 else live[:, 2 * i].max()
+            span += live[:, 2 + 2 * i].max() - last_prev
+            bar += live[:, 2 + 2 * i].max() - live[:, 1 + 2 * i].max()
+        assert got[name]["work_us"] == pytest.approx(work / 1e3 / run)
+        assert got[name]["wait_us"] == pytest.approx(wait / 1e3 / run)
+        assert got[name]["span_us"] == pytest.approx(span / 1e3)
+        assert got[name]["barrier_us"] == pytest.approx(bar / 1e3)
